@@ -3,22 +3,35 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Builds every hand-written kernel of the serving path from the sources in the
-checkout, holds each against its plain PyTorch version on the card, then
-drives the serving path through its entry points:
+Builds every hand-written kernel of the serving and training paths from the
+sources in the checkout, holds each against its plain PyTorch version on the
+card, then drives both paths through their entry points:
 
 1. device: the card's name and power limit, and the TF32 flags as found
-   (left alone: the float32 model turns TF32 off inside its own forward);
-2. build: ``nvcc`` for the CUDA source;
-3. kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at the
-   shapes the serving path gives it, with times, the bound and a one-call
+   (left alone: the float32 model and trainer turn TF32 off for their own
+   calls);
+2. build: one ``nvcc`` per CUDA source, all started together;
+3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
+   the shapes the serving path gives it, with times, the bound and a one-call
    PyTorch yardstick (``torch.nn.LSTM``, cuDNN; never used by the port);
 4. serving, student: ``StreamingEnhancer`` on the trained r4 bundle answers
    four requests; per-chunk latency, real-time factor, launch count, and
    agreement with the same engine on the CPU;
 5. serving, teacher at full width (``dccrn-cl``, seeded weights): offline
    forward on 32 x 3 s; real-time factor, peak memory, agreement with the
-   CPU on one utterance.
+   CPU on one utterance;
+6. backward kernel vs plain: ``lstm_seq_bwd`` against
+   ``lstm_seq_bwd_reference`` at the training step's shape and others, with
+   times, the bound and the backward of cuDNN's ``torch.nn.LSTM`` as the
+   yardstick;
+7. training at full width: ``Trainer(TrainConfig())`` (teacher ``dccrn-cl``,
+   student ``dccrn-cl-test``, seeded) takes one warm-up and 10 timed CLSKD
+   steps on 32 x 3 s synthetic batches; step time, audio-seconds per second,
+   peak memory, every step's loss, launches per step; then one step on the
+   card against one on the CPU from the same weights (4 x 1 s): the loss on
+   white-noise and on synthetic-speech batches, the gradients on the
+   white-noise batch (on speech at random init the log-magnitude loss's
+   gradient is ill-conditioned; its error there is reported, not held).
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -37,10 +50,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BUNDLE = ROOT / "artifacts" / "r4_distill" / "the_best_model.npz"
-SOURCE = "lstm_seq_fwd.cu"
-# the serving configurations, shared with scripts/profile_serving_torch.py
+# the serving and training configurations, shared with
+# scripts/profile_serving_torch.py
 CHUNK_FRAMES, CONTEXT_FRAMES = 48, 64
 TEACHER_BATCH, TEACHER_SECONDS = 32, 3.0
+TRAIN_SECONDS, TRAIN_STEPS = 3.0, 10
+# card vs CPU training step: 4 x 1 s at full width
+CHECK_BATCH, CHECK_SECONDS = 4, 1.0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores.
@@ -52,6 +68,15 @@ PEAK_F32_FLOP_S = 67e12
 KERNEL_ATOL = 1e-4
 # card (cuDNN f32, no TF32) vs CPU port on the enhanced waveform in [-1, 1]
 SERVING_ATOL = 1e-4
+# card vs CPU training step: the loss, and each gradient tensor by relative
+# L2 error (float32 both sides, sums in another order; measured worst 1.4e-7
+# on the loss and, with cuDNN's deterministic algorithms, ~7e-5 on a PReLU
+# slope's gradient, NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL_L2 = 1e-4
+# a gradient that is zero in exact arithmetic (a conv bias in front of a
+# batch-statistics BN), against the global gradient norm
+ZERO_GRAD = 1e-6
 
 
 def say(phase: str, **fields) -> None:
@@ -79,14 +104,15 @@ def phase_device():
 
 def phase_build():
     from speech_enhancement_clskd_tpu_torch.kernels import _build
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import SOURCES
 
     t0 = time.perf_counter()
-    path = _build.build(SOURCE)
+    paths = _build.build_all(SOURCES)
     seconds = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in _build.log_path(SOURCE).read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    say("build", seconds=round(seconds, 3), library=str(path.relative_to(ROOT)),
-        ptxas=ptxas)
+    ptxas = {src: [ln.strip() for ln in _build.log_path(src).read_text().splitlines()
+                   if "registers" in ln or "spill" in ln] for src in SOURCES}
+    say("build", seconds=round(seconds, 3),
+        libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas)
 
 
 def _time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -111,6 +137,18 @@ def _lstm_bound_ms(T: int, N: int, H: int) -> tuple:
     elementwise ops per unit) at the card's peak."""
     nbytes = 4 * (T * N * 4 * H + H * 4 * H + 2 * T * N * H)
     flops = T * N * (2 * H * 4 * H + 12 * H)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _lstm_bwd_bound_ms(T: int, N: int, H: int) -> tuple:
+    """Least time for the backward's work: xw, W_hh, y, c and dy read once,
+    dxw and dW_hh written once; per row and step 24H^2 + 30H operations (the
+    gates recomputed, dh = dgates @ W_hh^T and h^T dgates into dW_hh, each
+    2 x H x 4H, plus the elementwise gate gradients)."""
+    nbytes = 4 * (2 * T * N * 4 * H + 2 * H * 4 * H + 3 * T * N * H)
+    flops = T * N * (24 * H * H + 30 * H)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -296,6 +334,224 @@ def phase_serving_teacher():
     return launches
 
 
+def phase_backward_vs_plain():
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
+        lstm_seq_bwd,
+        lstm_seq_bwd_reference,
+        lstm_seq_reference,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    dev = torch.device("cuda")
+    # (T, N=2B, H, initial state): the training step's student LSTM (T=483,
+    # batch 32 -> N=64, H=32), batch 1, the teacher's width, ragged tiles of
+    # 1, 2 and 4 rows, and a call with an initial state
+    shapes = [(483, 64, 32, False), (483, 2, 32, False), (483, 64, 128, False),
+              (20, 201, 128, False), (57, 3, 32, False), (118, 6, 32, True)]
+    results = []
+    for T, N, H, with_state in shapes:
+        g = torch.Generator().manual_seed(2000 * H + N)
+        xw = torch.randn(T, N, 4 * H, generator=g).to(dev)
+        w_hh = ((torch.rand(H, 4 * H, generator=g) * 2 - 1) / H ** 0.5).to(dev)
+        dy = torch.randn(T, N, H, generator=g).to(dev)
+        h0 = c0 = None
+        if with_state:
+            h0 = (torch.rand(N, H, generator=g) * 2 - 1).to(dev)
+            c0 = torch.randn(N, H, generator=g).to(dev)
+        with float32_math():
+            y, c = lstm_seq_reference(xw, w_hh, h0, c0)
+        before = lstm_seq_bwd.launches
+        dxw, dw = lstm_seq_bwd(xw, w_hh, y, c, dy, h0, c0)
+        if lstm_seq_bwd.launches != before + 1:
+            raise RuntimeError("lstm_seq_bwd did not count its launch")
+        with float32_math():
+            rdxw, rdw = lstm_seq_bwd_reference(xw, w_hh, y, c, dy, h0, c0)
+        torch.cuda.synchronize()
+        err_dxw = (dxw - rdxw).abs().max().item()
+        err_dw = (dw - rdw).abs().max().item() / max(1.0, rdw.abs().max().item())
+        ok = err_dxw <= KERNEL_ATOL and err_dw <= KERNEL_ATOL
+        rec = {"T": T, "N": N, "H": H, "initial_state": with_state,
+               "max_abs_err_dxw": err_dxw, "max_rel_err_dw_hh": err_dw, "tol": KERNEL_ATOL}
+        if not with_state:
+            ms = _time_ms(lambda: lstm_seq_bwd(xw, w_hh, y, c, dy), iters=20)
+            with float32_math():
+                plain_ms = _time_ms(lambda: lstm_seq_bwd_reference(xw, w_hh, y, c, dy), iters=3)
+            lib = torch.nn.LSTM(4 * H, H).to(dev)
+            with float32_math():  # cuDNN's LSTM would take TF32 too
+                with torch.no_grad():
+                    lib.weight_ih_l0.copy_(torch.eye(4 * H))
+                    lib.weight_hh_l0.copy_(w_hh.t())
+                    lib.bias_ih_l0.zero_()
+                    lib.bias_hh_l0.zero_()
+                x_in = xw.clone().requires_grad_(True)
+                lib_y = lib(x_in)[0]
+                lib_dx, lib_dw = torch.autograd.grad(lib_y, (x_in, lib.weight_hh_l0), dy,
+                                                     retain_graph=True)
+                library_ms = _time_ms(lambda: torch.autograd.grad(
+                    lib_y, (x_in, lib.weight_hh_l0), dy, retain_graph=True), iters=20)
+            bound_ms, bound_by = _lstm_bwd_bound_ms(T, N, H)
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       library_max_abs_err_dxw=(lib_dx - rdxw).abs().max().item(),
+                       library_max_abs_err_dw_hh=(lib_dw.t() - rdw).abs().max().item(),
+                       bound_ms=bound_ms, bound_by=bound_by)
+        say("backward_vs_plain", **rec)
+        if not ok:
+            raise RuntimeError(f"lstm_seq_bwd disagrees with its plain version: {rec}")
+        results.append(rec)
+    return results
+
+
+def train_batch(batch: int, seconds: float, seed: int = 2):
+    """``batch`` synthetic (mixture, clean) pairs of ``seconds``, float32
+    numpy ``[B, T]`` each."""
+    import numpy as np
+
+    from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
+
+    ds = SyntheticEnhancementDataset(size=batch, segment=seconds, seed=seed)
+    pairs = [ds[i] for i in range(batch)]
+    return (np.stack([m for m, _ in pairs]), np.stack([c[0] for _, c in pairs]))
+
+
+def _train_config(batch: int, seconds: float):
+    import dataclasses
+
+    from speech_enhancement_clskd_tpu_torch.config import TrainConfig
+
+    cfg = TrainConfig()
+    return dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, batch_size=batch, segment=seconds))
+
+
+def _grads(trainer):
+    return {f"{part}.{n}": p.grad.detach().cpu()
+            for part, m in trainer.trainable().items() for n, p in m.named_parameters()}
+
+
+def _grad_errors(card, cpu, grad_norm):
+    """Relative L2 error of every gradient tensor, card against CPU.  Two
+    kinds are held otherwise (tests/test_torch_trainer.py says why): a conv
+    bias in front of a batch-statistics BN has a zero gradient in exact
+    arithmetic (rounding noise on both sides: held to ZERO_GRAD of the
+    global norm), and an ABF bn2 bias is a sum of cancelling terms (held
+    against the same block's bn2.scale gradient)."""
+    import re
+
+    worst, exempt = 0.0, 0.0
+    for name, want in cpu.items():
+        got = card[name]
+        if re.fullmatch(r"student\.(enc|dec)\d+_conv\.b[ri]", name) and \
+                name.replace("_conv.br", "_bn.scale").replace("_conv.bi", "_bn.scale") in cpu:
+            exempt = max(exempt, got.abs().max().item() / grad_norm,
+                         want.abs().max().item() / grad_norm)
+            continue
+        ref = cpu[name[:-len("bias")] + "scale"] if name.endswith("bn2.bias") else want
+        worst = max(worst, ((got - want).norm() / max(ref.norm(), 1e-30)).item())
+    return worst, exempt
+
+
+def gaussian_batch(batch: int, seconds: float, seed: int = 0):
+    """White-noise (mixture, clean) pairs at 0.1 scale, as the CPU tests
+    use: flat spectra keep the log-magnitude loss well conditioned."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    clean = (0.1 * rng.standard_normal((batch, int(seconds * 16000)))).astype(np.float32)
+    return clean + (0.05 * rng.standard_normal(clean.shape)).astype(np.float32), clean
+
+
+def _card_vs_cpu(mix, clean) -> dict:
+    """One step on the card and one on the CPU from the same seeded weights
+    (cuDNN set to deterministic algorithms for this step, so the comparison
+    repeats): the loss's relative error and the gradients' (``_grad_errors``)."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
+
+    cfg = _train_config(CHECK_BATCH, CHECK_SECONDS)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        card = Trainer(cfg, device="cuda").init_state(1)
+        card_logs = card.train_step(mix, clean)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cpu = Trainer(cfg, device="cpu").init_state(1)
+    cpu_logs = cpu.train_step(mix, clean)
+    want = float(cpu_logs["train_loss"])
+    grad_err, zero_grad = _grad_errors(_grads(card), _grads(cpu), float(cpu_logs["grad_norm"]))
+    return {"batch": CHECK_BATCH, "seconds": CHECK_SECONDS,
+            "loss_rel_err": abs(float(card_logs["train_loss"]) - want) / abs(want),
+            "loss_rtol": TRAIN_LOSS_RTOL, "grad_max_rel_l2": grad_err,
+            "grad_tol": TRAIN_GRAD_REL_L2, "zero_grad_max": zero_grad, "zero_grad_tol": ZERO_GRAD}
+
+
+def phase_training():
+    import numpy as np
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_bwd
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
+
+    batch, cut = TEACHER_BATCH, []
+    while True:
+        cfg = _train_config(batch, TRAIN_SECONDS)
+        mix, clean = train_batch(batch, TRAIN_SECONDS)
+        trainer = Trainer(cfg, device="cuda").init_state(0)
+        try:
+            trainer.train_step(mix, clean)  # warm-up
+            torch.cuda.synchronize()
+            break
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            del trainer
+            torch.cuda.empty_cache()
+            cut.append(f"batch {batch} does not fit; halved")
+            batch //= 2
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = [], []
+    lstm_seq.launches = lstm_seq_bwd.launches = 0
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        logs = trainer.train_step(mix, clean)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(logs["train_loss"]))
+    launches = {"lstm_seq_fwd": lstm_seq.launches, "lstm_seq_bwd": lstm_seq_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    finite = bool(np.isfinite(losses).all()) and all(
+        bool(torch.isfinite(v).all()) for v in logs.values())
+    median_s = float(np.median(step_ms)) / 1e3
+    rec = dict(config="clskd TrainConfig()", batch=batch, seconds=TRAIN_SECONDS, cut=cut,
+               steps=TRAIN_STEPS, step_ms_median=median_s * 1e3,
+               step_ms_p90=float(np.percentile(step_ms, 90)), step_ms=step_ms,
+               audio_s_per_s=batch * TRAIN_SECONDS / median_s, peak_mem_bytes=peak,
+               losses=losses, logs_last={k: float(v) for k, v in logs.items()},
+               launches=launches, launches_per_step=per_step, finite=finite)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # one step on the card against one on the CPU from the same seeded weights
+    rec["card_vs_cpu"] = {name: _card_vs_cpu(*pair) for name, pair in (
+        ("gaussian", gaussian_batch(CHECK_BATCH, CHECK_SECONDS)),
+        ("speech", train_batch(CHECK_BATCH, CHECK_SECONDS, seed=3)))}
+    say("training", **rec)
+    if per_step != {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4}:
+        raise RuntimeError(f"LSTM kernel launches per step {per_step}, expected 8 and 4")
+    if not finite:
+        raise RuntimeError("a training step gave a non-finite value")
+    gate = rec["card_vs_cpu"]["gaussian"]
+    if (any(c["loss_rel_err"] > TRAIN_LOSS_RTOL for c in rec["card_vs_cpu"].values())
+            or gate["grad_max_rel_l2"] > TRAIN_GRAD_REL_L2 or gate["zero_grad_max"] > ZERO_GRAD):
+        raise RuntimeError("the training step on the card disagrees with the CPU")
+    return rec
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -304,23 +560,44 @@ def main() -> None:
 
     card = phase_device()
     phase_build()
-    per_shape = phase_kernel_vs_plain()
-    launches = phase_serving_student() + phase_serving_teacher()
-    main_shape = next(r for r in per_shape if (r["T"], r["N"], r["H"]) == (483, 64, 128))
+    fwd_shapes = phase_kernel_vs_plain()
+    serving_launches = phase_serving_student() + phase_serving_teacher()
+    bwd_shapes = phase_backward_vs_plain()
+    training = phase_training()
+    fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
+    bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
+    src = "speech_enhancement_clskd_tpu_torch/kernels/csrc/"
     kernels = [{
         "name": "lstm_seq_fwd",
         "route": "cuda",
-        "source": "speech_enhancement_clskd_tpu_torch/kernels/csrc/lstm_seq_fwd.cu",
+        "source": src + "lstm_seq_fwd.cu",
         "replaces": "speech_enhancement_clskd_tpu/ops/pallas/lstm.py:36",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err_y"] for r in per_shape),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
+        "launches": serving_launches + training["launches"]["lstm_seq_fwd"],
+        "max_abs_err": max(r["max_abs_err_y"] for r in fwd_shapes),
+        "ms": fwd["ms"],
+        "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"],
         "shape": {"T": 483, "N": 64, "H": 128},
-        "per_shape": per_shape,
+        "launches_by_path": {"serving": serving_launches,
+                             "training": training["launches"]["lstm_seq_fwd"]},
+        "per_shape": fwd_shapes,
+    }, {
+        "name": "lstm_seq_bwd",
+        "route": "cuda",
+        "source": src + "lstm_seq_bwd.cu",
+        "replaces": "speech_enhancement_clskd_tpu/ops/pallas/lstm.py:60",
+        "launches": training["launches"]["lstm_seq_bwd"],
+        "max_abs_err": max(max(r["max_abs_err_dxw"], r["max_rel_err_dw_hh"])
+                           for r in bwd_shapes),
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "shape": {"T": 483, "N": 64, "H": 32},
+        "per_shape": bwd_shapes,
     }]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Device-time breakdown of the PyTorch port's serving path on one NVIDIA GPU.
+"""Device-time breakdown of the PyTorch port's serving and training paths on
+one NVIDIA GPU.
 
     python3 scripts/profile_serving_torch.py [--trace-dir DIR]
 
-Two configurations, built as ``chip_smoke.py`` builds them:
+Three configurations, built as ``chip_smoke.py`` builds them:
 
 - student streaming: the r4 bundle, batch 1, one fixed-shape chunk step
   (chunk 48, context 64) repeated 40 times;
-- teacher offline: ``dccrn-cl`` with seeded weights, 32 x 3 s, 3 forwards.
+- teacher offline: ``dccrn-cl`` with seeded weights, 32 x 3 s, 3 forwards;
+- clskd train step: ``Trainer(TrainConfig())`` with seeded weights, 32 x 3 s
+  synthetic batches, 3 optimizer steps.
 
 For each it prints one JSON line: wall ms per step (host clock around
 synchronised steps, profiler off); from one profiled run of the same steps,
@@ -29,6 +32,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 STUDENT_CHUNKS = 40
 TEACHER_ITERS = 3
+TRAIN_ITERS = 3
 
 
 def _self_device_us(evt) -> float:
@@ -90,10 +94,11 @@ def main() -> None:
     import numpy as np
     import torch
 
-    from chip_smoke import student_engine, teacher_batch
+    from chip_smoke import TRAIN_SECONDS, student_engine, teacher_batch, train_batch
     from speech_enhancement_clskd_tpu_torch.config import TEACHER
     from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
     from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -119,6 +124,17 @@ def main() -> None:
 
     print(json.dumps(breakdown("teacher_offline_32x3s", teacher_step, TEACHER_ITERS,
                                args.trace_dir)), flush=True)
+    del model, batch
+
+    trainer = Trainer(device="cuda").init_state(0)
+    mix, clean = (torch.from_numpy(a).cuda()
+                  for a in train_batch(trainer.cfg.data.batch_size, TRAIN_SECONDS))
+
+    def train_step():
+        trainer.train_step(mix, clean)
+
+    print(json.dumps(breakdown("clskd_train_step", train_step, TRAIN_ITERS, args.trace_dir)),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,228 @@
+"""Attention-based fusion (ABF) + ReviewKD cross-layer feature chain.
+
+Port of ``speech_enhancement_clskd_tpu/distill/abf.py``, its default path
+(no Pallas kernel: ``abf_conv_pallas``, ``abf_attfuse_pallas`` and
+``abf_block_pallas`` are off by default and not ported yet).  Each ABF block
+takes one student tap ``[B, D, T, C_in]``:
+
+    x1   = tap @ W1                      (1x1 conv, bias-free)
+    xhat = bn1(x1)                       (batch moments derived from the tap)
+    xf   = sigmoid-attention blend of xhat with the residual of the previous
+           block, resized to this tap's geometry (all blocks but the first)
+    out  = bn2(conv3x3(xf))              (teacher channel count)
+
+and passes ``xf`` on as the next block's residual.  Processing starts from
+the deepest (smallest freq) map; outputs come back in tap-list order, so they
+zip 1:1 with the teacher taps.
+
+As in the JAX package, bn1's batch moments come from the tap's channel
+moments (``_bn1_moments_from_tap``), and the 1x1 conv and bn1's affine are
+folded into the attention contraction, so the mid-channel map x1 is never
+formed on its own.  Parameters keep the flax layouts (``conv1.kernel``
+``[1, 1, I, O]``, ``att_conv.kernel`` ``[1, 1, 2C, 2]`` + ``bias``) except the
+3x3 kernel, which is ``[O, I, 3, 3]`` for ``F.conv2d`` (``utils.bridge``
+permutes it).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.complex_layers import BatchNorm
+
+# flax's truncated_normal initializers divide the stddev by the stddev of a
+# unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def _kaiming_uniform_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
+    """flax ``kaiming_uniform``: U(-b, b), b = sqrt(6 / fan_in)."""
+    bound = math.sqrt(6.0 / fan_in)
+    t.uniform_(-bound, bound, generator=generator)
+
+
+def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]):
+    """flax ``lecun_normal``: a normal truncated at two deviations, scaled to
+    variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def _nearest_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
+    """Torch-exact nearest resize along one axis: out[i] = in[floor(i*n_in/n_out)]
+    (``F.interpolate`` mode='nearest').  An integer upscale is a repeat, a
+    downscale by one element a crop (floor(i*(n+1)/n) == i for i < n); other
+    sizes gather."""
+    n_in = x.shape[axis]
+    if n_in == n_out:
+        return x
+    if n_out % n_in == 0:
+        return torch.repeat_interleave(x, n_out // n_in, dim=axis)
+    if n_in - n_out == 1:
+        return x.narrow(axis, 0, n_out)
+    idx = torch.arange(n_out, device=x.device) * n_in // n_out
+    return x.index_select(axis, idx)
+
+
+def _resize_freq(x: torch.Tensor, d_out: int, t_out: Optional[int] = None) -> torch.Tensor:
+    """Nearest resize of the freq (and, when given, time) axis of [B, D, T, C]."""
+    t_out = x.shape[2] if t_out is None else t_out
+    return _nearest_axis(_nearest_axis(x, 1, d_out), 2, t_out)
+
+
+def _channel_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """float32 per-channel first moment [C] and second-moment matrix [C, C]
+    of a [..., C] map, over all leading axes."""
+    xf = x.float().reshape(-1, x.shape[-1])
+    n = xf.shape[0]
+    return xf.mean(dim=0), (xf.T @ xf) / n, n
+
+
+def _bn1_moments_from_tap(tap: torch.Tensor, w1: torch.Tensor):
+    """Batch-norm moments of ``x1 = tap @ w1`` without forming x1:
+    mean = m1 @ w1 and E[x1^2]_m = (w1^T E[tap tap^T] w1)_mm."""
+    m1, m2, n = _channel_moments(tap)
+    w1f = w1.float()
+    mean = m1 @ w1f
+    e2 = ((m2 @ w1f) * w1f).sum(dim=0)
+    return mean, e2 - mean.square(), n
+
+
+class _Kernel(nn.Module):
+    """A bare ``kernel`` parameter (the 1x1 conv of an ABF block)."""
+
+    def __init__(self, shape: Tuple[int, ...]):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(shape))
+
+
+class AttentionFuse(nn.Module):
+    """2-way sigmoid attention fusion of a map with the propagated residual:
+    resize the residual to the map's geometry, ``z = sigmoid(att_conv(
+    concat(xhat, y)))``, blend ``xhat*z0 + y*z1``.
+
+    ``x`` is the RAW tap; the normalized map is ``xhat = (x @ w_in) * a + b``
+    with the 1x1 conv ``w_in`` [C_in, C] and bn1's affine ``(a, b)`` folded
+    in.  The attention logit of the map is one tap-level contraction
+    ``x @ (w_in @ (a * wx))``; the residual's is contracted at its small size
+    and only the 2-channel logits are resized.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.channels = channels
+        self.kernel = nn.Parameter(torch.empty(1, 1, 2 * channels, 2))
+        self.bias = nn.Parameter(torch.zeros(2))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _lecun_normal_(self.kernel, 2 * self.channels, generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, res: torch.Tensor,
+                affine: Tuple[torch.Tensor, torch.Tensor], w_in: torch.Tensor) -> torch.Tensor:
+        c = self.channels
+        wx, wy = self.kernel[0, 0, :c], self.kernel[0, 0, c:]
+        a, b0 = affine
+        z_off = b0 @ wx + self.bias
+        wx_eff = w_in @ (a[:, None] * wx)  # [C_in, 2]
+        xhat = torch.matmul(x, w_in) * a + b0
+        y_small = _nearest_axis(res, 2, x.shape[2])
+        zx = torch.matmul(x, wx_eff)
+        zy = _nearest_axis(torch.matmul(y_small, wy), 1, x.shape[1])
+        z = torch.sigmoid(zx + zy + z_off)
+        y = _nearest_axis(y_small, 1, x.shape[1])
+        return xhat * z[..., 0:1] + y * z[..., 1:2]
+
+
+class Conv3x3(nn.Module):
+    """Bias-free 3x3 SAME conv over [B, D, T, C] (``F.conv2d`` on the NCHW
+    view, as the JAX default path leaves it to XLA's conv)."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(features, in_channels, 3, 3))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _kaiming_uniform_(self.kernel, 9 * self.kernel.shape[1], generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.permute(0, 3, 1, 2), self.kernel, padding=1).permute(0, 2, 3, 1)
+
+
+class ABF(nn.Module):
+    """One fusion block: 1x1 conv -> bn1, optional attention fusion with the
+    propagated residual, 3x3 conv -> bn2.  Returns ``(out, xf)``: the block's
+    output (teacher channels) and the fused map passed on as residual."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int, fuse: bool):
+        super().__init__()
+        self.conv1 = _Kernel((1, 1, in_channels, mid_channels))
+        self.bn1 = BatchNorm(mid_channels)
+        self.att_conv = AttentionFuse(mid_channels) if fuse else None
+        self.conv2 = Conv3x3(mid_channels, out_channels)
+        self.bn2 = BatchNorm(out_channels)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        _kaiming_uniform_(self.conv1.kernel, self.conv1.kernel.shape[2], generator)
+        self.bn1.reset_parameters(generator)
+        if self.att_conv is not None:
+            self.att_conv.reset_parameters(generator)
+        self.conv2.reset_parameters(generator)
+        self.bn2.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                training: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        w1 = self.conv1.kernel[0, 0]
+        moments = _bn1_moments_from_tap(x, w1) if training else None
+        aff = self.bn1(None, training=training, return_affine=True, moments=moments)
+        if self.att_conv is not None and residual is not None:
+            x = self.att_conv(x, residual, aff, w1)
+        else:
+            a, b0 = aff
+            x = torch.matmul(x, w1) * a + b0
+        return self.bn2(self.conv2(x), training=training), x
+
+
+class ReviewKD(nn.Module):
+    """A chain of ABF blocks over a tap list.
+
+    ``in_channels[i]``/``out_channels[i]`` are the student's and the
+    teacher's channel counts of tap i (tap-list order).  ``reverse=True`` for
+    encoder taps (the list runs shallow -> deep, so processing starts from
+    its end); decoder tap lists already lead with the deepest map.  Block
+    ``abf{i}`` is the i-th in processing order.
+    """
+
+    def __init__(self, in_channels: Sequence[int], out_channels: Sequence[int],
+                 mid_channels: int, reverse: bool = True):
+        super().__init__()
+        if len(in_channels) != len(out_channels):
+            raise ValueError("in_channels and out_channels differ in length")
+        self.reverse = reverse
+        ins = list(in_channels[::-1] if reverse else in_channels)
+        outs = list(out_channels[::-1] if reverse else out_channels)
+        self.blocks = len(ins)
+        for i, (c_in, c_out) in enumerate(zip(ins, outs)):
+            self.add_module(f"abf{i}", ABF(c_in, mid_channels, c_out, fuse=i > 0))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for i in range(self.blocks):
+            getattr(self, f"abf{i}").reset_parameters(generator)
+
+    def forward(self, feats: Sequence[torch.Tensor], training: bool = True) -> List[torch.Tensor]:
+        xs = list(feats[::-1] if self.reverse else feats)
+        results: List[torch.Tensor] = []
+        res = None
+        for i, f in enumerate(xs):
+            out, res = getattr(self, f"abf{i}")(f, res, training)
+            results.append(out)
+        return results[::-1] if self.reverse else results

@@ -1,0 +1,73 @@
+"""The distillation strategies as loss functions.
+
+Port of ``speech_enhancement_clskd_tpu/distill/strategies.py``, the
+``clskd`` strategy: SPKD between the ReviewKD-fused student taps and the
+teacher's encoder/decoder taps, plus SPKD on the complex-LSTM real/imaginary
+states.  Every strategy adds the base loss, the single-resolution
+log-STFT-magnitude L1 of the student output against the clean target.  The
+other four strategies (``reviewkd``, ``spkd``, ``mse``, ``stft``) are ROADMAP
+queue 1 item 4 and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..config import DistillConfig
+from ..losses.kd import spkd_loss
+from ..losses.spectral import multi_resolution_stft_loss
+from ..models.dccrn import DCCRNOutput
+
+STRATEGIES = ("clskd", "reviewkd", "spkd", "mse", "stft")
+
+
+def base_loss(student_wav: torch.Tensor, clean: torch.Tensor, dcfg: DistillConfig) -> torch.Tensor:
+    """MRSTFT magnitude term against the clean target, in float32."""
+    _, mag = multi_resolution_stft_loss(
+        student_wav.float(),
+        clean.float(),
+        fft_sizes=dcfg.mrstft_fft_sizes,
+        hop_sizes=dcfg.mrstft_hop_sizes,
+        win_lengths=dcfg.mrstft_win_lengths,
+        factor_sc=dcfg.mrstft_factor_sc,
+        factor_mag=dcfg.mrstft_factor_mag,
+    )
+    return mag
+
+
+def distill_loss(
+    strategy: str,
+    s_out: DCCRNOutput,
+    t_out: DCCRNOutput,
+    clean: torch.Tensor,
+    dcfg: DistillConfig,
+    fused_encoder: Optional[list] = None,
+    fused_decoder: Optional[list] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total loss + per-term logs for one strategy.  ``fused_encoder`` and
+    ``fused_decoder`` are the ReviewKD outputs over the student's taps."""
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown distill strategy {strategy!r}")
+    if strategy != "clskd":
+        raise NotImplementedError(
+            f"distill strategy {strategy!r} is ROADMAP queue 1 item 4; the port "
+            "trains clskd")
+    logs: Dict[str, torch.Tensor] = {}
+    base = base_loss(s_out.wav, clean, dcfg)
+    logs["base_loss"] = base
+    gg = dcfg.spkd_gram_groups
+    enc = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
+              for sf, tf in zip(fused_encoder, t_out.taps.encoder))
+    dec = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
+              for sf, tf in zip(fused_decoder, t_out.taps.decoder))
+    # LSTM taps are [T, B, F]: the Gram runs over batch axis 1
+    lr = spkd_loss(s_out.taps.lstm_real, t_out.taps.lstm_real, "batchmean",
+                   batch_axis=1, groups=gg)
+    li = spkd_loss(s_out.taps.lstm_imag, t_out.taps.lstm_imag, "batchmean",
+                   batch_axis=1, groups=gg)
+    logs.update(enc_loss=enc, dec_loss=dec, clstm_real_loss=lr, clstm_imag_loss=li)
+    total = base + dcfg.distill_weight * (enc + dec + lr + li)
+    logs["train_loss"] = total
+    return total, logs

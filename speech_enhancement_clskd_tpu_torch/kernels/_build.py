@@ -2,10 +2,11 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 with ``nvcc`` for Hopper (``sm_90a``) into ``kernels/build/``, then loaded
-with ``ctypes``.  The library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded.  ``nvcc``'s
-output, including ``-Xptxas -v``'s register and shared-memory report, is kept
-beside the library as ``<name>.log``.
+with ``ctypes``.  The library's file name carries a hash of its source and of
+the shared headers (``csrc/*.cuh``), so an edited source is rebuilt and a
+stale library is never loaded.  ``nvcc``'s output, including ``-Xptxas -v``'s
+register and shared-memory report, is kept beside the library as
+``<name>.log``.  ``build_all`` starts one ``nvcc`` per source, all at once.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -41,33 +42,57 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     src = CSRC_DIR / source
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
+    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def log_path(source: str) -> Path:
     return library_path(source).with_suffix(".log")
 
 
+def build_all(sources: Sequence[str]) -> List[Path]:
+    """The libraries built from ``csrc/<source>`` for each source, compiling
+    the missing ones with one ``nvcc`` each, all started together."""
+    outs = [library_path(s) for s in sources]
+    todo = [(s, out) for s, out in zip(sources, outs) if not out.exists()]
+    if not todo:
+        return outs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for source, out in todo:
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+            procs.append((source, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for source, out, tmp, proc in procs:
+            try:
+                log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+            except subprocess.TimeoutExpired as e:
+                raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s on {source}") from e
+            log_path(source).write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed for {source}:\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
 def build(source: str) -> Path:
     """The library built from ``csrc/<source>``, compiled first if need be."""
-    out = library_path(source)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-    try:
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True, timeout=NVCC_TIMEOUT_S)
-    except subprocess.TimeoutExpired as e:
-        raise RuntimeError(f"nvcc timed out after {NVCC_TIMEOUT_S} s on {source}") from e
-    log_path(source).write_text(proc.stdout)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {source}:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+    return build_all([source])[0]
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -38,22 +38,18 @@
 //     read through L2 (256 KB sits easily in the 50 MB L2).
 //     A cluster splitting the columns over DSMEM, or bf16 W_hh, is later work.
 //   - ROWS is the smallest of 1, 2, 4 that gives no more blocks than the card
-//     has SMs, so small batches spread one row per SM and large ones amortise
-//     each W_hh read over more rows.
+//     has SMs (common.cuh, rows_per_block).
 //
 // Interface: plain C, bound with ctypes.  Pointers and the stream are passed as
 // void*; the return value is cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-
-#include <atomic>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxDevices = 64;
-
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
+using lstm_common::kMaxDevices;
+using lstm_common::kMaxThreads;
+using lstm_common::sigmoid_f32;
 
 template <int ROWS>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -136,27 +132,6 @@ lstm_seq_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh
   }
 }
 
-// SM count and opt-in shared memory per block of each device, read once; the
-// launch path then asks the runtime only which device is current.
-cudaError_t device_limits(int* dev, int* sms, int* max_smem) {
-  static std::atomic<int> sms_cache[kMaxDevices], smem_cache[kMaxDevices];
-  cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return err;
-  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (sms_cache[*dev] == 0) {
-    int s = 0, m = 0;
-    err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, *dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&m, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
-    if (err != cudaSuccess) return err;
-    smem_cache[*dev] = m;
-    sms_cache[*dev] = s;
-  }
-  *max_smem = smem_cache[*dev];
-  *sms = sms_cache[*dev];
-  return cudaSuccess;
-}
-
 template <int ROWS>
 cudaError_t launch(const float* xw, const float* w_hh, const float* h0, const float* c0,
                    float* y, float* c, int T, int N, int H, int dev, int max_smem,
@@ -192,11 +167,9 @@ extern "C" int lstm_seq_fwd(const void* xw, const void* w_hh, const void* h0,
                             void* stream) {
   if (H < 1 || 4 * H > kMaxThreads || N < 1 || T < 1) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, max_smem = 0;
-  cudaError_t err = device_limits(&dev, &sms, &max_smem);
+  cudaError_t err = lstm_common::device_limits(&dev, &sms, &max_smem);
   if (err != cudaSuccess) return (int)err;
-  // the fewest rows per block (1, 2 or 4) that need no more blocks than SMs
-  int rows = 1;
-  while (rows < 4 && (N + rows - 1) / rows > sms) rows *= 2;
+  const int rows = lstm_common::rows_per_block(N, sms);
   const float* a = static_cast<const float*>(xw);
   const float* w = static_cast<const float*>(w_hh);
   const float* hi = static_cast<const float*>(h0);

@@ -1,19 +1,22 @@
-"""The LSTM recurrence over a whole sequence: a hand-written Hopper kernel and
-its plain PyTorch version.
+"""The LSTM recurrence over a whole sequence and its backward: hand-written
+Hopper kernels and their plain PyTorch versions.
 
-Replaces ``speech_enhancement_clskd_tpu/ops/pallas/lstm.py::_fwd_kernel``
-(via ``lstm_seq``).  ``lstm_seq(xw, w_hh, h0, c0) -> (y, c)`` takes the
+Replaces ``speech_enhancement_clskd_tpu/ops/pallas/lstm.py``: ``_fwd_kernel``
+(K1f, via ``lstm_seq``) and ``_bwd_kernel`` (K1b, via the custom VJP
+``_lstm_bwd``).  ``lstm_seq(xw, w_hh, h0, c0) -> (y, c)`` takes the
 pre-projected inputs ``xw = x @ W_ih + b`` ``[T, N, 4H]`` and the recurrent
 weights ``W_hh [H, 4H]`` (gate order i, f, g, o) and returns the hidden and
-cell states of every step, ``[T, N, H]`` each, in float32.
+cell states of every step, ``[T, N, H]`` each, in float32.  It is
+differentiable in ``xw`` and ``w_hh``; ``c`` is not differentiable, and
+gradients for ``h0``/``c0`` are not supported (the JAX kernel path runs
+without a state).
 
-- On a CUDA tensor it launches the kernel of ``csrc/lstm_seq_fwd.cu`` (built
-  at first use) or raises; nothing falls back.  The source's head note says
-  what bounds the kernel on the H100 and how its design answers that.
-- On a CPU tensor it runs ``lstm_seq_reference``, a plain time loop.
-
-This slice serves only: the backward kernel (K1b) comes with the training
-slice, and until then a call that needs a gradient raises.
+- On a CUDA tensor the forward launches the kernel of ``csrc/lstm_seq_fwd.cu``
+  and the backward that of ``csrc/lstm_seq_bwd.cu`` (each built at first use),
+  or raise; nothing falls back.  The sources' head notes say what bounds each
+  kernel on the H100 and how its design answers that.
+- On a CPU tensor they run ``lstm_seq_reference`` and
+  ``lstm_seq_bwd_reference``, plain time loops.
 """
 
 from __future__ import annotations
@@ -23,11 +26,18 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 
-SOURCE = "lstm_seq_fwd.cu"
+FWD_SOURCE = "lstm_seq_fwd.cu"
+BWD_SOURCE = "lstm_seq_bwd.cu"
+SOURCES = (FWD_SOURCE, BWD_SOURCE)
 MAX_GATES = 1024  # one thread per gate column, at most 1024 threads a block
+# rows of the T*N axis per block of the backward's dW_hh pass; the scratch
+# holds one [H, 4H] partial per chunk (grid.y allows at most 65535 chunks)
+DW_CHUNK_ROWS = 512
+MAX_DW_CHUNKS = 65535
 
 
 def lstm_seq_reference(
@@ -36,7 +46,7 @@ def lstm_seq_reference(
     h0: Optional[torch.Tensor] = None,
     c0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch time loop computing what the kernel computes."""
+    """Plain PyTorch time loop computing what the forward kernel computes."""
     T, N, G = xw.shape
     H = G // 4
     h = xw.new_zeros(N, H) if h0 is None else h0
@@ -52,6 +62,62 @@ def lstm_seq_reference(
     return torch.stack(ys), torch.stack(cs)
 
 
+@torch.no_grad()
+def lstm_seq_bwd_reference(
+    xw: torch.Tensor,
+    w_hh: torch.Tensor,
+    y: torch.Tensor,
+    c: torch.Tensor,
+    dy: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    c0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch reverse time loop computing what the backward kernel
+    computes, step by step as the Pallas ``_bwd_kernel`` does: recompute the
+    gates from h_{t-1}, c_{t-1}; dh = dy_t + dgates_{t+1} @ W_hh^T; dc carried
+    through f; dxw[t] = dgates_t; dW_hh += h_{t-1}^T @ dgates_t."""
+    T, N, G = xw.shape
+    H = G // 4
+    zeros = xw.new_zeros(1, N, H)
+    h_prev = torch.cat([zeros if h0 is None else h0[None], y[:-1]])
+    c_prev = torch.cat([zeros if c0 is None else c0[None], c[:-1]])
+    dh_next = xw.new_zeros(N, H)
+    dc_next = xw.new_zeros(N, H)
+    dw_hh = torch.zeros_like(w_hh)
+    dxw = torch.empty_like(xw)
+    for t in reversed(range(T)):
+        gates = xw[t] + h_prev[t] @ w_hh
+        i = torch.sigmoid(gates[:, :H])
+        f = torch.sigmoid(gates[:, H:2 * H])
+        g = torch.tanh(gates[:, 2 * H:3 * H])
+        o = torch.sigmoid(gates[:, 3 * H:])
+        tc = torch.tanh(c[t])
+        dh = dy[t] + dh_next
+        do_lin = dh * tc * o * (1 - o)
+        dc = dh * o * (1 - tc * tc) + dc_next
+        di_lin = dc * g * i * (1 - i)
+        dg_lin = dc * i * (1 - g * g)
+        df_lin = dc * c_prev[t] * f * (1 - f)
+        dgates = torch.cat([di_lin, df_lin, dg_lin, do_lin], dim=-1)
+        dxw[t] = dgates
+        dw_hh += h_prev[t].T @ dgates
+        dh_next = dgates @ w_hh.T
+        dc_next = dc * f
+    return dxw, dw_hh
+
+
+def _check_tensors(named, device: torch.device) -> None:
+    for name, t in named:
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, xw on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 def _check(xw, w_hh, h0, c0) -> None:
     if xw.ndim != 3 or xw.shape[-1] % 4 or xw.shape[0] < 1 or xw.shape[1] < 1:
         raise ValueError(f"xw must be [T>=1, N>=1, 4H], got {tuple(xw.shape)}")
@@ -62,29 +128,104 @@ def _check(xw, w_hh, h0, c0) -> None:
     for name, s in (("h0", h0), ("c0", c0)):
         if s is not None and tuple(s.shape) != (N, H):
             raise ValueError(f"{name} must be [{N}, {H}], got {tuple(s.shape)}")
-    for name, t in (("xw", xw), ("w_hh", w_hh), ("h0", h0), ("c0", c0)):
-        if t is None:
-            continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != xw.device:
-            raise ValueError(f"{name} is on {t.device}, xw on {xw.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if torch.is_grad_enabled() and t.requires_grad:
-            raise NotImplementedError(
-                "lstm_seq has no backward yet (kernel K1b, ROADMAP queue 2); "
-                "call it under torch.no_grad() or on tensors without grad"
-            )
+    _check_tensors((("xw", xw), ("w_hh", w_hh), ("h0", h0), ("c0", c0)), xw.device)
+    if xw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lstm_seq runs on CPU or CUDA tensors, not {xw.device}")
+    if xw.device.type == "cuda" and G > MAX_GATES:
+        raise ValueError(f"the kernels run one thread per gate column: 4H <= {MAX_GATES}, got {G}")
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _library(source: str) -> ctypes.CDLL:
+    lib = _build.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_seq_fwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-    lib.lstm_seq_fwd.restype = i32
+    if source == FWD_SOURCE:
+        lib.lstm_seq_fwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
+        lib.lstm_seq_fwd.restype = i32
+    else:
+        lib.lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+        lib.lstm_seq_bwd.restype = i32
     return lib
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _fwd(xw, w_hh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on checked inputs: the K1f kernel on CUDA tensors (counted
+    in ``lstm_seq.launches``), the plain loop on CPU tensors."""
+    if xw.device.type == "cpu":
+        return lstm_seq_reference(xw, w_hh, h0, c0)
+    T, N, G = xw.shape
+    lib = _library(FWD_SOURCE)
+    y = torch.empty(T, N, G // 4, device=xw.device, dtype=torch.float32)
+    c = torch.empty_like(y)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream(xw.device).cuda_stream
+        err = lib.lstm_seq_fwd(_ptr(xw), _ptr(w_hh), _ptr(h0), _ptr(c0), _ptr(y), _ptr(c),
+                               T, N, G // 4, stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_fwd launch failed: CUDA error {err}")
+    lstm_seq.launches += 1
+    return y, c
+
+
+def lstm_seq_bwd(
+    xw: torch.Tensor,
+    w_hh: torch.Tensor,
+    y: torch.Tensor,
+    c: torch.Tensor,
+    dy: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+    c0: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients ``(dxw, dw_hh)`` of ``lstm_seq``'s ``y`` for the incoming
+    ``dy``, from the forward's inputs and outputs: the K1b kernel on CUDA
+    tensors, ``lstm_seq_bwd_reference`` on CPU tensors."""
+    _check(xw, w_hh, h0, c0)
+    T, N, G = xw.shape
+    for name, t in (("y", y), ("c", c), ("dy", dy)):
+        if tuple(t.shape) != (T, N, G // 4):
+            raise ValueError(f"{name} must be [{T}, {N}, {G // 4}], got {tuple(t.shape)}")
+    _check_tensors((("y", y), ("c", c), ("dy", dy)), xw.device)
+    if xw.device.type == "cpu":
+        return lstm_seq_bwd_reference(xw, w_hh, y, c, dy, h0, c0)
+    H = G // 4
+    chunk_rows = max(DW_CHUNK_ROWS, -(-T * N // MAX_DW_CHUNKS))
+    chunks = -(-T * N // chunk_rows)
+    lib = _library(BWD_SOURCE)
+    dxw = torch.empty_like(xw)
+    dw_hh = torch.empty_like(w_hh)
+    scratch = torch.empty(chunks, H, G, device=xw.device, dtype=torch.float32)
+    with torch.cuda.device(xw.device):
+        stream = torch.cuda.current_stream(xw.device).cuda_stream
+        err = lib.lstm_seq_bwd(_ptr(xw), _ptr(w_hh), _ptr(y), _ptr(c), _ptr(dy), _ptr(h0),
+                               _ptr(c0), _ptr(dxw), _ptr(dw_hh), _ptr(scratch),
+                               T, N, H, chunk_rows, stream)
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_bwd launch failed: CUDA error {err}")
+    lstm_seq_bwd.launches += 1
+    return dxw, dw_hh
+
+
+lstm_seq_bwd.launches = 0
+
+
+class _LSTMSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xw, w_hh, h0, c0):
+        y, c = _fwd(xw, w_hh, h0, c0)
+        ctx.save_for_backward(xw, w_hh, y, c, h0, c0)
+        ctx.mark_non_differentiable(c)
+        return y, c
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, _dc):
+        xw, w_hh, y, c, h0, c0 = ctx.saved_tensors
+        dxw, dw_hh = lstm_seq_bwd(xw, w_hh, y, c, dy.contiguous(), h0, c0)
+        return dxw, dw_hh, None, None
 
 
 def lstm_seq(
@@ -93,31 +234,14 @@ def lstm_seq(
     h0: Optional[torch.Tensor] = None,
     c0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[T, N, 4H] + [H, 4H] (+ [N, H] initial states) -> y, c [T, N, H]."""
+    """[T, N, 4H] + [H, 4H] (+ [N, H] initial states) -> y, c [T, N, H];
+    differentiable in ``xw`` and ``w_hh``."""
     _check(xw, w_hh, h0, c0)
-    if xw.device.type == "cpu":
-        return lstm_seq_reference(xw, w_hh, h0, c0)
-    if xw.device.type != "cuda":
-        raise ValueError(f"lstm_seq runs on CPU or CUDA tensors, not {xw.device}")
-    T, N, G = xw.shape
-    H = G // 4
-    if G > MAX_GATES:
-        raise ValueError(f"the kernel runs one thread per gate column: 4H <= {MAX_GATES}, got {G}")
-    lib = _library()
-    y = torch.empty(T, N, H, device=xw.device, dtype=torch.float32)
-    c = torch.empty_like(y)
-    with torch.cuda.device(xw.device):
-        stream = torch.cuda.current_stream(xw.device).cuda_stream
-        err = lib.lstm_seq_fwd(
-            xw.data_ptr(), w_hh.data_ptr(),
-            None if h0 is None else h0.data_ptr(),
-            None if c0 is None else c0.data_ptr(),
-            y.data_ptr(), c.data_ptr(), T, N, H, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"lstm_seq_fwd launch failed: CUDA error {err}")
-    lstm_seq.launches += 1
-    return y, c
+    if torch.is_grad_enabled() and any(s is not None and s.requires_grad for s in (h0, c0)):
+        raise NotImplementedError(
+            "lstm_seq has no gradient for h0/c0 (the JAX kernel path runs without a "
+            "state); pass them without requires_grad")
+    return _LSTMSeq.apply(xw, w_hh, h0, c0)
 
 
 lstm_seq.launches = 0

@@ -1,11 +1,14 @@
 """DCCRN model family: one parameterized module covering teacher and student.
 
-Port of ``speech_enhancement_clskd_tpu/models/dccrn.py``, eval mode (the
-serving path):
+Port of ``speech_enhancement_clskd_tpu/models/dccrn.py``:
 
-STFT -> 6 causal complex convs, each with BN on running stats and PReLU ->
-2 complex LSTM layers (the sequence kernel) -> 6 complex transpose convs with
-skip ``complex_cat`` -> mask (E, C or R) -> iSTFT.
+STFT -> 6 causal complex convs, each with BN and PReLU -> 2 complex LSTM
+layers (the sequence kernels) -> 6 complex transpose convs with skip
+``complex_cat`` -> mask (E, C or R) -> iSTFT.
+
+``forward(wav)`` serves (BN on running statistics);
+``forward(wav, training=True)`` trains (BN on batch statistics, running
+statistics updated, the LSTM backward kernel under autograd).
 
 Feature taps are explicit outputs (``FeatureTaps``) in the JAX layouts:
 encoder/decoder taps channels-last packed complex ``[B, D, T, 2C]``, LSTM taps
@@ -74,7 +77,7 @@ def _check_supported(cfg: DCCRNConfig) -> None:
 
 
 class DCCRN(nn.Module):
-    """Deep complex conv recurrent net (serving forward)."""
+    """Deep complex conv recurrent net."""
 
     def __init__(self, cfg: DCCRNConfig):
         super().__init__()
@@ -125,20 +128,29 @@ class DCCRN(nn.Module):
         training: bool = False,
         bn_batch_stats: Optional[bool] = None,
     ) -> DCCRNOutput:
-        """``bn_batch_stats=True`` normalizes with per-batch statistics (the
-        reference's eval quirk); the running statistics are not updated.
+        """``training=True`` normalizes with batch statistics and updates
+        the BN running statistics.  ``bn_batch_stats`` overrides which
+        statistics normalize (None follows ``training``): ``True`` with
+        ``training=False`` uses per-batch statistics and leaves the running
+        ones as they are (the reference's eval quirk, and the frozen teacher
+        of a training step).
 
         Computes in full float32 whatever the global TF32 settings: cuDNN's
-        default TF32 convolutions are off inside the forward."""
-        if training:
-            raise NotImplementedError(
-                "training forward (BN running-stat update, LSTM backward kernel) "
-                "is ROADMAP queue 1 item 2")
+        default TF32 convolutions are off inside the forward.  A caller that
+        runs the backward runs it under ``utils.device.float32_math`` too.
+
+        ``training=True`` needs the module in train mode (``.train()``): a
+        serving model from ``make_model`` is in eval mode, and a training
+        forward would move its running statistics."""
+        if training and not self.training:
+            raise RuntimeError(
+                "training=True on a model in eval mode (make_model builds a serving "
+                "model); call .train() first")
         cfg = self.cfg
         k = self.stft_kernels
         n = len(cfg.kernel_num)
         Fq = cfg.stft.fft_len // 2 + 1
-        use_bs = bool(bn_batch_stats)
+        bn = dict(training=training, use_batch_stats=bn_batch_stats)
 
         spec = stft_ops.stft(wav, k)  # [B, 2F, T']
         re, im = spec[:, :Fq], spec[:, Fq:]
@@ -151,7 +163,7 @@ class DCCRN(nn.Module):
         enc_taps: List[torch.Tensor] = []
         for i in range(n):
             x = getattr(self, f"enc{i}_conv")(x)
-            x = getattr(self, f"enc{i}_bn")(x, use_batch_stats=use_bs)
+            x = getattr(self, f"enc{i}_bn")(x, **bn)
             x = getattr(self, f"enc{i}_prelu")(x)
             enc_taps.append(x)
 
@@ -172,7 +184,7 @@ class DCCRN(nn.Module):
             x = complex_cat([x, enc_taps[j]], dim=-1)
             x = getattr(self, f"dec{i}_conv")(x)
             if j != 0:
-                x = getattr(self, f"dec{i}_bn")(x, use_batch_stats=use_bs)
+                x = getattr(self, f"dec{i}_bn")(x, **bn)
                 x = getattr(self, f"dec{i}_prelu")(x)
             dec_taps.append(x)
 
@@ -210,8 +222,9 @@ def make_model(cfg: DCCRNConfig, device: Union[str, torch.device] = "cuda",
 
     The weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     and moved to ``device``; load trained ones with ``load_state_dict`` (see
-    ``utils.bridge``).  The model is in eval mode with gradients off: this
-    slice serves only.  ``device="cuda"`` with no GPU raises.
+    ``utils.bridge``).  The model is in eval mode with gradients off, for
+    serving; ``train.trainer.Trainer`` builds its own models for training.
+    ``device="cuda"`` with no GPU raises.
     """
     dev = resolve_device(device)
     model = DCCRN(cfg)

@@ -157,18 +157,31 @@ class PReLU(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Real batchnorm over the last (packed channel) axis, eps 1e-5.
+    """Real batchnorm over the last (packed channel) axis: momentum 0.1,
+    eps 1e-5, biased batch variance for normalizing, running statistics
+    updated with the unbiased variance.
 
-    Written out by hand rather than ``nn.BatchNorm2d`` so that both modes
-    follow the JAX package exactly:
+    Written out by hand rather than ``nn.BatchNorm2d`` so that every mode
+    follows the JAX package exactly.  ``use_batch_stats`` says which
+    statistics normalize, ``training`` alone whether the running statistics
+    update (as in the JAX module):
 
-    - running statistics (the serving default);
-    - ``use_batch_stats=True``: per-batch statistics, E[x^2] - E[x]^2 in
-      float32, with the running statistics left as they are (the reference's
-      eval quirk of never calling ``model.eval()``).
+    - ``training=False`` (the serving default): running statistics;
+    - ``training=True``: per-batch statistics, E[x^2] - E[x]^2 in float32, and
+      the running statistics move by ``(1 - m) * running + m * batch``;
+    - ``use_batch_stats=True, training=False``: per-batch statistics with the
+      running statistics left as they are (the reference's eval quirk of
+      never calling ``model.eval()``, and the frozen teacher of a training
+      step).
 
-    Updating the running statistics comes with the training slice.
+    ``return_affine=True`` returns the float32 per-channel ``(a, b)`` with
+    ``normalize(x) == x * a + b`` instead of the normalized map, so a caller
+    can fold it into its next contraction.  ``moments=(mean, var, n)`` gives
+    the batch statistics from the caller (``var`` biased, ``n`` the element
+    count behind it); ``x`` may then be None.
     """
+
+    MOMENTUM = 0.1
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -185,13 +198,36 @@ class BatchNorm(nn.Module):
         self.mean.zero_()
         self.var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor, use_batch_stats: bool = False) -> torch.Tensor:
+    def forward(
+        self,
+        x: Optional[torch.Tensor],
+        training: bool = False,
+        use_batch_stats: Optional[bool] = None,
+        return_affine: bool = False,
+        moments: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
+    ):
+        if use_batch_stats is None:
+            use_batch_stats = training
         if use_batch_stats:
-            dims = tuple(range(x.ndim - 1))
-            xf = x.float()
-            mean = xf.mean(dim=dims)
-            var = xf.square().mean(dim=dims) - mean.square()
+            if moments is not None:
+                mean, var, n = moments
+                mean, var = mean.float(), var.float()
+            else:
+                dims = tuple(range(x.ndim - 1))
+                xf = x.float()
+                mean = xf.mean(dim=dims)
+                var = xf.square().mean(dim=dims) - mean.square()
+                n = x.numel() // x.shape[-1]
+            if training:
+                with torch.no_grad():
+                    m = self.MOMENTUM
+                    unbiased = var * (n / max(n - 1, 1))
+                    self.mean.copy_((1 - m) * self.mean + m * mean.to(self.mean.dtype))
+                    self.var.copy_((1 - m) * self.var + m * unbiased.to(self.var.dtype))
         else:
             mean, var = self.mean, self.var
+        if return_affine:
+            a = torch.rsqrt(var.float() + self.eps) * self.scale.float()
+            return a, self.bias.float() - mean.float() * a
         inv = torch.rsqrt(var.to(x.dtype) + self.eps)
         return (x - mean.to(x.dtype)) * inv * self.scale + self.bias

@@ -13,10 +13,14 @@ Port of ``speech_enhancement_clskd_tpu/ops/stft.py`` (the DCCRN frontend):
 The projections are plain matmuls, as they are outside any kernel in the JAX
 package.  Framing is ``Tensor.unfold`` (a view) and overlap-add is
 ``F.fold``.
+
+``stft_magnitude`` is the loss-side magnitude with ``torch.stft`` semantics
+(centered frames, reflect pad), used by ``losses.spectral``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -137,3 +141,49 @@ def istft(spec: torch.Tensor, k: STFTKernels) -> torch.Tensor:
     y = y / (k.ola_envelope(n_frames, y.device).to(y.dtype) + 1e-8)
     trim = k.win_len - k.hop
     return y[..., trim:-trim] if trim else y
+
+
+# ---------------------------------------------------------------------------
+# torch.stft-compatible magnitude (for the spectral losses)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def _centered_window(win_length: int, fft_size: int, kind: str) -> np.ndarray:
+    """Periodic ``kind`` window of ``win_length`` zero-padded to ``fft_size``
+    on both sides, as ``torch.stft`` centres a shorter window."""
+    w = get_window(kind, win_length, fftbins=True)
+    lpad = (fft_size - win_length) // 2
+    return np.pad(w, (lpad, fft_size - win_length - lpad)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _magnitude_basis(fft_size: int, win_length: int, window: str,
+                     device: torch.device) -> torch.Tensor:
+    """[fft_size, 2F] windowed real-DFT basis (real columns, then imaginary)."""
+    win = _centered_window(win_length, fft_size, window)
+    basis = np.fft.rfft(np.eye(fft_size)).astype(np.complex64)  # [fft, F]
+    fwd = np.concatenate([basis.real, basis.imag], axis=1) * win[:, None]
+    return torch.from_numpy(fwd.astype(np.float32)).to(device)
+
+
+def stft_magnitude(
+    x: torch.Tensor,
+    fft_size: int,
+    hop_size: int,
+    win_length: int,
+    window: str = "hann",
+    eps: float = 1e-7,
+) -> torch.Tensor:
+    """Magnitude spectrogram with torch.stft semantics (center=True, reflect
+    pad): ``sqrt(clamp(re^2 + im^2, eps))``, [B, n_frames, F]."""
+    if x.ndim == 1:
+        x = x[None]
+    pad = fft_size // 2
+    xp = F.pad(x[:, None], (pad, pad), mode="reflect")[:, 0]
+    frames = frame(xp, fft_size, hop_size)  # [B, T', fft]
+    spec = torch.matmul(frames, _magnitude_basis(fft_size, win_length, window,
+                                                 x.device).to(frames.dtype))
+    n_bins = fft_size // 2 + 1
+    re, im = spec[..., :n_bins], spec[..., n_bins:]
+    return torch.sqrt(torch.clamp(re**2 + im**2, min=eps))

@@ -13,7 +13,17 @@ flax.  The port keeps them in the layout ``torch.nn.functional`` wants:
 other leaf keeps its flax layout: biases, BN ``scale``/``bias``/``mean``/
 ``var``, PReLU ``alpha``, LSTM ``w_ih [F, 4H]``, ``w_hh [H, 4H]``, ``b_ih``,
 ``b_hh`` and the projection ``proj_wr [H, P]``/``proj_br``/``proj_wi``/
-``proj_bi``.  Both directions only permute axes, so a round trip is exact.
+``proj_bi``.
+
+The ABF chains (``distill.abf.ReviewKD``) follow the same rule: under
+``abf{i}``, ``conv1.kernel [1, 1, I, O]``, ``att_conv.kernel [1, 1, 2C, 2]``
+and ``att_conv.bias``, and ``bn1``/``bn2`` as above, keep their flax layouts;
+the 3x3 ``conv2.kernel`` goes from HWIO ``[3, 3, I, O]`` to ``[O, I, 3, 3]``.
+Both directions only permute axes, so a round trip is exact.
+
+``load_train_state`` carries a JAX ``TrainState`` (student, teacher and both
+ABF chains, parameters and statistics) into a port ``train.trainer.Trainer``;
+``train_state_arrays`` reads them back in flax layouts.
 """
 
 from __future__ import annotations
@@ -29,11 +39,15 @@ _CONV_WEIGHTS = ("wr", "wi")
 _TRANSPOSED = re.compile(r"dec\d+_conv")
 # HWIO -> torch layout, per conv kind; the inverse permutation goes back
 _TO_TORCH = {False: (3, 2, 0, 1), True: (2, 3, 0, 1)}
+# the parts of a TrainState, each a module of the port's Trainer
+TRAIN_STATE_PARTS = ("student", "teacher", "abf_enc", "abf_dec")
 
 
 def _perm(path: tuple) -> "tuple | None":
     if path[-1] in _CONV_WEIGHTS and len(path) >= 2 and path[-2].endswith("_conv"):
         return _TO_TORCH[bool(_TRANSPOSED.fullmatch(path[-2]))]
+    if path[-2:] == ("conv2", "kernel"):  # ABF 3x3 conv, for F.conv2d
+        return _TO_TORCH[False]
     return None
 
 
@@ -71,5 +85,32 @@ def flax_from_torch_state(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         d = variables.setdefault(coll, {})
         for p in path[:-1]:
             d = d.setdefault(p, {})
-        d[path[-1]] = np.ascontiguousarray(arr)
+        d[path[-1]] = np.array(arr, order="C")  # a copy, never a view of the tensor
     return variables
+
+
+def load_train_state(trainer, state) -> None:
+    """Load a JAX ``TrainState``'s parameters and BN statistics (its
+    ``{part}_params`` and ``{part}_stats`` trees, numpy-convertible leaves)
+    into ``trainer``'s modules, strictly, and start its Adam afresh (the
+    state's optimizer moments are not carried).  ``trainer.init_state()``
+    must have run."""
+    if trainer.optimizer is None:
+        raise RuntimeError("call trainer.init_state() before loading a state")
+    for part in TRAIN_STATE_PARTS:
+        variables = {"params": getattr(state, f"{part}_params"),
+                     "batch_stats": getattr(state, f"{part}_stats") or {}}
+        getattr(trainer, part).load_state_dict(torch_state_from_flax(variables), strict=True)
+    trainer.optimizer.state.clear()
+    trainer.step = int(np.asarray(state.step))
+
+
+def train_state_arrays(trainer) -> Dict[str, Any]:
+    """``{part}_params`` and ``{part}_stats`` of ``trainer``'s modules as
+    numpy trees in flax layouts: the inverse of ``load_train_state``."""
+    out: Dict[str, Any] = {}
+    for part in TRAIN_STATE_PARTS:
+        variables = flax_from_torch_state(getattr(trainer, part).state_dict())
+        out[f"{part}_params"] = variables["params"]
+        out[f"{part}_stats"] = variables.get("batch_stats", {})
+    return out

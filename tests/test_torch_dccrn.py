@@ -137,7 +137,14 @@ def test_forward_turns_tf32_off_and_restores_the_callers_flags():
 
 
 def test_training_forward_raises():
+    """A serving model (eval mode) refuses a training forward, which would
+    move its running statistics; in train mode the forward updates them."""
     cfg = DCCRNConfig(name="tiny", kernel_num=(4, 8, 8), rnn_units=16)
     model = make_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(1, 1600), training=True)
+    wav = torch.from_numpy(0.1 * np.random.default_rng(2).standard_normal((2, 1600),
+                                                                          np.float32))
+    with pytest.raises(RuntimeError, match="eval mode"):
+        model(wav, training=True)
+    assert torch.equal(model.enc0_bn.mean, torch.zeros(4))
+    model.train()(wav, training=True)
+    assert not torch.equal(model.enc0_bn.mean, torch.zeros(4))

@@ -114,8 +114,9 @@ def test_wrapper_rejects_bad_inputs(rng):
         lstm_seq(xw.transpose(0, 1), w_hh)
     with pytest.raises(ValueError):
         lstm_seq(xw, w_hh, h0=torch.zeros(3, 8))
-    with pytest.raises(NotImplementedError, match="backward"):
-        lstm_seq(xw, w_hh.clone().requires_grad_(True))
+    # gradients flow to xw and w_hh, not to an initial state
+    with pytest.raises(NotImplementedError, match="h0/c0"):
+        lstm_seq(xw, w_hh, h0=torch.zeros(4, 8, requires_grad=True))
 
 
 def test_cuda_request_without_gpu_raises():

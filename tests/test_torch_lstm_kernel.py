@@ -1,5 +1,6 @@
-"""The hand-written CUDA LSTM kernel against its plain PyTorch version, on the
-card.  Skipped where there is no CUDA device.
+"""The hand-written CUDA LSTM kernels (forward K1f, backward K1b) against
+their plain PyTorch versions, on the card.  Skipped where there is no CUDA
+device.
 
 Imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_lstm_kernel.py -q
@@ -8,11 +9,18 @@ Imports no JAX, so it runs on a machine without it:
 import pytest
 import torch
 
-from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_reference
+from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
+    lstm_seq,
+    lstm_seq_bwd,
+    lstm_seq_bwd_reference,
+    lstm_seq_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
-# f32 both sides; h @ W_hh summed in another order than cuBLAS
+# f32 both sides; h @ W_hh summed in another order than cuBLAS.  The
+# backward's dW_hh sums T*N products, so it is held relative to its largest
+# element (at least 1).
 ATOL = 1e-4
 
 
@@ -61,3 +69,45 @@ def test_kernel_rejects_too_wide(cuda):
     xw, w_hh, _ = _inputs(4, 2, 320, seed=0)
     with pytest.raises(ValueError, match="4H"):
         lstm_seq(xw.to(cuda), w_hh.to(cuda))
+
+
+def _backward_case(cuda, T, N, H, seed, with_state=False):
+    xw, w_hh, (h0, c0) = _inputs(T, N, H, seed, with_state)
+    dy = torch.randn(T, N, H, generator=torch.Generator().manual_seed(seed + 1))
+    xw, w_hh, dy = xw.to(cuda), w_hh.to(cuda), dy.to(cuda)
+    h0 = None if h0 is None else h0.to(cuda)
+    c0 = None if c0 is None else c0.to(cuda)
+    y, c = lstm_seq_reference(xw, w_hh, h0, c0)
+    before = lstm_seq_bwd.launches
+    dxw, dw = lstm_seq_bwd(xw, w_hh, y, c, dy, h0, c0)
+    torch.cuda.synchronize()
+    assert lstm_seq_bwd.launches == before + 1
+    rdxw, rdw = lstm_seq_bwd_reference(xw, w_hh, y, c, dy, h0, c0)
+    assert (dxw - rdxw).abs().max().item() <= ATOL
+    assert (dw - rdw).abs().max().item() <= ATOL * max(1.0, rdw.abs().max().item())
+
+
+@pytest.mark.parametrize("H", [32, 128])
+@pytest.mark.parametrize("N", [2, 64, 201])
+def test_backward_kernel_matches_plain(cuda, H, N):
+    _backward_case(cuda, 483 if N <= 64 else 20, N, H, seed=7 * H + N)
+
+
+def test_backward_kernel_with_initial_state(cuda):
+    _backward_case(cuda, 57, 3, 32, seed=11, with_state=True)
+
+
+def test_autograd_launches_both_kernels(cuda):
+    xw, w_hh, _ = _inputs(40, 6, 32, seed=3)
+    xw = xw.to(cuda).requires_grad_(True)
+    w_hh = w_hh.to(cuda).requires_grad_(True)
+    fwd, bwd = lstm_seq.launches, lstm_seq_bwd.launches
+    y, _ = lstm_seq(xw, w_hh)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (lstm_seq.launches, lstm_seq_bwd.launches) == (fwd + 1, bwd + 1)
+    rdxw, rdw = lstm_seq_bwd_reference(xw.detach(), w_hh.detach(), y.detach(),
+                                       lstm_seq_reference(xw.detach(), w_hh.detach())[1],
+                                       2 * y.detach())
+    assert (xw.grad - rdxw).abs().max().item() <= ATOL
+    assert (w_hh.grad - rdw).abs().max().item() <= ATOL * max(1.0, rdw.abs().max().item())
