@@ -31,7 +31,18 @@ card, then drives both paths through their entry points:
    card against one on the CPU from the same weights (4 x 1 s): the loss on
    white-noise and on synthetic-speech batches, the gradients on the
    white-noise batch (on speech at random init the log-magnitude loss's
-   gradient is ill-conditioned; its error there is reported, not held).
+   gradient is ill-conditioned; its error there is reported, not held);
+8. ABF kernels vs plain: the 3x3 conv (``conv3x3_fwd``, K3f; also its dx
+   pass), its weight gradient (``conv3x3_wgrad``, K3w), the attention fuse
+   (``attention_fuse_fwd``, K4f) and its backward (``attention_fuse_bwd``,
+   K4b) against their plain versions at the training step's shapes and at
+   small ragged ones; two runs of each backward must give the same bits;
+   times, the bound and a one-call PyTorch yardstick where one exists
+   (``F.conv2d`` and ``torch.nn.grad.conv2d_weight``, TF32 off);
+9. training with the kernels: ``Trainer(TrainConfig(distill=DistillConfig(
+   abf_conv_pallas=True, abf_attfuse_pallas=True)))`` as phase 7 (one
+   warm-up and 5 timed steps, launches per step: K3f 24, K3w 12, K4f 10,
+   K4b 10, K1f 8, K1b 4) and its card-vs-CPU step, held as phase 7's.
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -55,6 +66,9 @@ BUNDLE = ROOT / "artifacts" / "r4_distill" / "the_best_model.npz"
 CHUNK_FRAMES, CONTEXT_FRAMES = 48, 64
 TEACHER_BATCH, TEACHER_SECONDS = 32, 3.0
 TRAIN_SECONDS, TRAIN_STEPS = 3.0, 10
+KERNEL_TRAIN_STEPS = 5
+# the ABF kernel paths of phase 9, shared with scripts/profile_serving_torch.py
+ABF_KERNEL_FLAGS = dict(abf_conv_pallas=True, abf_attfuse_pallas=True)
 # card vs CPU training step: 4 x 1 s at full width
 CHECK_BATCH, CHECK_SECONDS = 4, 1.0
 
@@ -103,14 +117,14 @@ def phase_device():
 
 
 def phase_build():
-    from speech_enhancement_clskd_tpu_torch.kernels import _build
-    from speech_enhancement_clskd_tpu_torch.kernels.lstm import SOURCES
+    from speech_enhancement_clskd_tpu_torch.kernels import _build, attfuse, conv3x3, lstm
 
+    sources = lstm.SOURCES + conv3x3.SOURCES + attfuse.SOURCES
     t0 = time.perf_counter()
-    paths = _build.build_all(SOURCES)
+    paths = _build.build_all(sources)
     seconds = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in _build.log_path(src).read_text().splitlines()
-                   if "registers" in ln or "spill" in ln] for src in SOURCES}
+                   if "registers" in ln or "spill" in ln] for src in sources}
     say("build", seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas)
 
@@ -415,12 +429,14 @@ def train_batch(batch: int, seconds: float, seed: int = 2):
     return (np.stack([m for m, _ in pairs]), np.stack([c[0] for _, c in pairs]))
 
 
-def _train_config(batch: int, seconds: float):
+def train_config(batch: int, seconds: float, distill: dict = None):
+    """``TrainConfig()`` at ``batch`` x ``seconds``, with the ``distill``
+    fields (e.g. ``ABF_KERNEL_FLAGS``) set."""
     import dataclasses
 
-    from speech_enhancement_clskd_tpu_torch.config import TrainConfig
+    from speech_enhancement_clskd_tpu_torch.config import DistillConfig, TrainConfig
 
-    cfg = TrainConfig()
+    cfg = TrainConfig(distill=DistillConfig(**(distill or {})))
     return dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, batch_size=batch, segment=seconds))
 
@@ -462,7 +478,7 @@ def gaussian_batch(batch: int, seconds: float, seed: int = 0):
     return clean + (0.05 * rng.standard_normal(clean.shape)).astype(np.float32), clean
 
 
-def _card_vs_cpu(mix, clean) -> dict:
+def _card_vs_cpu(mix, clean, distill: dict = None) -> dict:
     """One step on the card and one on the CPU from the same seeded weights
     (cuDNN set to deterministic algorithms for this step, so the comparison
     repeats): the loss's relative error and the gradients' (``_grad_errors``)."""
@@ -470,7 +486,7 @@ def _card_vs_cpu(mix, clean) -> dict:
 
     from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 
-    cfg = _train_config(CHECK_BATCH, CHECK_SECONDS)
+    cfg = train_config(CHECK_BATCH, CHECK_SECONDS, distill)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -489,16 +505,33 @@ def _card_vs_cpu(mix, clean) -> dict:
             "grad_tol": TRAIN_GRAD_REL_L2, "zero_grad_max": zero_grad, "zero_grad_tol": ZERO_GRAD}
 
 
-def phase_training():
+def _kernel_counters() -> dict:
+    """Every kernel wrapper of the training step, by kernel name."""
+    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
+        attention_fuse_bwd,
+        attention_fuse_fwd,
+    )
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_wgrad
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_bwd
+
+    return {"lstm_seq_fwd": lstm_seq, "lstm_seq_bwd": lstm_seq_bwd,
+            "conv3x3_fwd": conv3x3_fwd, "conv3x3_wgrad": conv3x3_wgrad,
+            "attfuse_fwd": attention_fuse_fwd, "attfuse_bwd": attention_fuse_bwd}
+
+
+def _training(phase: str, config: str, distill: dict, steps: int, expected: dict) -> dict:
+    """One warm-up and ``steps`` timed CLSKD steps at full width on 32 x 3 s
+    (batch halved while it does not fit), launches per step held to
+    ``expected`` (every other kernel: none), then the card-vs-CPU step."""
     import numpy as np
     import torch
 
-    from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_bwd
     from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 
+    counters = _kernel_counters()
     batch, cut = TEACHER_BATCH, []
     while True:
-        cfg = _train_config(batch, TRAIN_SECONDS)
+        cfg = train_config(batch, TRAIN_SECONDS, distill)
         mix, clean = train_batch(batch, TRAIN_SECONDS)
         trainer = Trainer(cfg, device="cuda").init_state(0)
         try:
@@ -514,21 +547,22 @@ def phase_training():
             batch //= 2
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
-    lstm_seq.launches = lstm_seq_bwd.launches = 0
-    for _ in range(TRAIN_STEPS):
+    for fn in counters.values():
+        fn.launches = 0
+    for _ in range(steps):
         t0 = time.perf_counter()
         logs = trainer.train_step(mix, clean)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(logs["train_loss"]))
-    launches = {"lstm_seq_fwd": lstm_seq.launches, "lstm_seq_bwd": lstm_seq_bwd.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    per_step = {k: v / steps for k, v in launches.items()}
     finite = bool(np.isfinite(losses).all()) and all(
         bool(torch.isfinite(v).all()) for v in logs.values())
     median_s = float(np.median(step_ms)) / 1e3
-    rec = dict(config="clskd TrainConfig()", batch=batch, seconds=TRAIN_SECONDS, cut=cut,
-               steps=TRAIN_STEPS, step_ms_median=median_s * 1e3,
+    rec = dict(config=config, batch=batch, seconds=TRAIN_SECONDS, cut=cut,
+               steps=steps, step_ms_median=median_s * 1e3,
                step_ms_p90=float(np.percentile(step_ms, 90)), step_ms=step_ms,
                audio_s_per_s=batch * TRAIN_SECONDS / median_s, peak_mem_bytes=peak,
                losses=losses, logs_last={k: float(v) for k, v in logs.items()},
@@ -537,12 +571,13 @@ def phase_training():
     torch.cuda.empty_cache()
 
     # one step on the card against one on the CPU from the same seeded weights
-    rec["card_vs_cpu"] = {name: _card_vs_cpu(*pair) for name, pair in (
+    rec["card_vs_cpu"] = {name: _card_vs_cpu(*pair, distill) for name, pair in (
         ("gaussian", gaussian_batch(CHECK_BATCH, CHECK_SECONDS)),
         ("speech", train_batch(CHECK_BATCH, CHECK_SECONDS, seed=3)))}
-    say("training", **rec)
-    if per_step != {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4}:
-        raise RuntimeError(f"LSTM kernel launches per step {per_step}, expected 8 and 4")
+    say(phase, **rec)
+    want = {name: expected.get(name, 0) for name in counters}
+    if per_step != want:
+        raise RuntimeError(f"kernel launches per step {per_step}, expected {want}")
     if not finite:
         raise RuntimeError("a training step gave a non-finite value")
     gate = rec["card_vs_cpu"]["gaussian"]
@@ -550,6 +585,182 @@ def phase_training():
             or gate["grad_max_rel_l2"] > TRAIN_GRAD_REL_L2 or gate["zero_grad_max"] > ZERO_GRAD):
         raise RuntimeError("the training step on the card disagrees with the CPU")
     return rec
+
+
+def phase_training():
+    return _training("training", "clskd TrainConfig()", {}, TRAIN_STEPS,
+                     {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4})
+
+
+def phase_training_kernels():
+    return _training("training_kernels", "clskd TrainConfig(distill=DistillConfig("
+                     "abf_conv_pallas=True, abf_attfuse_pallas=True))", ABF_KERNEL_FLAGS,
+                     KERNEL_TRAIN_STEPS,
+                     {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4, "conv3x3_fwd": 24,
+                      "conv3x3_wgrad": 12, "attfuse_fwd": 10, "attfuse_bwd": 10})
+
+
+def _bound(nbytes: float, flops: float) -> tuple:
+    """The least time for ``nbytes`` moved and ``flops`` f32 operations."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rel_l2(got, want) -> float:
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _conv_case(B, D, T, C, O, timed: bool) -> dict:
+    """K3f and K3w against their plain versions at x [B, D, T, C] -> O."""
+    import torch
+    import torch.nn.functional as F
+
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
+        conv3x3_fwd,
+        conv3x3_reference,
+        conv3x3_wgrad,
+        conv3x3_wgrad_reference,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + C + O)
+    x = torch.randn(B, D, T, C, device="cuda", generator=g)
+    w = torch.randn(3, 3, C, O, device="cuda", generator=g) / (3 * C ** 0.5)
+    gy = torch.randn(B, D, T, O, device="cuda", generator=g)
+    before = (conv3x3_fwd.launches, conv3x3_wgrad.launches)
+    out = conv3x3_fwd(x, w)
+    dw = conv3x3_wgrad(x, gy)
+    dw_again = conv3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    if (conv3x3_fwd.launches, conv3x3_wgrad.launches) != (before[0] + 1, before[1] + 2):
+        raise RuntimeError("conv3x3 kernels did not count their launches")
+    with float32_math():
+        ref = conv3x3_reference(x, w)
+        err_fwd = (out - ref).abs().max().item()
+        del ref
+        err_dw = _rel_l2(dw, conv3x3_wgrad_reference(x, gy))
+    rec = {"B": B, "D": D, "T": T, "C": C, "O": O, "fwd_max_abs_err": err_fwd,
+           "wgrad_rel_l2": err_dw, "wgrad_bitwise_repeat": bool(torch.equal(dw, dw_again)),
+           "tol": KERNEL_ATOL}
+    if timed:
+        rows = B * D * T
+        flops = 2.0 * rows * 9 * C * O
+        x_nchw, gy_nchw = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        with float32_math():  # cuDNN would take TF32 otherwise
+            fwd_library_ms = _time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), iters=5)
+            wgrad_library_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, w_oihw.shape, gy_nchw, padding=1), iters=5)
+            fwd_plain_ms = _time_ms(lambda: conv3x3_reference(x, w), iters=2)
+            wgrad_plain_ms = _time_ms(lambda: conv3x3_wgrad_reference(x, gy), iters=2)
+        fwd_bound = _bound(4.0 * (rows * C + 9 * C * O + rows * O), flops)
+        wgrad_bound = _bound(4.0 * (rows * C + rows * O + 9 * C * O), flops)
+        rec.update(
+            fwd_ms=_time_ms(lambda: conv3x3_fwd(x, w), iters=5), fwd_plain_ms=fwd_plain_ms,
+            fwd_library_ms=fwd_library_ms, fwd_bound_ms=fwd_bound[0],
+            fwd_bound_by=fwd_bound[1],
+            wgrad_ms=_time_ms(lambda: conv3x3_wgrad(x, gy), iters=5),
+            wgrad_plain_ms=wgrad_plain_ms, wgrad_library_ms=wgrad_library_ms,
+            wgrad_bound_ms=wgrad_bound[0], wgrad_bound_by=wgrad_bound[1])
+    return rec
+
+
+def _fuse_case(B, D, Dp, T, C, timed: bool) -> dict:
+    """K4f and K4b against their plain versions at x [B, D, T, C] with the
+    residual [B, Dp, T, C]."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
+        attention_fuse_bwd,
+        attention_fuse_bwd_reference,
+        attention_fuse_fwd,
+        attention_fuse_reference,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + Dp + C)
+    x = torch.randn(B, D, T, C, device="cuda", generator=g)
+    res = torch.randn(B, Dp, T, C, device="cuda", generator=g)
+    wx = 0.3 * torch.randn(C, 2, device="cuda", generator=g)
+    wy = 0.3 * torch.randn(C, 2, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(2, device="cuda", generator=g)
+    gy = torch.randn(B, D, T, C, device="cuda", generator=g)
+    before = (attention_fuse_fwd.launches, attention_fuse_bwd.launches)
+    out, z = attention_fuse_fwd(x, res, wx, wy, bias)
+    grads = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    again = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    torch.cuda.synchronize()
+    if (attention_fuse_fwd.launches, attention_fuse_bwd.launches) != (before[0] + 1,
+                                                                      before[1] + 2):
+        raise RuntimeError("attention fuse kernels did not count their launches")
+    with float32_math():
+        rout, rz = attention_fuse_reference(x, res, wx, wy, bias)
+        err_fwd = max((out - rout).abs().max().item(), (z - rz).abs().max().item())
+        del rout, rz
+        want = attention_fuse_bwd_reference(x, res, z, gy, wx, wy)
+    err_maps = max((a - b).abs().max().item() for a, b in zip(grads[:2], want[:2]))
+    err_params = max(_rel_l2(a, b) for a, b in zip(grads[2:], want[2:]))
+    del want
+    rec = {"B": B, "D": D, "Dp": Dp, "T": T, "C": C, "fwd_max_abs_err": err_fwd,
+           "bwd_max_abs_err_dx_dres": err_maps, "bwd_rel_l2_dwx_dwy_db": err_params,
+           "bwd_bitwise_repeat": all(bool(torch.equal(a, b)) for a, b in zip(grads, again)),
+           "tol": KERNEL_ATOL}
+    if timed:
+        rows, res_rows = B * D * T, B * Dp * T
+        fwd_bound = _bound(4.0 * (2 * rows * C + res_rows * C + 4 * C + 2 + 2 * rows),
+                           rows * (8.0 * C + 10))
+        bwd_bound = _bound(4.0 * (3 * rows * C + 2 * res_rows * C + 2 * rows + 8 * C + 2),
+                           rows * (14.0 * C + 10))
+        with float32_math():
+            fwd_plain_ms = _time_ms(lambda: attention_fuse_reference(x, res, wx, wy, bias),
+                                    iters=3)
+            bwd_plain_ms = _time_ms(
+                lambda: attention_fuse_bwd_reference(x, res, z, gy, wx, wy), iters=3)
+        rec.update(
+            fwd_ms=_time_ms(lambda: attention_fuse_fwd(x, res, wx, wy, bias), iters=10),
+            fwd_plain_ms=fwd_plain_ms, fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+            bwd_ms=_time_ms(lambda: attention_fuse_bwd(x, res, z, gy, wx, wy), iters=10),
+            bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+    return rec
+
+
+# phase 8's shapes.  Conv (B, D, T, C, O, timed): the shallowest encoder
+# block (D=4 -> 256), the table's reference shape (D=64, 64 -> 64), the
+# decoder's mask block (D=256 -> 2), the dx pass of a 256-channel block
+# (C=256 -> 64) and small ragged ones.  Fuse (B, D, Dp, T, C, timed): the
+# table's reference shape (k=2) and small ragged ones with k=1 and k=4.
+CONV_CASES = [(32, 4, 483, 64, 256, False), (32, 64, 483, 64, 64, True),
+              (32, 256, 483, 64, 2, False), (32, 16, 483, 256, 64, False),
+              (3, 5, 37, 64, 32, False), (2, 3, 19, 2, 64, False)]
+CONV_REF = (32, 64, 483, 64, 64)
+FUSE_CASES = [(32, 128, 64, 483, 64, True), (3, 5, 5, 37, 64, False),
+              (2, 16, 4, 29, 64, False)]
+FUSE_REF = (32, 128, 64, 483, 64)
+
+
+def phase_abf_kernels_vs_plain():
+    import torch
+
+    conv, fuse = [], []
+    for *shape, timed in CONV_CASES:
+        rec = _conv_case(*shape, timed=timed)
+        say("abf_kernels_vs_plain", kernel="conv3x3", **rec)
+        conv.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["fwd_max_abs_err"] <= KERNEL_ATOL and rec["wgrad_rel_l2"] <= KERNEL_ATOL
+                and rec["wgrad_bitwise_repeat"]):
+            raise RuntimeError(f"conv3x3 kernels disagree with their plain versions: {rec}")
+    for *shape, timed in FUSE_CASES:
+        rec = _fuse_case(*shape, timed=timed)
+        say("abf_kernels_vs_plain", kernel="attention_fuse", **rec)
+        fuse.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["fwd_max_abs_err"] <= KERNEL_ATOL
+                and rec["bwd_max_abs_err_dx_dres"] <= KERNEL_ATOL
+                and rec["bwd_rel_l2_dwx_dwy_db"] <= KERNEL_ATOL and rec["bwd_bitwise_repeat"]):
+            raise RuntimeError(f"attention fuse kernels disagree with their plain versions: {rec}")
+    return conv, fuse
 
 
 def main() -> None:
@@ -564,15 +775,22 @@ def main() -> None:
     serving_launches = phase_serving_student() + phase_serving_teacher()
     bwd_shapes = phase_backward_vs_plain()
     training = phase_training()
+    conv_shapes, fuse_shapes = phase_abf_kernels_vs_plain()
+    kernel_training = phase_training_kernels()
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
+    conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
+    fuse = next(r for r in fuse_shapes if (r["B"], r["D"], r["Dp"], r["T"], r["C"]) == FUSE_REF)
+    trained = {name: training["launches"][name] + kernel_training["launches"][name]
+               for name in training["launches"]}
     src = "speech_enhancement_clskd_tpu_torch/kernels/csrc/"
+    pallas = "speech_enhancement_clskd_tpu/ops/pallas/"
     kernels = [{
         "name": "lstm_seq_fwd",
         "route": "cuda",
         "source": src + "lstm_seq_fwd.cu",
-        "replaces": "speech_enhancement_clskd_tpu/ops/pallas/lstm.py:36",
-        "launches": serving_launches + training["launches"]["lstm_seq_fwd"],
+        "replaces": pallas + "lstm.py:36",
+        "launches": serving_launches + trained["lstm_seq_fwd"],
         "max_abs_err": max(r["max_abs_err_y"] for r in fwd_shapes),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -581,14 +799,15 @@ def main() -> None:
         "library_ms": fwd["library_ms"],
         "shape": {"T": 483, "N": 64, "H": 128},
         "launches_by_path": {"serving": serving_launches,
-                             "training": training["launches"]["lstm_seq_fwd"]},
+                             "training": training["launches"]["lstm_seq_fwd"],
+                             "training_kernels": kernel_training["launches"]["lstm_seq_fwd"]},
         "per_shape": fwd_shapes,
     }, {
         "name": "lstm_seq_bwd",
         "route": "cuda",
         "source": src + "lstm_seq_bwd.cu",
-        "replaces": "speech_enhancement_clskd_tpu/ops/pallas/lstm.py:60",
-        "launches": training["launches"]["lstm_seq_bwd"],
+        "replaces": pallas + "lstm.py:60",
+        "launches": trained["lstm_seq_bwd"],
         "max_abs_err": max(max(r["max_abs_err_dxw"], r["max_rel_err_dw_hh"])
                            for r in bwd_shapes),
         "ms": bwd["ms"],
@@ -597,8 +816,36 @@ def main() -> None:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "shape": {"T": 483, "N": 64, "H": 32},
+        "launches_by_path": {"training": training["launches"]["lstm_seq_bwd"],
+                             "training_kernels": kernel_training["launches"]["lstm_seq_bwd"]},
         "per_shape": bwd_shapes,
     }]
+    conv_shape = dict(zip(("B", "D", "T", "C", "O"), CONV_REF))
+    fuse_shape = dict(zip(("B", "D", "Dp", "T", "C"), FUSE_REF))
+    for name, source, line, cases, shape, key, err in (
+            ("conv3x3_fwd", "conv3x3_fwd.cu", "conv3x3.py:120", conv_shapes, conv, "fwd",
+             "fwd_max_abs_err"),
+            ("conv3x3_wgrad", "conv3x3_wgrad.cu", "conv3x3.py:135", conv_shapes, conv, "wgrad",
+             "wgrad_rel_l2"),
+            ("attfuse_fwd", "attfuse_fwd.cu", "attfuse.py:99", fuse_shapes, fuse, "fwd",
+             "fwd_max_abs_err"),
+            ("attfuse_bwd", "attfuse_bwd.cu", "attfuse.py:113", fuse_shapes, fuse, "bwd",
+             "bwd_max_abs_err_dx_dres")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + source,
+            "replaces": pallas + line,
+            "launches": kernel_training["launches"][name],
+            "max_abs_err": max(r[err] for r in cases),
+            "ms": shape[f"{key}_ms"],
+            "plain_ms": shape[f"{key}_plain_ms"],
+            "bound_ms": shape[f"{key}_bound_ms"],
+            "bound_by": shape[f"{key}_bound_by"],
+            "library_ms": shape.get(f"{key}_library_ms"),
+            "shape": conv_shape if name.startswith("conv") else fuse_shape,
+            "per_shape": cases,
+        })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,20 +4,23 @@ one NVIDIA GPU.
 
     python3 scripts/profile_serving_torch.py [--trace-dir DIR]
 
-Three configurations, built as ``chip_smoke.py`` builds them:
+Four configurations, built as ``chip_smoke.py`` builds them:
 
 - student streaming: the r4 bundle, batch 1, one fixed-shape chunk step
   (chunk 48, context 64) repeated 40 times;
 - teacher offline: ``dccrn-cl`` with seeded weights, 32 x 3 s, 3 forwards;
 - clskd train step: ``Trainer(TrainConfig())`` with seeded weights, 32 x 3 s
-  synthetic batches, 3 optimizer steps.
+  synthetic batches, 3 optimizer steps;
+- clskd train step with the ABF kernels: the same with
+  ``DistillConfig(abf_conv_pallas=True, abf_attfuse_pallas=True)``.
 
 For each it prints one JSON line: wall ms per step (host clock around
 synchronised steps, profiler off); from one profiled run of the same steps,
 the trace window per step (first to last device event), the device busy ms
 per step (the summed durations of the device events in that window) and the
-device idle share ``1 - busy / window``; and the kernels that take the most
-device time.  ``--trace-dir`` also writes each run's Chrome trace there.
+device idle share ``1 - busy / window``; the kernels that take the most
+device time; and the device time of each of the port's hand-written
+kernels.  ``--trace-dir`` also writes each run's Chrome trace there.
 Needs CUDA; fails without it.
 """
 
@@ -33,6 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 STUDENT_CHUNKS = 40
 TEACHER_ITERS = 3
 TRAIN_ITERS = 3
+PORT_KERNEL_PREFIXES = ("lstm_", "conv3x3_", "attfuse_")
 
 
 def _self_device_us(evt) -> float:
@@ -74,6 +78,14 @@ def breakdown(label: str, step, iters: int, trace_dir: str | None) -> dict:
                            "they overlap or are miscounted")
     per_name = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     top = sorted(per_name, key=_self_device_us, reverse=True)[:12]
+    # the port's hand-written kernels (kernels/csrc/*.cu, each named after its
+    # source), summed over template instances
+    port = {}
+    for e in per_name:
+        name = e.key.split("::")[-1].split("<")[0].split("(")[0]
+        if name.startswith(PORT_KERNEL_PREFIXES):
+            ms, calls = port.get(name, (0.0, 0.0))
+            port[name] = (ms + _self_device_us(e) / 1e3 / iters, calls + e.count / iters)
     return {
         "config": label, "iters": iters, "wall_ms": wall_ms,
         "trace_window_ms": window_us / 1e3 / iters, "device_busy_ms": busy_us / 1e3 / iters,
@@ -82,6 +94,8 @@ def breakdown(label: str, step, iters: int, trace_dir: str | None) -> dict:
         "top": [{"name": e.key[:90], "ms_per_step": _self_device_us(e) / 1e3 / iters,
                  "share": _self_device_us(e) / busy_us, "calls_per_step": e.count / iters}
                 for e in top],
+        "port_kernels": {name: {"ms_per_step": ms, "calls_per_step": calls}
+                         for name, (ms, calls) in sorted(port.items())},
     }
 
 
@@ -94,7 +108,15 @@ def main() -> None:
     import numpy as np
     import torch
 
-    from chip_smoke import TRAIN_SECONDS, student_engine, teacher_batch, train_batch
+    from chip_smoke import (
+        ABF_KERNEL_FLAGS,
+        TEACHER_BATCH,
+        TRAIN_SECONDS,
+        train_config,
+        student_engine,
+        teacher_batch,
+        train_batch,
+    )
     from speech_enhancement_clskd_tpu_torch.config import TEACHER
     from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
     from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
@@ -126,15 +148,19 @@ def main() -> None:
                                args.trace_dir)), flush=True)
     del model, batch
 
-    trainer = Trainer(device="cuda").init_state(0)
-    mix, clean = (torch.from_numpy(a).cuda()
-                  for a in train_batch(trainer.cfg.data.batch_size, TRAIN_SECONDS))
+    for label, distill in (("clskd_train_step", {}),
+                           ("clskd_train_step_abf_kernels", ABF_KERNEL_FLAGS)):
+        cfg = train_config(TEACHER_BATCH, TRAIN_SECONDS, distill)
+        trainer = Trainer(cfg, device="cuda").init_state(0)
+        mix, clean = (torch.from_numpy(a).cuda()
+                      for a in train_batch(cfg.data.batch_size, TRAIN_SECONDS))
 
-    def train_step():
-        trainer.train_step(mix, clean)
+        def train_step():
+            trainer.train_step(mix, clean)
 
-    print(json.dumps(breakdown("clskd_train_step", train_step, TRAIN_ITERS, args.trace_dir)),
-          flush=True)
+        print(json.dumps(breakdown(label, train_step, TRAIN_ITERS, args.trace_dir)), flush=True)
+        del trainer
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,11 @@
 """Attention-based fusion (ABF) + ReviewKD cross-layer feature chain.
 
-Port of ``speech_enhancement_clskd_tpu/distill/abf.py``, its default path
-(no Pallas kernel: ``abf_conv_pallas``, ``abf_attfuse_pallas`` and
-``abf_block_pallas`` are off by default and not ported yet).  Each ABF block
-takes one student tap ``[B, D, T, C_in]``:
+Port of ``speech_enhancement_clskd_tpu/distill/abf.py``: its default path,
+and the opt-in kernel paths of ``conv_pallas`` (the 3x3 conv through
+``kernels.conv3x3``, K3f/K3w) and ``attfuse_pallas`` (the attention fuse
+through ``kernels.attfuse``, K4f/K4b); the whole-block kernel
+(``block_pallas``, K5) is not ported yet.  Each ABF block takes one student
+tap ``[B, D, T, C_in]``:
 
     x1   = tap @ W1                      (1x1 conv, bias-free)
     xhat = bn1(x1)                       (batch moments derived from the tap)
@@ -18,10 +20,12 @@ zip 1:1 with the teacher taps.
 As in the JAX package, bn1's batch moments come from the tap's channel
 moments (``_bn1_moments_from_tap``), and the 1x1 conv and bn1's affine are
 folded into the attention contraction, so the mid-channel map x1 is never
-formed on its own.  Parameters keep the flax layouts (``conv1.kernel``
+formed on its own.  The attention-fuse kernel path, as in JAX, hands the
+normalized map ``(tap @ W1) * a + b`` to the kernel with the raw attention
+weights and bias.  Parameters keep the flax layouts (``conv1.kernel``
 ``[1, 1, I, O]``, ``att_conv.kernel`` ``[1, 1, 2C, 2]`` + ``bias``) except the
 3x3 kernel, which is ``[O, I, 3, 3]`` for ``F.conv2d`` (``utils.bridge``
-permutes it).
+permutes it; the conv kernel's wrapper makes its own HWIO copy).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.attfuse import attention_fuse, attfuse_dispatchable
+from ..kernels.conv3x3 import conv3x3
 from ..ops.complex_layers import BatchNorm
 
 # flax's truncated_normal initializers divide the stddev by the stddev of a
@@ -111,11 +117,16 @@ class AttentionFuse(nn.Module):
     in.  The attention logit of the map is one tap-level contraction
     ``x @ (w_in @ (a * wx))``; the residual's is contracted at its small size
     and only the 2-channel logits are resized.
+
+    ``use_kernel``: where the geometry passes ``attfuse_dispatchable``, form
+    ``xhat`` and fuse through ``kernels.attfuse.attention_fuse`` (K4f/K4b)
+    with the raw ``wx``, ``wy`` and bias instead.
     """
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_kernel: bool = False):
         super().__init__()
         self.channels = channels
+        self.use_kernel = use_kernel
         self.kernel = nn.Parameter(torch.empty(1, 1, 2 * channels, 2))
         self.bias = nn.Parameter(torch.zeros(2))
 
@@ -129,9 +140,11 @@ class AttentionFuse(nn.Module):
         c = self.channels
         wx, wy = self.kernel[0, 0, :c], self.kernel[0, 0, c:]
         a, b0 = affine
+        xhat = torch.matmul(x, w_in) * a + b0
+        if self.use_kernel and attfuse_dispatchable(xhat.shape, res.shape):
+            return attention_fuse(xhat, res, wx, wy, self.bias)
         z_off = b0 @ wx + self.bias
         wx_eff = w_in @ (a[:, None] * wx)  # [C_in, 2]
-        xhat = torch.matmul(x, w_in) * a + b0
         y_small = _nearest_axis(res, 2, x.shape[2])
         zx = torch.matmul(x, wx_eff)
         zy = _nearest_axis(torch.matmul(y_small, wy), 1, x.shape[1])
@@ -141,11 +154,13 @@ class AttentionFuse(nn.Module):
 
 
 class Conv3x3(nn.Module):
-    """Bias-free 3x3 SAME conv over [B, D, T, C] (``F.conv2d`` on the NCHW
-    view, as the JAX default path leaves it to XLA's conv)."""
+    """Bias-free 3x3 SAME conv over [B, D, T, C]: ``F.conv2d`` on the NCHW
+    view, as the JAX default path leaves it to XLA's conv, or with
+    ``use_kernel`` ``kernels.conv3x3.conv3x3`` (K3f/K3w)."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int, use_kernel: bool = False):
         super().__init__()
+        self.use_kernel = use_kernel
         self.kernel = nn.Parameter(torch.empty(features, in_channels, 3, 3))
 
     @torch.no_grad()
@@ -153,20 +168,25 @@ class Conv3x3(nn.Module):
         _kaiming_uniform_(self.kernel, 9 * self.kernel.shape[1], generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_kernel:
+            return conv3x3(x, self.kernel)
         return F.conv2d(x.permute(0, 3, 1, 2), self.kernel, padding=1).permute(0, 2, 3, 1)
 
 
 class ABF(nn.Module):
     """One fusion block: 1x1 conv -> bn1, optional attention fusion with the
     propagated residual, 3x3 conv -> bn2.  Returns ``(out, xf)``: the block's
-    output (teacher channels) and the fused map passed on as residual."""
+    output (teacher channels) and the fused map passed on as residual.
+    ``conv_pallas`` and ``attfuse_pallas`` take the 3x3 conv and the fuse
+    through their kernels (the JAX flag names)."""
 
-    def __init__(self, in_channels: int, mid_channels: int, out_channels: int, fuse: bool):
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int, fuse: bool,
+                 conv_pallas: bool = False, attfuse_pallas: bool = False):
         super().__init__()
         self.conv1 = _Kernel((1, 1, in_channels, mid_channels))
         self.bn1 = BatchNorm(mid_channels)
-        self.att_conv = AttentionFuse(mid_channels) if fuse else None
-        self.conv2 = Conv3x3(mid_channels, out_channels)
+        self.att_conv = AttentionFuse(mid_channels, attfuse_pallas) if fuse else None
+        self.conv2 = Conv3x3(mid_channels, out_channels, conv_pallas)
         self.bn2 = BatchNorm(out_channels)
 
     @torch.no_grad()
@@ -198,11 +218,13 @@ class ReviewKD(nn.Module):
     teacher's channel counts of tap i (tap-list order).  ``reverse=True`` for
     encoder taps (the list runs shallow -> deep, so processing starts from
     its end); decoder tap lists already lead with the deepest map.  Block
-    ``abf{i}`` is the i-th in processing order.
+    ``abf{i}`` is the i-th in processing order.  ``conv_pallas`` and
+    ``attfuse_pallas`` go to every block (``ABF``).
     """
 
     def __init__(self, in_channels: Sequence[int], out_channels: Sequence[int],
-                 mid_channels: int, reverse: bool = True):
+                 mid_channels: int, reverse: bool = True, conv_pallas: bool = False,
+                 attfuse_pallas: bool = False):
         super().__init__()
         if len(in_channels) != len(out_channels):
             raise ValueError("in_channels and out_channels differ in length")
@@ -211,7 +233,9 @@ class ReviewKD(nn.Module):
         outs = list(out_channels[::-1] if reverse else out_channels)
         self.blocks = len(ins)
         for i, (c_in, c_out) in enumerate(zip(ins, outs)):
-            self.add_module(f"abf{i}", ABF(c_in, mid_channels, c_out, fuse=i > 0))
+            self.add_module(f"abf{i}", ABF(c_in, mid_channels, c_out, fuse=i > 0,
+                                           conv_pallas=conv_pallas,
+                                           attfuse_pallas=attfuse_pallas))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

@@ -1,0 +1,178 @@
+"""The ABF's bias-free 3x3 SAME convolution over channels-last maps and its
+gradients: hand-written Hopper kernels and their plain PyTorch versions.
+
+Replaces ``speech_enhancement_clskd_tpu/ops/pallas/conv3x3.py``:
+``_fwd_kernel`` (K3f, via ``conv3x3_fwd``; the backward's dx pass is the same
+kernel on flipped, transposed weights) and ``_wgrad_kernel`` (K3w, via
+``conv3x3_wgrad``).
+
+- ``conv3x3(x, w)``: ``x [B, D, T, C]`` and the module's weight ``w
+  [O, C, 3, 3]`` (the layout of ``distill.abf.Conv3x3.kernel``, which
+  ``utils.bridge`` maps from flax's HWIO) give ``[B, D, T, O]``,
+  differentiable in both; the weight gradient comes back in ``w``'s layout.
+  Each call makes its own HWIO copy of ``w`` (at most 9 * 64 * 256 floats
+  here).
+- ``conv3x3_fwd(x, w_hwio)`` and ``conv3x3_wgrad(x, g)`` are the kernels'
+  wrappers, in the JAX kernel's layouts (``w_hwio [3, 3, C, O]``).  On a CUDA
+  tensor they launch the kernels of ``csrc/conv3x3_fwd.cu`` and
+  ``csrc/conv3x3_wgrad.cu`` (built at first use) or raise; nothing falls
+  back.  On a CPU tensor they run ``conv3x3_reference`` and
+  ``conv3x3_wgrad_reference``, explicit sums over the nine shifts.  Their
+  ``launches`` counters count kernel launches only.
+
+Everything is float32; the kernels use f32 FMA, not TF32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from . import _build, check_tensors
+
+FWD_SOURCE = "conv3x3_fwd.cu"
+WGRAD_SOURCE = "conv3x3_wgrad.cu"
+SOURCES = (FWD_SOURCE, WGRAD_SOURCE)
+
+
+def _shifted(x: torch.Tensor):
+    """The nine views ``x[:, d+dd-1, t+tt-1]`` (zeros outside), with (dd, tt)."""
+    _, D, T, _ = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    for dd in range(3):
+        for tt in range(3):
+            yield dd, tt, xp[:, dd:dd + D, tt:tt + T]
+
+
+def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch: ``out = sum_{dd, tt} x[:, d+dd-1, t+tt-1] @ w[dd, tt]``
+    for ``x [B, D, T, C]`` and ``w [3, 3, C, O]``."""
+    out = None
+    for dd, tt, xs in _shifted(x):
+        y = torch.matmul(xs, w[dd, tt])
+        out = y if out is None else out + y
+    return out
+
+
+def conv3x3_wgrad_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch: ``dw[dd, tt] = x[:, d+dd-1, t+tt-1]^T g`` summed over
+    every (b, d, t), ``[3, 3, C, O]``."""
+    C, O = x.shape[-1], g.shape[-1]
+    g2 = g.reshape(-1, O)
+    dw = x.new_empty(3, 3, C, O)
+    for dd, tt, xs in _shifted(x):
+        dw[dd, tt] = xs.reshape(-1, C).T @ g2
+    return dw
+
+
+def _check_map(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.ndim != 4:
+        raise ValueError(f"{name} must be [B, D, T, C], got {tuple(t.shape)}")
+    check_tensors(((name, t),), device, "conv3x3")
+
+
+@functools.lru_cache(maxsize=None)
+def _library(source: str) -> ctypes.CDLL:
+    lib = _build.load(source)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if source == FWD_SOURCE:
+        lib.conv3x3_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.conv3x3_fwd.restype = i32
+    else:
+        lib.conv3x3_wgrad_chunks.argtypes = [i32] * 3
+        lib.conv3x3_wgrad_chunks.restype = i32
+        lib.conv3x3_wgrad.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.conv3x3_wgrad.restype = i32
+    return lib
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [B, D, T, C]`` (*) ``w [3, 3, C, O]`` -> ``[B, D, T, O]``: the K3f
+    kernel on CUDA tensors (counted in ``conv3x3_fwd.launches``),
+    ``conv3x3_reference`` on CPU tensors."""
+    _check_map("x", x, x.device)
+    B, D, T, C = x.shape
+    if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, C):
+        raise ValueError(f"w must be [3, 3, {C}, O], got {tuple(w.shape)}")
+    _check_map("w", w, x.device)
+    O = w.shape[3]
+    if x.device.type == "cpu":
+        return conv3x3_reference(x, w)
+    lib = _library(FWD_SOURCE)
+    out = torch.empty(B, D, T, O, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = lib.conv3x3_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, D, T, C, O,
+                              _stream(x))
+    if err != 0:
+        raise RuntimeError(f"conv3x3_fwd launch failed: CUDA error {err}")
+    conv3x3_fwd.launches += 1
+    return out
+
+
+conv3x3_fwd.launches = 0
+
+
+def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight gradient ``[3, 3, C, O]`` of ``conv3x3_fwd(x, w)`` for the
+    incoming ``g [B, D, T, O]``: the K3w kernel on CUDA tensors (counted in
+    ``conv3x3_wgrad.launches``; partial sums per chunk of freq rows, added in
+    a fixed order, so repeated runs give the same bits),
+    ``conv3x3_wgrad_reference`` on CPU tensors."""
+    _check_map("x", x, x.device)
+    _check_map("g", g, x.device)
+    B, D, T, C = x.shape
+    if tuple(g.shape[:3]) != (B, D, T):
+        raise ValueError(f"g must be [{B}, {D}, {T}, O], got {tuple(g.shape)}")
+    O = g.shape[3]
+    if x.device.type == "cpu":
+        return conv3x3_wgrad_reference(x, g)
+    lib = _library(WGRAD_SOURCE)
+    chunks = lib.conv3x3_wgrad_chunks(C, O, B * D)
+    dw = torch.empty(3, 3, C, O, device=x.device, dtype=torch.float32)
+    scratch = torch.empty(chunks, 9 * C * O, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = lib.conv3x3_wgrad(x.data_ptr(), g.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
+                                B, D, T, C, O, chunks, _stream(x))
+    if err != 0:
+        raise RuntimeError(f"conv3x3_wgrad launch failed: CUDA error {err}")
+    conv3x3_wgrad.launches += 1
+    return dw
+
+
+conv3x3_wgrad.launches = 0
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3x3_fwd(x, w.permute(2, 3, 1, 0).contiguous())
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            # dx = conv3x3(g, flip(w)^T): w_flip[dd, tt, o, c] = w[o, c, 2-dd, 2-tt]
+            dx = conv3x3_fwd(g, w.flip(2, 3).permute(2, 3, 0, 1).contiguous())
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x, g).permute(3, 2, 0, 1).contiguous()
+        return dx, dw
+
+
+def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Bias-free 3x3 SAME conv of ``x [B, D, T, C]`` with the module weight
+    ``w [O, C, 3, 3]``: ``[B, D, T, O]``, differentiable in ``x`` and ``w``."""
+    if w.ndim != 4 or tuple(w.shape[1:]) != (x.shape[-1], 3, 3):
+        raise ValueError(f"w must be [O, {x.shape[-1]}, 3, 3], got {tuple(w.shape)}")
+    return _Conv3x3.apply(x, w)

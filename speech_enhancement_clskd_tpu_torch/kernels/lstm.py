@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from . import _build, check_tensors
 
 FWD_SOURCE = "lstm_seq_fwd.cu"
 BWD_SOURCE = "lstm_seq_bwd.cu"
@@ -106,18 +106,6 @@ def lstm_seq_bwd_reference(
     return dxw, dw_hh
 
 
-def _check_tensors(named, device: torch.device) -> None:
-    for name, t in named:
-        if t is None:
-            continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{name} is on {t.device}, xw on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _check(xw, w_hh, h0, c0) -> None:
     if xw.ndim != 3 or xw.shape[-1] % 4 or xw.shape[0] < 1 or xw.shape[1] < 1:
         raise ValueError(f"xw must be [T>=1, N>=1, 4H], got {tuple(xw.shape)}")
@@ -128,9 +116,7 @@ def _check(xw, w_hh, h0, c0) -> None:
     for name, s in (("h0", h0), ("c0", c0)):
         if s is not None and tuple(s.shape) != (N, H):
             raise ValueError(f"{name} must be [{N}, {H}], got {tuple(s.shape)}")
-    _check_tensors((("xw", xw), ("w_hh", w_hh), ("h0", h0), ("c0", c0)), xw.device)
-    if xw.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"lstm_seq runs on CPU or CUDA tensors, not {xw.device}")
+    check_tensors((("xw", xw), ("w_hh", w_hh), ("h0", h0), ("c0", c0)), xw.device, "lstm_seq")
     if xw.device.type == "cuda" and G > MAX_GATES:
         raise ValueError(f"the kernels run one thread per gate column: 4H <= {MAX_GATES}, got {G}")
 
@@ -188,7 +174,7 @@ def lstm_seq_bwd(
     for name, t in (("y", y), ("c", c), ("dy", dy)):
         if tuple(t.shape) != (T, N, G // 4):
             raise ValueError(f"{name} must be [{T}, {N}, {G // 4}], got {tuple(t.shape)}")
-    _check_tensors((("y", y), ("c", c), ("dy", dy)), xw.device)
+    check_tensors((("y", y), ("c", c), ("dy", dy)), xw.device, "lstm_seq_bwd")
     if xw.device.type == "cpu":
         return lstm_seq_bwd_reference(xw, w_hh, y, c, dy, h0, c0)
     H = G // 4

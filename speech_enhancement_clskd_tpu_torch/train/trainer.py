@@ -9,10 +9,12 @@ Port of ``speech_enhancement_clskd_tpu/train/trainer.py``, the default
    statistics with its running statistics left as they are (the JAX step
    computes and then discards them);
 3. two ReviewKD chains of ABF blocks over the student's encoder and decoder
-   taps;
+   taps (with ``distill.abf_conv_pallas`` and ``distill.abf_attfuse_pallas``
+   their 3x3 convs and attention fuses go through the K3 and K4 kernels);
 4. the SPKD Gram losses against the teacher's taps and LSTM taps, plus the
    log-STFT-magnitude base loss;
-5. the backward (the LSTM backward kernel on CUDA tensors);
+5. the backward (on CUDA tensors the LSTM backward kernel, and with those
+   flags the conv's dx and weight-gradient kernels and the fuse's backward);
 6. Adam on the student and both ABF chains (optax ``adam`` and torch
    ``Adam`` apply the same update, ``m_hat / (sqrt(v_hat) + 1e-8)``).
 
@@ -60,10 +62,6 @@ def _check_supported(cfg: TrainConfig) -> None:
         (d.spkd_bn2_fold, f"distill.spkd_bn2_fold: {item4}"),
         (d.abf_block_pallas,
          "distill.abf_block_pallas: kernels K5f/K5b, ROADMAP queue 1 item 2a"),
-        (d.abf_conv_pallas,
-         "distill.abf_conv_pallas: kernels K3f/K3w, ROADMAP queue 1 item 2b"),
-        (d.abf_attfuse_pallas,
-         "distill.abf_attfuse_pallas: kernels K4f/K4b, ROADMAP queue 1 item 2c"),
         (o.optimizer != "adam" or bool(o.weight_decay),
          f"optim.optimizer={o.optimizer!r}, weight_decay={o.weight_decay}: {item4}"),
         (o.grad_clip is not None, f"optim.grad_clip: {item4}"),
@@ -102,9 +100,10 @@ class Trainer:
         self.teacher = DCCRN(cfg.teacher)
         t_enc, t_dec = _teacher_tap_channels(cfg.teacher)
         s_enc, s_dec = _teacher_tap_channels(cfg.student)
-        mid = cfg.distill.abf_mid_channels
-        self.abf_enc = ReviewKD(s_enc, t_enc, mid, reverse=True)
-        self.abf_dec = ReviewKD(s_dec, t_dec, mid, reverse=False)
+        d = cfg.distill
+        kernels = dict(conv_pallas=d.abf_conv_pallas, attfuse_pallas=d.abf_attfuse_pallas)
+        self.abf_enc = ReviewKD(s_enc, t_enc, d.abf_mid_channels, reverse=True, **kernels)
+        self.abf_dec = ReviewKD(s_dec, t_dec, d.abf_mid_channels, reverse=False, **kernels)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
 

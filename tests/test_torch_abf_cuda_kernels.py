@@ -1,0 +1,145 @@
+"""The hand-written CUDA kernels of the ABF chain (3x3 conv K3f, its weight
+gradient K3w, attention fuse K4f and its backward K4b) against their plain
+PyTorch versions, on the card.  Skipped where there is no CUDA device.
+
+Imports no JAX, so it runs on a machine without it:
+    python -m pytest --noconftest tests/test_torch_abf_cuda_kernels.py -q
+"""
+
+import pytest
+import torch
+
+from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
+    attention_fuse,
+    attention_fuse_bwd,
+    attention_fuse_bwd_reference,
+    attention_fuse_fwd,
+    attention_fuse_reference,
+)
+from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
+    conv3x3,
+    conv3x3_fwd,
+    conv3x3_reference,
+    conv3x3_wgrad,
+    conv3x3_wgrad_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+# f32 FMA both sides, sums in another order.  Maps by max abs error; the
+# parameter gradients, sums over every row, by relative L2 error.
+ATOL = 1e-4
+REL_L2 = 1e-4
+
+# (B, D, T, C, O): D down to 1 and 4, ragged T, O and C from 2 to 256 (every
+# tile shape of both kernels), and the dx pass's C = 256 -> 64
+CONV_SHAPES = [(2, 4, 483, 64, 256), (3, 5, 37, 64, 64), (2, 8, 70, 64, 32),
+               (2, 6, 19, 64, 16), (1, 16, 300, 64, 2), (2, 16, 483, 256, 64),
+               (1, 1, 5, 3, 7), (2, 3, 9, 2, 64)]
+# (B, D, Dp, T, C): k = 2, 1, 4, ragged rows and C below and above 64
+FUSE_SHAPES = [(2, 8, 4, 483, 64), (3, 5, 5, 37, 64), (2, 16, 4, 11, 32),
+               (1, 4, 2, 9, 200), (2, 2, 1, 7, 6)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_l2(got, want):
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _conv_inputs(shape, seed, dev):
+    B, D, T, C, O = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, D, T, C, generator=g).to(dev)
+    w = (torch.randn(3, 3, C, O, generator=g) / (3 * C ** 0.5)).to(dev)
+    gy = torch.randn(B, D, T, O, generator=g).to(dev)
+    return x, w, gy
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+def test_conv_kernels_match_plain(cuda, shape):
+    x, w, gy = _conv_inputs(shape, sum(shape), cuda)
+    before = (conv3x3_fwd.launches, conv3x3_wgrad.launches)
+    out = conv3x3_fwd(x, w)
+    dw = conv3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert (conv3x3_fwd.launches, conv3x3_wgrad.launches) == (before[0] + 1, before[1] + 1)
+    assert (out - conv3x3_reference(x, w)).abs().max().item() <= ATOL
+    assert _rel_l2(dw, conv3x3_wgrad_reference(x, gy)) <= REL_L2
+    assert torch.equal(dw, conv3x3_wgrad(x, gy))  # the same bits every run
+
+
+def test_conv_autograd_launches_its_kernels(cuda):
+    x, w, gy = _conv_inputs((2, 8, 40, 16, 32), 3, cuda)
+    w_mod = w.permute(3, 2, 0, 1).contiguous().requires_grad_(True)
+    x = x.requires_grad_(True)
+    before = (conv3x3_fwd.launches, conv3x3_wgrad.launches)
+    conv3x3(x, w_mod).backward(gy)
+    torch.cuda.synchronize()
+    assert (conv3x3_fwd.launches, conv3x3_wgrad.launches) == (before[0] + 2, before[1] + 1)
+    xr = x.detach().clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    conv3x3_reference(xr, wr).backward(gy)
+    assert (x.grad - xr.grad).abs().max().item() <= ATOL
+    assert _rel_l2(w_mod.grad, wr.grad.permute(3, 2, 0, 1)) <= REL_L2
+
+
+def _fuse_inputs(shape, seed, dev):
+    B, D, Dp, T, C = shape
+    g = torch.Generator().manual_seed(seed)
+    return [t.to(dev) for t in (torch.randn(B, D, T, C, generator=g),
+                                torch.randn(B, Dp, T, C, generator=g),
+                                0.3 * torch.randn(C, 2, generator=g),
+                                0.3 * torch.randn(C, 2, generator=g),
+                                0.1 * torch.randn(2, generator=g),
+                                torch.randn(B, D, T, C, generator=g))]
+
+
+@pytest.mark.parametrize("shape", FUSE_SHAPES, ids=str)
+def test_fuse_kernels_match_plain(cuda, shape):
+    x, res, wx, wy, bias, gy = _fuse_inputs(shape, sum(shape), cuda)
+    before = (attention_fuse_fwd.launches, attention_fuse_bwd.launches)
+    out, z = attention_fuse_fwd(x, res, wx, wy, bias)
+    grads = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    torch.cuda.synchronize()
+    assert (attention_fuse_fwd.launches, attention_fuse_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    rout, rz = attention_fuse_reference(x, res, wx, wy, bias)
+    assert (out - rout).abs().max().item() <= ATOL
+    assert (z - rz).abs().max().item() <= ATOL
+    want = attention_fuse_bwd_reference(x, res, z, gy, wx, wy)
+    for name, got, ref in zip(("dx", "dres", "dwx", "dwy", "dbias"), grads, want):
+        assert got.shape == ref.shape, name
+        if name in ("dx", "dres"):
+            assert (got - ref).abs().max().item() <= ATOL, name
+        else:
+            assert _rel_l2(got, ref) <= REL_L2, name
+    again = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # the same bits every run
+
+
+def test_fuse_autograd_launches_its_kernels(cuda):
+    x, res, wx, wy, bias, gy = _fuse_inputs((2, 8, 4, 21, 64), 5, cuda)
+    ins = [t.requires_grad_(True) for t in (x, res, wx, wy, bias)]
+    before = (attention_fuse_fwd.launches, attention_fuse_bwd.launches)
+    attention_fuse(*ins).backward(gy)
+    torch.cuda.synchronize()
+    assert (attention_fuse_fwd.launches, attention_fuse_bwd.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    assert tuple(ins[4].grad.shape) == (2,)
+    refs = [t.detach().clone().requires_grad_(True) for t in ins]
+    attention_fuse_reference(*refs)[0].backward(gy)
+    for got, ref in zip(ins, refs):
+        assert _rel_l2(got.grad, ref.grad) <= REL_L2
+
+
+def test_fuse_kernel_rejects_too_wide(cuda):
+    x, res, wx, wy, bias, _ = _fuse_inputs((1, 2, 1, 3, 257), 0, cuda)
+    with pytest.raises(ValueError, match="attfuse_dispatchable"):
+        attention_fuse_fwd(x, res, wx, wy, bias)
