@@ -42,7 +42,18 @@ card, then drives both paths through their entry points:
 9. training with the kernels: ``Trainer(TrainConfig(distill=DistillConfig(
    abf_conv_pallas=True, abf_attfuse_pallas=True)))`` as phase 7 (one
    warm-up and 5 timed steps, launches per step: K3f 24, K3w 12, K4f 10,
-   K4b 10, K1f 8, K1b 4) and its card-vs-CPU step, held as phase 7's.
+   K4b 10, K1f 8, K1b 4) and its card-vs-CPU step, held as phase 7's;
+10. whole-ABF-block kernels vs plain: ``abf_block_fwd`` (K5f) and
+    ``abf_block_bwd`` (K5b) against their plain versions at the training
+    step's reference block, its decoder mask block, its deepest (no-fuse)
+    block and small ragged ones (k = 1, 2, 4; T past the tiles; D of one
+    row); two runs of K5b must give the same bits; times, the bound, and the
+    time of the per-op kernels it replaces on the same block (the xhat
+    matmul, K4f and K3f; K3f's dx pass, K3w, K4b and the 1x1 conv's two
+    matmuls);
+11. training with the whole-block kernel: ``Trainer(TrainConfig(distill=
+    DistillConfig(abf_block_pallas=True)))`` as phase 9 (launches per step:
+    K5f 12, K5b 12, K1f 8, K1b 4, and no K3/K4) and its card-vs-CPU step.
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -69,6 +80,8 @@ TRAIN_SECONDS, TRAIN_STEPS = 3.0, 10
 KERNEL_TRAIN_STEPS = 5
 # the ABF kernel paths of phase 9, shared with scripts/profile_serving_torch.py
 ABF_KERNEL_FLAGS = dict(abf_conv_pallas=True, abf_attfuse_pallas=True)
+# the whole-block kernel path of phase 11, shared with the profile script
+ABF_BLOCK_FLAGS = dict(abf_block_pallas=True)
 # card vs CPU training step: 4 x 1 s at full width
 CHECK_BATCH, CHECK_SECONDS = 4, 1.0
 
@@ -80,6 +93,11 @@ PEAK_F32_FLOP_S = 67e12
 # float32 on both sides; the kernel sums h @ W_hh in another order than
 # cuBLAS, and the error carried through T=483 steps stays near 1e-6.
 KERNEL_ATOL = 1e-4
+# K5f/K5b vs plain: the same f32 sums in another order; the forward by max
+# abs error over max(1, the largest output) (the deepest block's outputs
+# reach ~10, its error 2e-5), every backward output by relative L2 error
+BLOCK_FWD_TOL = 1e-5
+BLOCK_REL_L2 = 1e-5
 # card (cuDNN f32, no TF32) vs CPU port on the enhanced waveform in [-1, 1]
 SERVING_ATOL = 1e-4
 # card vs CPU training step: the loss, and each gradient tensor by relative
@@ -117,9 +135,9 @@ def phase_device():
 
 
 def phase_build():
-    from speech_enhancement_clskd_tpu_torch.kernels import _build, attfuse, conv3x3, lstm
+    from speech_enhancement_clskd_tpu_torch.kernels import _build, abf_block, attfuse, conv3x3, lstm
 
-    sources = lstm.SOURCES + conv3x3.SOURCES + attfuse.SOURCES
+    sources = lstm.SOURCES + conv3x3.SOURCES + attfuse.SOURCES + abf_block.SOURCES
     t0 = time.perf_counter()
     paths = _build.build_all(sources)
     seconds = time.perf_counter() - t0
@@ -507,6 +525,7 @@ def _card_vs_cpu(mix, clean, distill: dict = None) -> dict:
 
 def _kernel_counters() -> dict:
     """Every kernel wrapper of the training step, by kernel name."""
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
     from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
         attention_fuse_bwd,
         attention_fuse_fwd,
@@ -516,7 +535,8 @@ def _kernel_counters() -> dict:
 
     return {"lstm_seq_fwd": lstm_seq, "lstm_seq_bwd": lstm_seq_bwd,
             "conv3x3_fwd": conv3x3_fwd, "conv3x3_wgrad": conv3x3_wgrad,
-            "attfuse_fwd": attention_fuse_fwd, "attfuse_bwd": attention_fuse_bwd}
+            "attfuse_fwd": attention_fuse_fwd, "attfuse_bwd": attention_fuse_bwd,
+            "abf_block_fwd": abf_block_fwd, "abf_block_bwd": abf_block_bwd}
 
 
 def _training(phase: str, config: str, distill: dict, steps: int, expected: dict) -> dict:
@@ -598,6 +618,13 @@ def phase_training_kernels():
                      KERNEL_TRAIN_STEPS,
                      {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4, "conv3x3_fwd": 24,
                       "conv3x3_wgrad": 12, "attfuse_fwd": 10, "attfuse_bwd": 10})
+
+
+def phase_training_block():
+    return _training("training_block", "clskd TrainConfig(distill=DistillConfig("
+                     "abf_block_pallas=True))", ABF_BLOCK_FLAGS, KERNEL_TRAIN_STEPS,
+                     {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4, "abf_block_fwd": 12,
+                      "abf_block_bwd": 12})
 
 
 def _bound(nbytes: float, flops: float) -> tuple:
@@ -763,6 +790,140 @@ def phase_abf_kernels_vs_plain():
     return conv, fuse
 
 
+def _block_bounds(fuse, B, D, k, T, Cs, M, O) -> tuple:
+    """K5f's and K5b's bounds: each input read once and each output written
+    once; the operations of the 1x1 conv (2 Cs M a pixel), the attention
+    (4 Cs + 4 M logits, ~3 M blend and ~8 sigmoid a pixel) and the 3x3 conv
+    (18 M O a pixel) forward; backward the conv adjoint and dw2 (36 M O),
+    xhat again, g_tap and dw1a (6 Cs M) and the attention's ~4 Cs + 16 M."""
+    rows, res_rows = B * D * T, (B * D * T // k if fuse else 0)
+    small = Cs * M + 3 * M + 2 * Cs + 2 + 9 * M * O
+    fwd = _bound(4.0 * (rows * Cs + res_rows * M + small + rows * M + rows * O),
+                 rows * (18.0 * M * O + 2 * Cs * M + ((4 * Cs + 7 * M + 8) if fuse else M)))
+    bwd = _bound(4.0 * (2 * rows * Cs + 2 * res_rows * M + 2 * rows * M + rows * O + 2 * small),
+                 rows * (36.0 * M * O + 6 * Cs * M + ((4 * Cs + 16 * M) if fuse else M)))
+    return fwd, bwd
+
+
+def _block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
+    """K5f and K5b against their plain versions at tap [B, D, T, Cs], the
+    residual [B, D/k, T, M] (or none), mid M and O output channels."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
+        abf_block_bwd,
+        abf_block_bwd_reference,
+        abf_block_fwd,
+        abf_block_reference,
+    )
+    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
+        attention_fuse_bwd,
+        attention_fuse_fwd,
+    )
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_wgrad
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + k + Cs + O)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=g)
+
+    # w1a at the scale bn1 gives it (xhat of unit variance)
+    kw = dict(tap=r(B, D, T, Cs), res=r(B, D // k, T, M) if fuse else None,
+              w1a=r(Cs, M, scale=Cs ** -0.5), bvec=r(M, scale=0.2), wxt=r(Cs, 2, scale=0.3),
+              wy=r(M, 2, scale=0.3), zoff=r(2, scale=0.1),
+              w2=r(3, 3, M, O, scale=1 / (3 * M ** 0.5)))
+    gxf, gout = r(B, D, T, M), r(B, D, T, O)
+    before = (abf_block_fwd.launches, abf_block_bwd.launches)
+    xf, out = abf_block_fwd(**kw)
+    grads = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
+    again = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
+    torch.cuda.synchronize()
+    if (abf_block_fwd.launches, abf_block_bwd.launches) != (before[0] + 1, before[1] + 2):
+        raise RuntimeError("abf_block kernels did not count their launches")
+    names = ("g_tap", "g_res", "dw1a", "dbvec", "dwxt", "dwy", "dzoff", "dw2")
+    with float32_math():
+        rxf, rout = abf_block_reference(**kw)
+        err_fwd = max((xf - rxf).abs().max().item(), (out - rout).abs().max().item())
+        rel_fwd = max((xf - rxf).abs().max().item() / max(1.0, rxf.abs().max().item()),
+                      (out - rout).abs().max().item() / max(1.0, rout.abs().max().item()))
+        del rout
+        want = abf_block_bwd_reference(**kw, xf=rxf, gxf=gxf, gout=gout)
+        del rxf
+    bwd_rel = {n: _rel_l2(a, b) for n, a, b in zip(names, grads, want) if b is not None}
+    bwd_abs = max((a - b).abs().max().item() for a, b in zip(grads[:2], want[:2])
+                  if b is not None)
+    del want
+    rec = {"fuse": fuse, "B": B, "D": D, "k": k, "T": T, "Cs": Cs, "M": M, "O": O,
+           "fwd_max_abs_err": err_fwd, "fwd_max_rel_err": rel_fwd, "bwd_rel_l2": bwd_rel, "bwd_max_rel_l2":
+           max(bwd_rel.values()), "bwd_max_abs_err_g_tap_g_res": bwd_abs,
+           "bwd_bitwise_repeat": all(a is None or bool(torch.equal(a, b))
+                                     for a, b in zip(grads, again)),
+           "fwd_tol": BLOCK_FWD_TOL, "bwd_tol": BLOCK_REL_L2}
+    del grads, again
+    if timed:
+        (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _block_bounds(fuse, B, D, k, T, Cs, M, O)
+        # the per-op kernel path on the same block: raw attention weights
+        wx, wy, bias = r(M, 2, scale=0.3), kw["wy"], r(2, scale=0.1)
+        w2f = kw["w2"].flip(0, 1).transpose(2, 3).contiguous()
+        xhat = kw["tap"] @ kw["w1a"] + kw["bvec"]
+        z = attention_fuse_fwd(xhat, kw["res"], wx, wy, bias)[1] if fuse else None
+        tap2 = kw["tap"].reshape(-1, Cs)
+
+        def per_op_fwd():
+            xh = kw["tap"] @ kw["w1a"] + kw["bvec"]
+            xff = attention_fuse_fwd(xh, kw["res"], wx, wy, bias)[0] if fuse else xh
+            return conv3x3_fwd(xff, kw["w2"])
+
+        def per_op_bwd():
+            dxf = conv3x3_fwd(gout, w2f) + gxf
+            conv3x3_wgrad(xf, gout)
+            gx = attention_fuse_bwd(xhat, kw["res"], z, dxf, wx, wy)[0] if fuse else dxf
+            gx2 = gx.reshape(-1, M)
+            return gx2 @ kw["w1a"].T, tap2.T @ gx2
+
+        with float32_math():
+            rec.update(
+                fwd_ms=_time_ms(lambda: abf_block_fwd(**kw), iters=5),
+                fwd_plain_ms=_time_ms(lambda: abf_block_reference(**kw), iters=2),
+                fwd_per_op_ms=_time_ms(per_op_fwd, iters=5),
+                fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                bwd_ms=_time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout), iters=5),
+                bwd_plain_ms=_time_ms(lambda: abf_block_bwd_reference(
+                    **kw, xf=xf, gxf=gxf, gout=gout), iters=2),
+                bwd_per_op_ms=_time_ms(per_op_bwd, iters=5),
+                bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by)
+    return rec
+
+
+# phase 10's shapes (fuse, B, D, k, T, Cs, M, O, timed): the training step's
+# reference block (encoder D=64, Cs=16 -> 64; its conv is phase 8's reference
+# conv), the decoder's mask block (D=256, Cs=2 -> 2: xf has 253 M elements),
+# the deepest encoder block (no fuse, D=4, Cs=64 -> 256), and small ragged
+# ones: k = 1 and 4, T past the tiles, D of one row with k = 2, no fuse
+BLOCK_CASES = [(True, 32, 64, 2, 483, 16, 64, 64, True),
+               (True, 32, 256, 2, 483, 2, 64, 2, True),
+               (False, 32, 4, 1, 483, 64, 64, 256, True),
+               (True, 3, 5, 1, 37, 16, 64, 32, False), (True, 2, 16, 4, 29, 8, 64, 16, False),
+               (True, 2, 2, 2, 70, 4, 64, 5, False), (False, 2, 1, 1, 11, 3, 8, 7, False)]
+BLOCK_REF = (True, 32, 64, 2, 483, 16, 64, 64)
+
+
+def phase_abf_block_vs_plain():
+    import torch
+
+    cases = []
+    for *shape, timed in BLOCK_CASES:
+        rec = _block_case(*shape, timed=timed)
+        say("abf_block_vs_plain", **rec)
+        cases.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["fwd_max_rel_err"] <= BLOCK_FWD_TOL and rec["bwd_max_rel_l2"] <= BLOCK_REL_L2
+                and rec["bwd_bitwise_repeat"]):
+            raise RuntimeError(f"abf_block kernels disagree with their plain versions: {rec}")
+    return cases
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -777,12 +938,14 @@ def main() -> None:
     training = phase_training()
     conv_shapes, fuse_shapes = phase_abf_kernels_vs_plain()
     kernel_training = phase_training_kernels()
+    block_shapes = phase_abf_block_vs_plain()
+    block_training = phase_training_block()
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
     conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
     fuse = next(r for r in fuse_shapes if (r["B"], r["D"], r["Dp"], r["T"], r["C"]) == FUSE_REF)
     trained = {name: training["launches"][name] + kernel_training["launches"][name]
-               for name in training["launches"]}
+               + block_training["launches"][name] for name in training["launches"]}
     src = "speech_enhancement_clskd_tpu_torch/kernels/csrc/"
     pallas = "speech_enhancement_clskd_tpu/ops/pallas/"
     kernels = [{
@@ -800,7 +963,8 @@ def main() -> None:
         "shape": {"T": 483, "N": 64, "H": 128},
         "launches_by_path": {"serving": serving_launches,
                              "training": training["launches"]["lstm_seq_fwd"],
-                             "training_kernels": kernel_training["launches"]["lstm_seq_fwd"]},
+                             "training_kernels": kernel_training["launches"]["lstm_seq_fwd"],
+                             "training_block": block_training["launches"]["lstm_seq_fwd"]},
         "per_shape": fwd_shapes,
     }, {
         "name": "lstm_seq_bwd",
@@ -817,7 +981,8 @@ def main() -> None:
         "library_ms": bwd["library_ms"],
         "shape": {"T": 483, "N": 64, "H": 32},
         "launches_by_path": {"training": training["launches"]["lstm_seq_bwd"],
-                             "training_kernels": kernel_training["launches"]["lstm_seq_bwd"]},
+                             "training_kernels": kernel_training["launches"]["lstm_seq_bwd"],
+                             "training_block": block_training["launches"]["lstm_seq_bwd"]},
         "per_shape": bwd_shapes,
     }]
     conv_shape = dict(zip(("B", "D", "T", "C", "O"), CONV_REF))
@@ -845,6 +1010,28 @@ def main() -> None:
             "library_ms": shape.get(f"{key}_library_ms"),
             "shape": conv_shape if name.startswith("conv") else fuse_shape,
             "per_shape": cases,
+        })
+    block = next(r for r in block_shapes if tuple(
+        r[n] for n in ("fuse", "B", "D", "k", "T", "Cs", "M", "O")) == BLOCK_REF)
+    block_shape = dict(zip(("fuse", "B", "D", "k", "T", "Cs", "M", "O"), BLOCK_REF))
+    for name, source, line, key, err in (
+            ("abf_block_fwd", "abf_block_fwd.cu", "abf_block.py:196", "fwd", "fwd_max_abs_err"),
+            ("abf_block_bwd", "abf_block_bwd.cu", "abf_block.py:220", "bwd", "bwd_max_rel_l2")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + source,
+            "replaces": pallas + line,
+            "launches": block_training["launches"][name],
+            "max_abs_err": max(r[err] for r in block_shapes),
+            "ms": block[f"{key}_ms"],
+            "plain_ms": block[f"{key}_plain_ms"],
+            "bound_ms": block[f"{key}_bound_ms"],
+            "bound_by": block[f"{key}_bound_by"],
+            "library_ms": None,
+            "per_op_ms": block[f"{key}_per_op_ms"],
+            "shape": block_shape,
+            "per_shape": block_shapes,
         })
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,7 @@ one NVIDIA GPU.
 
     python3 scripts/profile_serving_torch.py [--trace-dir DIR]
 
-Four configurations, built as ``chip_smoke.py`` builds them:
+Five configurations, built as ``chip_smoke.py`` builds them:
 
 - student streaming: the r4 bundle, batch 1, one fixed-shape chunk step
   (chunk 48, context 64) repeated 40 times;
@@ -12,7 +12,9 @@ Four configurations, built as ``chip_smoke.py`` builds them:
 - clskd train step: ``Trainer(TrainConfig())`` with seeded weights, 32 x 3 s
   synthetic batches, 3 optimizer steps;
 - clskd train step with the ABF kernels: the same with
-  ``DistillConfig(abf_conv_pallas=True, abf_attfuse_pallas=True)``.
+  ``DistillConfig(abf_conv_pallas=True, abf_attfuse_pallas=True)``;
+- clskd train step with the whole-ABF-block kernel: the same with
+  ``DistillConfig(abf_block_pallas=True)``.
 
 For each it prints one JSON line: wall ms per step (host clock around
 synchronised steps, profiler off); from one profiled run of the same steps,
@@ -36,7 +38,9 @@ ROOT = Path(__file__).resolve().parents[1]
 STUDENT_CHUNKS = 40
 TEACHER_ITERS = 3
 TRAIN_ITERS = 3
-PORT_KERNEL_PREFIXES = ("lstm_", "conv3x3_", "attfuse_")
+# the port's hand-written kernels by name; reduce_partials_kernel is the
+# fixed-order sum of K3w's and K5b's partials
+PORT_KERNEL_PREFIXES = ("lstm_", "conv3x3_", "attfuse_", "abf_block_", "reduce_partials")
 
 
 def _self_device_us(evt) -> float:
@@ -109,6 +113,7 @@ def main() -> None:
     import torch
 
     from chip_smoke import (
+        ABF_BLOCK_FLAGS,
         ABF_KERNEL_FLAGS,
         TEACHER_BATCH,
         TRAIN_SECONDS,
@@ -149,7 +154,8 @@ def main() -> None:
     del model, batch
 
     for label, distill in (("clskd_train_step", {}),
-                           ("clskd_train_step_abf_kernels", ABF_KERNEL_FLAGS)):
+                           ("clskd_train_step_abf_kernels", ABF_KERNEL_FLAGS),
+                           ("clskd_train_step_abf_block", ABF_BLOCK_FLAGS)):
         cfg = train_config(TEACHER_BATCH, TRAIN_SECONDS, distill)
         trainer = Trainer(cfg, device="cuda").init_state(0)
         mix, clean = (torch.from_numpy(a).cuda()

@@ -2,10 +2,10 @@
 
 Port of ``speech_enhancement_clskd_tpu/distill/abf.py``: its default path,
 and the opt-in kernel paths of ``conv_pallas`` (the 3x3 conv through
-``kernels.conv3x3``, K3f/K3w) and ``attfuse_pallas`` (the attention fuse
-through ``kernels.attfuse``, K4f/K4b); the whole-block kernel
-(``block_pallas``, K5) is not ported yet.  Each ABF block takes one student
-tap ``[B, D, T, C_in]``:
+``kernels.conv3x3``, K3f/K3w), ``attfuse_pallas`` (the attention fuse
+through ``kernels.attfuse``, K4f/K4b) and ``block_pallas`` (the whole block
+but bn2 through ``kernels.abf_block``, K5f/K5b).  Each ABF block takes one
+student tap ``[B, D, T, C_in]``:
 
     x1   = tap @ W1                      (1x1 conv, bias-free)
     xhat = bn1(x1)                       (batch moments derived from the tap)
@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.abf_block import abf_block, abf_block_dispatchable
 from ..kernels.attfuse import attention_fuse, attfuse_dispatchable
 from ..kernels.conv3x3 import conv3x3
 from ..ops.complex_layers import BatchNorm
@@ -178,11 +179,17 @@ class ABF(nn.Module):
     propagated residual, 3x3 conv -> bn2.  Returns ``(out, xf)``: the block's
     output (teacher channels) and the fused map passed on as residual.
     ``conv_pallas`` and ``attfuse_pallas`` take the 3x3 conv and the fuse
-    through their kernels (the JAX flag names)."""
+    through their kernels, and ``block_pallas`` everything but bn2 through
+    the whole-block kernel where ``abf_block_dispatchable`` takes the
+    geometry (the JAX flag names; a block the gate refuses takes the per-op
+    path under the other two)."""
 
     def __init__(self, in_channels: int, mid_channels: int, out_channels: int, fuse: bool,
-                 conv_pallas: bool = False, attfuse_pallas: bool = False):
+                 conv_pallas: bool = False, attfuse_pallas: bool = False,
+                 block_pallas: bool = False):
         super().__init__()
+        self.mid_channels, self.out_channels = mid_channels, out_channels
+        self.block_pallas = block_pallas
         self.conv1 = _Kernel((1, 1, in_channels, mid_channels))
         self.bn1 = BatchNorm(mid_channels)
         self.att_conv = AttentionFuse(mid_channels, attfuse_pallas) if fuse else None
@@ -203,12 +210,36 @@ class ABF(nn.Module):
         w1 = self.conv1.kernel[0, 0]
         moments = _bn1_moments_from_tap(x, w1) if training else None
         aff = self.bn1(None, training=training, return_affine=True, moments=moments)
-        if self.att_conv is not None and residual is not None:
+        fuse = self.att_conv is not None and residual is not None
+        if self.block_pallas and abf_block_dispatchable(
+                x.shape, residual.shape if fuse else None, self.mid_channels,
+                self.out_channels):
+            out, xf = self._block(x, residual if fuse else None, w1, aff)
+            return self.bn2(out, training=training), xf
+        if fuse:
             x = self.att_conv(x, residual, aff, w1)
         else:
             a, b0 = aff
             x = torch.matmul(x, w1) * a + b0
         return self.bn2(self.conv2(x), training=training), x
+
+    def _block(self, x, residual, w1, aff):
+        """``(raw conv2 output, xf)`` through ``kernels.abf_block``, with the
+        kernel's folded weights formed here, in autograd, so the gradients
+        reach conv1, bn1, att_conv and conv2: ``w1a = w1 * a``, ``wxt = w1a @
+        wx``, ``zoff = b @ wx + att bias`` and conv2's kernel as HWIO."""
+        a, b0 = aff
+        w1a = w1 * a
+        w2 = self.conv2.kernel.permute(2, 3, 1, 0).contiguous()
+        if residual is None:
+            xf, out = abf_block(x.contiguous(), None, w1a, b0, None, None, None, w2)
+            return out, xf
+        c = self.mid_channels
+        att = self.att_conv.kernel[0, 0]
+        wx, wy = att[:c], att[c:]
+        xf, out = abf_block(x.contiguous(), residual.contiguous(), w1a, b0, w1a @ wx,
+                            wy.contiguous(), b0 @ wx + self.att_conv.bias, w2)
+        return out, xf
 
 
 class ReviewKD(nn.Module):
@@ -218,13 +249,13 @@ class ReviewKD(nn.Module):
     teacher's channel counts of tap i (tap-list order).  ``reverse=True`` for
     encoder taps (the list runs shallow -> deep, so processing starts from
     its end); decoder tap lists already lead with the deepest map.  Block
-    ``abf{i}`` is the i-th in processing order.  ``conv_pallas`` and
-    ``attfuse_pallas`` go to every block (``ABF``).
+    ``abf{i}`` is the i-th in processing order.  ``conv_pallas``,
+    ``attfuse_pallas`` and ``block_pallas`` go to every block (``ABF``).
     """
 
     def __init__(self, in_channels: Sequence[int], out_channels: Sequence[int],
                  mid_channels: int, reverse: bool = True, conv_pallas: bool = False,
-                 attfuse_pallas: bool = False):
+                 attfuse_pallas: bool = False, block_pallas: bool = False):
         super().__init__()
         if len(in_channels) != len(out_channels):
             raise ValueError("in_channels and out_channels differ in length")
@@ -235,7 +266,8 @@ class ReviewKD(nn.Module):
         for i, (c_in, c_out) in enumerate(zip(ins, outs)):
             self.add_module(f"abf{i}", ABF(c_in, mid_channels, c_out, fuse=i > 0,
                                            conv_pallas=conv_pallas,
-                                           attfuse_pallas=attfuse_pallas))
+                                           attfuse_pallas=attfuse_pallas,
+                                           block_pallas=block_pallas))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:

@@ -26,7 +26,8 @@
 // time step has a padded stride of kKC + 1 floats, so the threads of a warp
 // that read different rows hit different banks.  The tile shape follows O:
 // 64 x 64 for O >= 64, 128 x 32, 256 x 16, and 256 x 4 for the narrowest
-// maps (O = 2 wastes half of its tile instead of 31/32).
+// maps (O = 2 wastes half of its tile instead of 31/32).  The weight staging,
+// the FMA loop and the store are in conv3x3_tiles.cuh, shared with K5f/K5b.
 //
 // Offsets are 64-bit: the largest ABF map (32 x 256 x 483 x 64) has 253 M
 // elements.
@@ -37,19 +38,18 @@
 
 #include <cuda_runtime.h>
 
+#include "conv3x3_tiles.cuh"
+
 namespace {
 
-constexpr int kKC = 8;  // input channels staged per pass
-constexpr int kTM = 4;  // time steps per thread
-constexpr int kTN = 4;  // output channels per thread (one float4 of weights)
+using namespace conv3x3_tiles;
 
 template <int BM, int BN>
-__global__ void __launch_bounds__((BM / kTM) * (BN / kTN))
+__global__ void __launch_bounds__(fwd_threads<BM, BN>())
 conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    float* __restrict__ out, int D, int T, int C, int O, int t_tiles) {
-  constexpr int kThreads = (BM / kTM) * (BN / kTN);
+  constexpr int kThreads = fwd_threads<BM, BN>();
   constexpr int kRows = BM + 2;  // staged time steps, halo included
-  constexpr int kXs = kKC + 1;   // padded stride of one staged time step
   __shared__ float xs[3][kRows][kXs];
   __shared__ __align__(16) float ws[9][kKC][BN];
 
@@ -61,10 +61,7 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int ty = threadIdx.x / (BN / kTN);
 
   float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+  zero_tile(acc);
 
   for (int c0 = 0; c0 < C; c0 += kKC) {
     // x halo: xs[r][j][c] = x[b, d + r - 1, t0 + j - 1, c0 + c]
@@ -78,48 +75,12 @@ conv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         v = __ldg(x + ((bd + r - 1) * T + t) * (long)C + cc);
       xs[r][j][c] = v;
     }
-    // weights: ws[k][c][o] = w[k, c0 + c, o0 + o], k = dd * 3 + tt
-    for (int e = threadIdx.x; e < 9 * kKC * BN; e += kThreads) {
-      const int o = e % BN;
-      const int c = (e / BN) % kKC;
-      const int k = e / (BN * kKC);
-      const int cc = c0 + c, oo = o0 + o;
-      ws[k][c][o] = (cc < C && oo < O) ? __ldg(w + ((long)k * C + cc) * O + oo) : 0.0f;
-    }
+    stage_weights<BM, BN>(ws, w, c0, o0, C, O);
     __syncthreads();
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-#pragma unroll
-      for (int c = 0; c < kKC; ++c) {
-        float a[kTM + 2];
-#pragma unroll
-        for (int i = 0; i < kTM + 2; ++i) a[i] = xs[r][ty * kTM + i][c];
-#pragma unroll
-        for (int s = 0; s < 3; ++s) {
-          const float4 b = *reinterpret_cast<const float4*>(&ws[r * 3 + s][c][tx * kTN]);
-#pragma unroll
-          for (int i = 0; i < kTM; ++i) {
-            acc[i][0] = fmaf(a[i + s], b.x, acc[i][0]);
-            acc[i][1] = fmaf(a[i + s], b.y, acc[i][1]);
-            acc[i][2] = fmaf(a[i + s], b.z, acc[i][2]);
-            acc[i][3] = fmaf(a[i + s], b.w, acc[i][3]);
-          }
-        }
-      }
-    }
+    fma_chunk<BM, BN>(xs, ws, acc, tx, ty);
     __syncthreads();
   }
-
-  const int oc = o0 + tx * kTN;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int t = t0 + ty * kTM + i;
-    if (t >= T) break;
-    float* dst = out + (bd * T + t) * (long)O + oc;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j)
-      if (oc + j < O) dst[j] = acc[i][j];
-  }
+  store_tile(out, acc, bd, t0, T, o0, O, tx, ty);
 }
 
 template <int BM, int BN>
@@ -127,8 +88,8 @@ cudaError_t launch(const float* x, const float* w, float* out, int B, int D, int
                    int O, cudaStream_t stream) {
   const int t_tiles = (T + BM - 1) / BM;
   const dim3 grid((unsigned)((long)B * D * t_tiles), (unsigned)((O + BN - 1) / BN));
-  conv3x3_fwd_kernel<BM, BN><<<grid, (BM / kTM) * (BN / kTN), 0, stream>>>(x, w, out, D, T, C,
-                                                                          O, t_tiles);
+  conv3x3_fwd_kernel<BM, BN><<<grid, fwd_threads<BM, BN>(), 0, stream>>>(x, w, out, D, T, C, O,
+                                                                       t_tiles);
   return cudaGetLastError();
 }
 

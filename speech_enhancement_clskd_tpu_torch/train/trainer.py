@@ -10,11 +10,15 @@ Port of ``speech_enhancement_clskd_tpu/train/trainer.py``, the default
    computes and then discards them);
 3. two ReviewKD chains of ABF blocks over the student's encoder and decoder
    taps (with ``distill.abf_conv_pallas`` and ``distill.abf_attfuse_pallas``
-   their 3x3 convs and attention fuses go through the K3 and K4 kernels);
+   their 3x3 convs and attention fuses go through the K3 and K4 kernels;
+   with ``distill.abf_block_pallas`` each block but its bn2 goes through the
+   whole-block kernel K5, and a block its gate refuses takes the path of
+   the other two flags);
 4. the SPKD Gram losses against the teacher's taps and LSTM taps, plus the
    log-STFT-magnitude base loss;
 5. the backward (on CUDA tensors the LSTM backward kernel, and with those
-   flags the conv's dx and weight-gradient kernels and the fuse's backward);
+   flags the conv's dx and weight-gradient kernels and the fuse's backward,
+   or the whole block's backward);
 6. Adam on the student and both ABF chains (optax ``adam`` and torch
    ``Adam`` apply the same update, ``m_hat / (sqrt(v_hat) + 1e-8)``).
 
@@ -60,8 +64,6 @@ def _check_supported(cfg: TrainConfig) -> None:
         (d.abf_remat, f"distill.abf_remat: {item4}"),
         (d.abf_conv_ninedot, f"distill.abf_conv_ninedot: {item4}"),
         (d.spkd_bn2_fold, f"distill.spkd_bn2_fold: {item4}"),
-        (d.abf_block_pallas,
-         "distill.abf_block_pallas: kernels K5f/K5b, ROADMAP queue 1 item 2a"),
         (o.optimizer != "adam" or bool(o.weight_decay),
          f"optim.optimizer={o.optimizer!r}, weight_decay={o.weight_decay}: {item4}"),
         (o.grad_clip is not None, f"optim.grad_clip: {item4}"),
@@ -101,7 +103,8 @@ class Trainer:
         t_enc, t_dec = _teacher_tap_channels(cfg.teacher)
         s_enc, s_dec = _teacher_tap_channels(cfg.student)
         d = cfg.distill
-        kernels = dict(conv_pallas=d.abf_conv_pallas, attfuse_pallas=d.abf_attfuse_pallas)
+        kernels = dict(conv_pallas=d.abf_conv_pallas, attfuse_pallas=d.abf_attfuse_pallas,
+                       block_pallas=d.abf_block_pallas)
         self.abf_enc = ReviewKD(s_enc, t_enc, d.abf_mid_channels, reverse=True, **kernels)
         self.abf_dec = ReviewKD(s_dec, t_dec, d.abf_mid_channels, reverse=False, **kernels)
         self.optimizer: Optional[torch.optim.Optimizer] = None

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels of the ABF chain (3x3 conv K3f, its weight
-gradient K3w, attention fuse K4f and its backward K4b) against their plain
-PyTorch versions, on the card.  Skipped where there is no CUDA device.
+gradient K3w, attention fuse K4f and its backward K4b, the whole block K5f
+and its backward K5b) against their plain PyTorch versions, on the card.  Skipped where there is no CUDA device.
 
 Imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_abf_cuda_kernels.py -q
@@ -9,6 +9,13 @@ Imports no JAX, so it runs on a machine without it:
 import pytest
 import torch
 
+from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
+    abf_block,
+    abf_block_bwd,
+    abf_block_bwd_reference,
+    abf_block_fwd,
+    abf_block_reference,
+)
 from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
     attention_fuse,
     attention_fuse_bwd,
@@ -35,10 +42,17 @@ REL_L2 = 1e-4
 # tile shape of both kernels), and the dx pass's C = 256 -> 64
 CONV_SHAPES = [(2, 4, 483, 64, 256), (3, 5, 37, 64, 64), (2, 8, 70, 64, 32),
                (2, 6, 19, 64, 16), (1, 16, 300, 64, 2), (2, 16, 483, 256, 64),
-               (1, 1, 5, 3, 7), (2, 3, 9, 2, 64)]
+               (1, 1, 5, 3, 7), (2, 3, 9, 2, 64), (2, 5, 33, 64, 12)]
 # (B, D, Dp, T, C): k = 2, 1, 4, ragged rows and C below and above 64
 FUSE_SHAPES = [(2, 8, 4, 483, 64), (3, 5, 5, 37, 64), (2, 16, 4, 11, 32),
                (1, 4, 2, 9, 200), (2, 2, 1, 7, 6)]
+# (fuse, B, D, k, T, Cs, M, O): every K5f tile (O >= 64, 32, 16, < 16), k = 1,
+# 2, 4, T ragged past K5b's 64-step items, D of one row, Cs and M from 2 to 64
+BLOCK_SHAPES = [(True, 2, 8, 2, 483, 16, 64, 64), (True, 2, 16, 2, 70, 64, 64, 256),
+                (True, 1, 8, 4, 37, 8, 64, 32), (True, 3, 5, 1, 19, 2, 64, 16),
+                (True, 2, 32, 2, 100, 2, 64, 2), (True, 2, 2, 2, 9, 4, 6, 5),
+                (False, 2, 4, 1, 483, 64, 64, 256), (False, 1, 1, 1, 5, 3, 7, 7)]
+BLOCK_GRADS = ("g_tap", "g_res", "dw1a", "dbvec", "dwxt", "dwy", "dzoff", "dw2")
 
 
 @pytest.fixture
@@ -143,3 +157,68 @@ def test_fuse_kernel_rejects_too_wide(cuda):
     x, res, wx, wy, bias, _ = _fuse_inputs((1, 2, 1, 3, 257), 0, cuda)
     with pytest.raises(ValueError, match="attfuse_dispatchable"):
         attention_fuse_fwd(x, res, wx, wy, bias)
+
+
+def _block_inputs(shape, seed, dev):
+    """(kwargs of abf_block, g_xf, g_out) on ``dev``."""
+    fuse, B, D, k, T, Cs, M, O = shape
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return (scale * torch.randn(*s, generator=g)).to(dev)
+
+    kw = dict(tap=r(B, D, T, Cs), res=r(B, D // k, T, M) if fuse else None,
+              w1a=r(Cs, M, scale=0.4), bvec=r(M, scale=0.2), wxt=r(Cs, 2, scale=0.3),
+              wy=r(M, 2, scale=0.3), zoff=r(2, scale=0.1),
+              w2=r(3, 3, M, O, scale=1 / (3 * M ** 0.5)))
+    return kw, r(B, D, T, M), r(B, D, T, O)
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=str)
+def test_block_kernels_match_plain(cuda, shape):
+    kw, gxf, gout = _block_inputs(shape, sum(shape), cuda)
+    before = (abf_block_fwd.launches, abf_block_bwd.launches)
+    xf, out = abf_block_fwd(**kw)
+    grads = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
+    torch.cuda.synchronize()
+    assert (abf_block_fwd.launches, abf_block_bwd.launches) == (before[0] + 1, before[1] + 1)
+    rxf, rout = abf_block_reference(**kw)
+    assert (xf - rxf).abs().max().item() <= ATOL
+    assert (out - rout).abs().max().item() <= ATOL
+    want = abf_block_bwd_reference(**kw, xf=rxf, gxf=gxf, gout=gout)
+    for name, got, ref in zip(BLOCK_GRADS, grads, want):
+        if ref is None:
+            assert got is None, name
+        elif name in ("g_tap", "g_res"):
+            assert got.shape == ref.shape, name
+            assert (got - ref).abs().max().item() <= ATOL, name
+        else:
+            assert got.shape == ref.shape, name
+            assert _rel_l2(got, ref) <= REL_L2, name
+    again = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(grads, again))  # the same bits
+
+
+def test_block_autograd_launches_only_its_kernels(cuda):
+    kw, gxf, gout = _block_inputs((True, 2, 8, 2, 40, 16, 64, 32), 7, cuda)
+    ins = {n: t.requires_grad_(True) for n, t in kw.items()}
+    others = (conv3x3_fwd, conv3x3_wgrad, attention_fuse_fwd, attention_fuse_bwd)
+    before = [fn.launches for fn in (abf_block_fwd, abf_block_bwd) + others]
+    xf, out = abf_block(**ins)
+    (torch.vdot(xf.flatten(), gxf.flatten()) + torch.vdot(out.flatten(), gout.flatten())).backward()
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (abf_block_fwd, abf_block_bwd) + others] == \
+        [before[0] + 1, before[1] + 1] + before[2:]
+    assert tuple(ins["bvec"].grad.shape) == (64,) and tuple(ins["zoff"].grad.shape) == (2,)
+    refs = {n: t.detach().clone().requires_grad_(True) for n, t in kw.items()}
+    rxf, rout = abf_block_reference(**refs)
+    (torch.vdot(rxf.flatten(), gxf.flatten()) + torch.vdot(rout.flatten(), gout.flatten())
+     ).backward()
+    for n in kw:
+        assert _rel_l2(ins[n].grad, refs[n].grad) <= REL_L2, n
+
+
+def test_block_kernel_rejects_too_wide(cuda):
+    kw, _, _ = _block_inputs((True, 1, 2, 1, 3, 65, 8, 4), 0, cuda)
+    with pytest.raises(ValueError, match="abf_block_dispatchable"):
+        abf_block_fwd(**kw)

@@ -1,11 +1,12 @@
 """The ReviewKD chains of ABF blocks with the kernel switches of
 ``DistillConfig`` (``abf_conv_pallas``: the 3x3 conv through
 ``kernels/conv3x3.py``; ``abf_attfuse_pallas``: the attention fuse through
-``kernels/attfuse.py``) against the default chain on the same weights and
+``kernels/attfuse.py``; ``abf_block_pallas``: the whole block but bn2 through
+``kernels/abf_block.py``) against the default chain on the same weights and
 taps, on the CPU, where the wrappers run their plain versions: outputs,
 updated BN statistics, and the gradients of the taps and of every parameter.
 
-The kernel fuse path forms the normalized map and contracts it with the raw
+The kernel fuse path (and the block path) forms the normalized map and contracts it with the raw
 attention weights, where the default path folds the 1x1 conv and bn1's
 affine into one tap-level contraction: the same function, summed in another
 order.  Its tolerance is float32 rounding over these few-channel sums."""
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from speech_enhancement_clskd_tpu_torch.distill import abf as pabf
+from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
 from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
     attention_fuse_bwd,
     attention_fuse_fwd,
@@ -32,7 +34,10 @@ FLAGS = {
     "conv": dict(conv_pallas=True),
     "fuse": dict(attfuse_pallas=True),
     "both": dict(conv_pallas=True, attfuse_pallas=True),
+    "block": dict(block_pallas=True),
 }
+COUNTERS = (conv3x3_fwd, conv3x3_wgrad, attention_fuse_fwd, attention_fuse_bwd, abf_block_fwd,
+            abf_block_bwd)
 
 
 def _rel_l2(got, want):
@@ -68,13 +73,11 @@ def test_kernel_chain_matches_default_chain(which, flags):
     kernel = pabf.ReviewKD(geo["s_ch"], geo["t_ch"], MID, reverse=geo["reverse"], **flags)
     kernel.load_state_dict(default.state_dict(), strict=True)
 
-    launches = (conv3x3_fwd.launches, conv3x3_wgrad.launches, attention_fuse_fwd.launches,
-                attention_fuse_bwd.launches)
+    launches = [fn.launches for fn in COUNTERS]
     want_out, want_gt, want_gp, want_stats = _run(default, taps, cot)
     got_out, got_gt, got_gp, got_stats = _run(kernel, taps, cot)
     # on the CPU the wrappers take their plain versions and launch nothing
-    assert launches == (conv3x3_fwd.launches, conv3x3_wgrad.launches,
-                        attention_fuse_fwd.launches, attention_fuse_bwd.launches)
+    assert launches == [fn.launches for fn in COUNTERS]
     for g, w in zip(got_out, want_out):
         torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
     for name, w in want_stats.items():
@@ -93,3 +96,35 @@ def test_flags_reach_every_block():
     assert all(chain.get_submodule(f"abf{i}").att_conv.use_kernel for i in (1, 2))
     default = pabf.ReviewKD((4, 8, 8), (8, 16, 32), MID)
     assert not default.abf0.conv2.use_kernel and not default.abf1.att_conv.use_kernel
+    block = pabf.ReviewKD((4, 8, 8), (8, 16, 32), MID, block_pallas=True)
+    assert all(block.get_submodule(f"abf{i}").block_pallas for i in range(3))
+    assert not any(default.get_submodule(f"abf{i}").block_pallas for i in range(3))
+
+
+@pytest.mark.parametrize("which", list(CHAINS))
+def test_block_path_takes_every_block(which, monkeypatch):
+    """With ``block_pallas`` every block of the tiny chains passes the gate
+    and goes through ``kernels.abf_block.abf_block``, and nothing goes
+    through the conv or fuse kernels' autograd functions."""
+    geo = CHAINS[which]
+    chain = pabf.ReviewKD(geo["s_ch"], geo["t_ch"], MID, reverse=geo["reverse"],
+                          block_pallas=True)
+    chain.reset_parameters(torch.Generator().manual_seed(4))
+    calls = []
+
+    def counting(*args):
+        calls.append(args[1] is None)
+        return block_fn(*args)
+
+    def refuse(*_):
+        raise AssertionError("a per-op kernel path ran")
+
+    block_fn = pabf.abf_block
+    monkeypatch.setattr(pabf, "abf_block", counting)
+    monkeypatch.setattr(pabf, "conv3x3", refuse)
+    monkeypatch.setattr(pabf, "attention_fuse", refuse)
+    rng = np.random.default_rng(8)
+    taps = [torch.from_numpy(rng.standard_normal((B, d, T_FRAMES, c)).astype(np.float32))
+            for d, c in zip(geo["ds"], geo["s_ch"])]
+    sum(o.sum() for o in chain(taps, training=True)).backward()
+    assert calls == [True, False, False]  # the first block in processing order: no residual

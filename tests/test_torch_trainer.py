@@ -24,15 +24,18 @@ slightly different points by up to ~5e-3 (measured).  So after 10 steps:
   parameters and BN statistics to tolerances set from the drift measured
   (given beside each).
 
-The same JAX step-1 snapshot also holds a third port trainer, built with
-``abf_conv_pallas`` and ``abf_attfuse_pallas`` (the ABF 3x3 convs and
-attention fuses through ``kernels/conv3x3.py`` and ``kernels/attfuse.py``,
-their plain versions on the CPU), loaded with the initial state and taking
-step 1: snapshot ``"kernels"``, held to the step-1 tolerances.  It stands
-against the JAX step with the same flags because on the CPU the JAX gates
-(``conv3x3_available``, ``attfuse_available``) are closed, so the JAX
-``Trainer`` with those flags runs its XLA paths, the default step compiled
-once here (asserted in ``runs``).
+The same JAX step-1 snapshot also holds two more port trainers, loaded with
+the initial state and taking step 1, each held to the step-1 tolerances:
+snapshot ``"kernels"``, built with ``abf_conv_pallas`` and
+``abf_attfuse_pallas`` (the ABF 3x3 convs and attention fuses through
+``kernels/conv3x3.py`` and ``kernels/attfuse.py``), and snapshot
+``"block"``, built with ``abf_block_pallas`` (every ABF block but its bn2
+through ``kernels/abf_block.py``), their plain versions on the CPU.  They
+stand against the JAX step with the same flags because on the CPU the JAX
+gates (``conv3x3_available``, ``attfuse_available``,
+``abf_block_available``) are closed, so the JAX ``Trainer`` with those flags
+runs its XLA paths, the default step compiled once here (asserted in
+``runs``).
 
 Known outliers, and what is held instead:
 
@@ -70,6 +73,7 @@ from speech_enhancement_clskd_tpu.config import (
     MeshConfig,
     TrainConfig as JaxTrainConfig,
 )
+from speech_enhancement_clskd_tpu.ops.pallas.abf_block import abf_block_available
 from speech_enhancement_clskd_tpu.ops.pallas.attfuse import attfuse_available
 from speech_enhancement_clskd_tpu.ops.pallas.conv3x3 import conv3x3_available
 from speech_enhancement_clskd_tpu.train import Trainer as JaxTrainer
@@ -106,8 +110,9 @@ ZERO_GRAD = 1e-6  # 2.3e-7
 # Adam moves a parameter by at most (1 - b1) / sqrt(1 - b2) ~ 3.2 lr a step
 ADAM_STEP_BOUND = 3.2 * LR
 
-# the ABF kernel paths of this slice
-KERNEL_FLAGS = dict(abf_conv_pallas=True, abf_attfuse_pallas=True)
+# the ABF kernel paths: per-op kernels, and the whole-block kernel
+KERNEL_FLAGS = {"kernels": dict(abf_conv_pallas=True, abf_attfuse_pallas=True),
+                "block": dict(abf_block_pallas=True)}
 
 TINY_T = dict(name="tiny-teacher", kernel_num=(8, 16, 32), rnn_units=32)
 TINY_S = dict(name="tiny-student", kernel_num=(4, 8, 8), rnn_units=16)
@@ -186,9 +191,9 @@ def runs():
     parameters in it; snapshots after step 1 and after 10 independent steps
     of both trainers; step 10 of a port trainer loaded with the JAX state
     after step 9 (``synced``); and step 1 of a port trainer with the ABF
-    kernel flags (``kernels``)."""
+    kernel flags (``kernels``, ``block``)."""
     # the JAX step with KERNEL_FLAGS is its default step on the CPU
-    assert not conv3x3_available() and not attfuse_available()
+    assert not (conv3x3_available() or attfuse_available() or abf_block_available())
     jt = JaxTrainer(_jax_cfg())
     state = jt.init_state(jax.random.PRNGKey(0))
     trainer = Trainer(_cfg(), device="cpu").init_state()
@@ -205,16 +210,19 @@ def runs():
         state, jax_logs = jt.train_step(state, jnp.asarray(mix), jnp.asarray(clean))
         port_logs = trainer.train_step(mix, clean)
         if k == 1:
-            kernels = Trainer(_cfg(distill=DistillConfig(**KERNEL_FLAGS)), device="cpu")
-            load_train_state(kernels.init_state(), start["state"])
-            kernel_logs = kernels.train_step(mix, clean)
+            flagged = {}
+            for name, flags in KERNEL_FLAGS.items():
+                t = Trainer(_cfg(distill=DistillConfig(**flags)), device="cpu")
+                load_train_state(t.init_state(), start["state"])
+                flagged[name] = (t, t.train_step(mix, clean))
         mu = {p: _flat(v) for p, v in state.opt_state[0].mu.items()}
         if k in (1, STEPS):
             grads = {p: {n: (m - (0 if mu_prev is None else B1 * mu_prev[p][n])) / (1 - B1)
                          for n, m in mu[p].items()} for p in mu}
             snaps[k] = _snapshot(state, jax_logs, trainer, port_logs, grads)
         if k == 1:
-            snaps["kernels"] = _snapshot(state, jax_logs, kernels, kernel_logs, grads)
+            for name, (t, logs) in flagged.items():
+                snaps[name] = _snapshot(state, jax_logs, t, logs, grads)
         mu_prev = mu
     snaps["synced"] = _snapshot(state, jax_logs, synced, synced_logs, grads)
     return start, snaps
@@ -233,7 +241,7 @@ def _bn_after_conv(path):
     return m is not None and path[-1] == "mean"
 
 
-@pytest.mark.parametrize("step", [1, "synced", STEPS, "kernels"])
+@pytest.mark.parametrize("step", [1, "synced", STEPS, "kernels", "block"])
 def test_step_logs_match_jax(runs, step):
     snap = runs[1][step]
     rtol = DRIFT_LOG_RTOL if step == STEPS else LOG_RTOL
@@ -243,7 +251,7 @@ def test_step_logs_match_jax(runs, step):
         np.testing.assert_allclose(snap["port_logs"][k], want, rtol=rtol, err_msg=k)
 
 
-@pytest.mark.parametrize("step", [1, "synced", "kernels"])
+@pytest.mark.parametrize("step", [1, "synced", "kernels", "block"])
 def test_step_gradients_match_jax(runs, step):
     snap = runs[1][step]
     student_params = {p[0] for p in snap["jax"]["student_params"]}
@@ -265,10 +273,10 @@ def test_step_gradients_match_jax(runs, step):
             assert err <= GRAD_REL_L2 * np.linalg.norm(want), (part, path, err)
 
 
-@pytest.mark.parametrize("step", [1, STEPS, "kernels"])
+@pytest.mark.parametrize("step", [1, STEPS, "kernels", "block"])
 def test_step_parameters_match_jax(runs, step):
     snap = runs[1][step]
-    if step == "kernels":  # taken after step 1
+    if step in KERNEL_FLAGS:  # taken after step 1
         step = 1
     student_params = {p[0] for p in snap["jax"]["student_params"]}
     for part in ("student", "teacher", "abf_enc", "abf_dec"):
@@ -283,7 +291,7 @@ def test_step_parameters_match_jax(runs, step):
             assert err <= tol, (part, path, err)
 
 
-@pytest.mark.parametrize("step", [1, "synced", STEPS, "kernels"])
+@pytest.mark.parametrize("step", [1, "synced", STEPS, "kernels", "block"])
 def test_step_bn_statistics_match_jax(runs, step):
     snap = runs[1][step]
     for part in TRAIN_STATE_PARTS:
@@ -358,7 +366,6 @@ UNPORTED = {
     "abf_remat": dict(distill=DistillConfig(abf_remat=True)),
     "abf_conv_ninedot": dict(distill=DistillConfig(abf_conv_ninedot=True)),
     "spkd_bn2_fold": dict(distill=DistillConfig(spkd_bn2_fold=True)),
-    "abf_block_pallas": dict(distill=DistillConfig(abf_block_pallas=True)),
     "adamw": dict(optim=OptimConfig(optimizer="adamw")),
     "weight_decay": dict(optim=OptimConfig(weight_decay=1e-4)),
     "grad_clip": dict(optim=OptimConfig(grad_clip=1.0)),
