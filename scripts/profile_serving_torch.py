@@ -4,7 +4,7 @@ one NVIDIA GPU.
 
     python3 scripts/profile_serving_torch.py [--trace-dir DIR]
 
-Five configurations, built as ``chip_smoke.py`` builds them:
+Six configurations, built as ``chip_smoke.py`` builds them:
 
 - student streaming: the r4 bundle, batch 1, one fixed-shape chunk step
   (chunk 48, context 64) repeated 40 times;
@@ -14,7 +14,10 @@ Five configurations, built as ``chip_smoke.py`` builds them:
 - clskd train step with the ABF kernels: the same with
   ``DistillConfig(abf_conv_pallas=True, abf_attfuse_pallas=True)``;
 - clskd train step with the whole-ABF-block kernel: the same with
-  ``DistillConfig(abf_block_pallas=True)``.
+  ``DistillConfig(abf_block_pallas=True)``;
+- spkd train step: ``DistillConfig(strategy="spkd")`` on 33 s clips (the
+  fused Gram pair K2 on the waveforms), at the batch ``chip_smoke.py``'s
+  phase 13 settles on (the largest from 32, halving, that fits).
 
 For each it prints one JSON line: wall ms per step (host clock around
 synchronised steps, profiler off); from one profiled run of the same steps,
@@ -40,7 +43,8 @@ TEACHER_ITERS = 3
 TRAIN_ITERS = 3
 # the port's hand-written kernels by name; reduce_partials_kernel is the
 # fixed-order sum of K3w's and K5b's partials
-PORT_KERNEL_PREFIXES = ("lstm_", "conv3x3_", "attfuse_", "abf_block_", "reduce_partials")
+PORT_KERNEL_PREFIXES = ("lstm_", "conv3x3_", "attfuse_", "abf_block_", "reduce_partials",
+                        "gram_")
 
 
 def _self_device_us(evt) -> float:
@@ -115,8 +119,10 @@ def main() -> None:
     from chip_smoke import (
         ABF_BLOCK_FLAGS,
         ABF_KERNEL_FLAGS,
+        SPKD_SECONDS,
         TEACHER_BATCH,
         TRAIN_SECONDS,
+        fitting_trainer,
         train_config,
         student_engine,
         teacher_batch,
@@ -167,6 +173,15 @@ def main() -> None:
         print(json.dumps(breakdown(label, train_step, TRAIN_ITERS, args.trace_dir)), flush=True)
         del trainer
         torch.cuda.empty_cache()
+
+    trainer, batch, _, mix, clean = fitting_trainer(dict(strategy="spkd"), SPKD_SECONDS)
+    mix, clean = torch.from_numpy(mix).cuda(), torch.from_numpy(clean).cuda()
+
+    def spkd_step():
+        trainer.train_step(mix, clean)
+
+    rec = breakdown("spkd_train_step", spkd_step, TRAIN_ITERS, args.trace_dir)
+    print(json.dumps(dict(rec, batch=batch, seconds=SPKD_SECONDS)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,12 +1,18 @@
 """The distillation strategies as loss functions.
 
-Port of ``speech_enhancement_clskd_tpu/distill/strategies.py``, the
-``clskd`` strategy: SPKD between the ReviewKD-fused student taps and the
-teacher's encoder/decoder taps, plus SPKD on the complex-LSTM real/imaginary
-states.  Every strategy adds the base loss, the single-resolution
-log-STFT-magnitude L1 of the student output against the clean target.  The
-other four strategies (``reviewkd``, ``spkd``, ``mse``, ``stft``) are ROADMAP
-queue 1 item 4 and raise.
+Port of ``speech_enhancement_clskd_tpu/distill/strategies.py``, four of its
+five strategies:
+
+- ``clskd``: SPKD between the ReviewKD-fused student taps and the teacher's
+  encoder/decoder taps, plus SPKD on the complex-LSTM real/imaginary states;
+- ``spkd``: SPKD between the output waveforms ``[B, samples]`` (from clips of
+  32.8 s on, through the fused Gram pair K2: ``losses/kd.py``);
+- ``mse``: the mean squared difference of the output waveforms;
+- ``stft``: the base loss's STFT-magnitude term between the outputs.
+
+Every strategy adds the base loss, the single-resolution log-STFT-magnitude
+L1 of the student output against the clean target.  ``reviewkd`` (HCL over
+the fused taps) is ROADMAP queue 1 item 4 and raises.
 """
 
 from __future__ import annotations
@@ -46,28 +52,58 @@ def distill_loss(
     fused_encoder: Optional[list] = None,
     fused_decoder: Optional[list] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss + per-term logs for one strategy.  ``fused_encoder`` and
-    ``fused_decoder`` are the ReviewKD outputs over the student's taps."""
+    """Total loss + per-term logs (``loss_keys(strategy)``) for one strategy.
+    ``fused_encoder`` and ``fused_decoder`` are the ReviewKD outputs over the
+    student's taps (``clskd``; the other strategies take none)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown distill strategy {strategy!r}")
-    if strategy != "clskd":
+    if strategy == "reviewkd":
         raise NotImplementedError(
-            f"distill strategy {strategy!r} is ROADMAP queue 1 item 4; the port "
-            "trains clskd")
+            "distill strategy 'reviewkd' (HCL over the fused taps) is ROADMAP queue 1 item 4")
     logs: Dict[str, torch.Tensor] = {}
     base = base_loss(s_out.wav, clean, dcfg)
     logs["base_loss"] = base
     gg = dcfg.spkd_gram_groups
-    enc = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
-              for sf, tf in zip(fused_encoder, t_out.taps.encoder))
-    dec = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
-              for sf, tf in zip(fused_decoder, t_out.taps.decoder))
-    # LSTM taps are [T, B, F]: the Gram runs over batch axis 1
-    lr = spkd_loss(s_out.taps.lstm_real, t_out.taps.lstm_real, "batchmean",
-                   batch_axis=1, groups=gg)
-    li = spkd_loss(s_out.taps.lstm_imag, t_out.taps.lstm_imag, "batchmean",
-                   batch_axis=1, groups=gg)
-    logs.update(enc_loss=enc, dec_loss=dec, clstm_real_loss=lr, clstm_imag_loss=li)
-    total = base + dcfg.distill_weight * (enc + dec + lr + li)
+    if strategy == "clskd":
+        enc = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
+                  for sf, tf in zip(fused_encoder, t_out.taps.encoder))
+        dec = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
+                  for sf, tf in zip(fused_decoder, t_out.taps.decoder))
+        # LSTM taps are [T, B, F]: the Gram runs over batch axis 1
+        lr = spkd_loss(s_out.taps.lstm_real, t_out.taps.lstm_real, "batchmean",
+                       batch_axis=1, groups=gg)
+        li = spkd_loss(s_out.taps.lstm_imag, t_out.taps.lstm_imag, "batchmean",
+                       batch_axis=1, groups=gg)
+        logs.update(enc_loss=enc, dec_loss=dec, clstm_real_loss=lr, clstm_imag_loss=li)
+        distill = enc + dec + lr + li
+    elif strategy == "spkd":
+        distill = spkd_loss(s_out.wav, t_out.wav, "batchmean", groups=gg)
+        logs["spkd_loss"] = distill
+    elif strategy == "mse":
+        distill = torch.mean((s_out.wav - t_out.wav) ** 2)
+        logs["mse_loss"] = distill
+    else:  # "stft"
+        distill = base_loss(s_out.wav, t_out.wav, dcfg)
+        logs["stft_loss"] = distill
+    total = base + dcfg.distill_weight * distill
     logs["train_loss"] = total
     return total, logs
+
+
+def loss_keys(strategy: str) -> Tuple[str, ...]:
+    """The loss logs ``distill_loss`` returns for ``strategy``."""
+    terms = {"clskd": ("enc_loss", "dec_loss", "clstm_real_loss", "clstm_imag_loss"),
+             "spkd": ("spkd_loss",), "mse": ("mse_loss",), "stft": ("stft_loss",)}
+    return ("base_loss",) + terms[strategy] + ("train_loss",)
+
+
+def needs_fusion(strategy: str) -> bool:
+    """Whether the strategy distills through the ReviewKD-fused student taps
+    (and so trains the ABF chains)."""
+    return strategy in ("clskd", "reviewkd")
+
+
+def needs_teacher_taps(strategy: str) -> bool:
+    """Whether the strategy reads the teacher's feature taps, not only its
+    output waveform."""
+    return strategy in ("clskd", "reviewkd")

@@ -1,21 +1,35 @@
 """Knowledge-distillation losses: SPKD Gram similarity.
 
-Port of ``speech_enhancement_clskd_tpu/losses/kd.py``, the parts the CLSKD
-step uses.  SPKD (similarity-preserving KD): the per-batch Gram matrix of the
-flattened activations, row-L1-normalized; the loss is the squared Frobenius
-difference between the student's and the teacher's.
+Port of ``speech_enhancement_clskd_tpu/losses/kd.py``, the parts the
+``clskd`` and ``spkd`` strategies use.  SPKD (similarity-preserving KD): the
+per-batch Gram matrix of the flattened activations, row-L1-normalized; the
+loss is the squared Frobenius difference between the student's and the
+teacher's.
 
-Grams are float32 matmuls (batched over slices of the map, ``_grams``), as
-they are outside any kernel in the JAX package's default path.  The JAX package sends 2-D inputs with D >= 2^19
-on a TPU to its fused Gram kernel (K2, ``ops/pallas/gram.py``); that kernel
-is not ported yet, so such a call on a CUDA tensor raises (ROADMAP section 2).
-``spkd_loss_affine`` and ``hcl`` belong to non-default options and
-strategies and are not ported yet (ROADMAP queue 1 item 4).
+Two routes, chosen as the JAX ``spkd_loss`` chooses them (``use_pallas``):
+
+- 2-D ``[B, D]`` inputs with batch axis 0, one global Gram (``groups=1``),
+  equal B and D >= 2^19 (``_PALLAS_MIN_D``; the JAX gate, set by a TPU
+  crossover) take the fused Gram pair ``kernels/gram.py::gram_pair``: the
+  hand-written kernel K2 on CUDA tensors, its plain version on CPU tensors,
+  so both devices take the same route.  The ``spkd`` strategy's waveforms
+  reach it from clips of 32.8 s at 16 kHz.  The port's gate adds the
+  kernel's ``2 <= B <= MAX_BATCH``.
+- Everything else, the ``clskd`` strategy's 4-D and ``[T, B, F]`` taps
+  among it, takes float32 matmuls batched over slices of the map
+  (``_grams``), as it runs outside any kernel in the JAX package.
+
+``spkd_loss_affine`` and ``hcl`` belong to non-default options and to the
+``reviewkd`` strategy and are not ported yet (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from ..kernels.gram import gram_pair_dispatchable, norm_l1, spkd_loss_fused
 
 # the JAX package's gate for the fused Gram kernel: 2-D inputs, D >= 2^19
 _PALLAS_MIN_D = 1 << 19
@@ -57,14 +71,9 @@ def _gram(z: torch.Tensor, batch_axis: int = 0) -> torch.Tensor:
     return _grams(z, batch_axis, 1)[0]
 
 
-def _norm_l1(g: torch.Tensor) -> torch.Tensor:
-    """Rows divided by max(||row||_1, 1e-12) (torch F.normalize(g, 1))."""
-    return g / torch.clamp(g.abs().sum(dim=-1, keepdim=True), min=1e-12)
-
-
 def _gram_l1(z: torch.Tensor, batch_axis: int = 0) -> torch.Tensor:
     """Row-L1-normalized Gram matrix of z flattened to [B, D]."""
-    return _norm_l1(_gram(z, batch_axis))
+    return norm_l1(_gram(z, batch_axis))
 
 
 def _grouped_gram_l1(z: torch.Tensor, batch_axis: int, groups: int) -> torch.Tensor:
@@ -79,29 +88,37 @@ def _grouped_gram_l1(z: torch.Tensor, batch_axis: int, groups: int) -> torch.Ten
         raise ValueError(
             f"batch {b_total} in {groups} groups leaves {b_total // groups} per group; "
             "SPKD needs at least 2")
-    return _norm_l1(_grams(z, batch_axis, groups))
+    return norm_l1(_grams(z, batch_axis, groups))
 
 
 def spkd_loss(
     student: torch.Tensor,
     teacher: torch.Tensor,
     reduction: str = "batchmean",
+    use_pallas: Optional[bool] = None,
     batch_axis: int = 0,
     groups: int = 1,
 ) -> torch.Tensor:
     """||G_t - G_s||_F^2, with ``reduction="batchmean"`` divided by B^2.
 
+    ``use_pallas``: ``None`` routes by ``gram_pair_dispatchable`` (the JAX
+    auto gate on shapes), ``True`` forces the fused Gram pair
+    (``kernels/gram.py``; inputs flattened to ``[B, D]``, batch axis 0 only),
+    ``False`` the sliced matmuls.  With ``groups > 1`` the fused pair is
+    never taken, as in JAX.
     ``batch_axis``: which axis is the Gram batch (1 for [T, B, F] LSTM taps).
     ``groups``: split the batch into G contiguous groups and average the
     per-group Gram losses (G=1 is the reference's single global Gram)."""
-    d_s = student.numel() // student.shape[batch_axis]
-    d_t = teacher.numel() // teacher.shape[batch_axis]
-    if (groups == 1 and student.is_cuda and batch_axis == 0 and student.ndim == 2
-            and teacher.ndim == 2 and min(d_s, d_t) >= _PALLAS_MIN_D
-            and student.shape[0] == teacher.shape[0]):
-        raise NotImplementedError(
-            "SPKD on 2-D inputs with D >= 2^19 runs the fused Gram kernel K2 "
-            "(ops/pallas/gram.py), not ported yet: ROADMAP section 2")
+    if groups == 1:
+        if use_pallas is None:
+            use_pallas = gram_pair_dispatchable(student.shape, teacher.shape, batch_axis,
+                                                groups, min_d=_PALLAS_MIN_D)
+        if use_pallas:
+            if batch_axis != 0:
+                raise ValueError(
+                    f"the fused Gram pair flattens [B, *] inputs: batch_axis must be 0, "
+                    f"got {batch_axis}")
+            return spkd_loss_fused(student.float(), teacher.float(), reduction)
     g_s = _grouped_gram_l1(student, batch_axis, groups)
     g_t = _grouped_gram_l1(teacher, batch_axis, groups)
     loss = torch.sum((g_t - g_s) ** 2)

@@ -21,15 +21,18 @@ and ``att_conv.bias``, and ``bn1``/``bn2`` as above, keep their flax layouts;
 the 3x3 ``conv2.kernel`` goes from HWIO ``[3, 3, I, O]`` to ``[O, I, 3, 3]``.
 Both directions only permute axes, so a round trip is exact.
 
-``load_train_state`` carries a JAX ``TrainState`` (student, teacher and both
-ABF chains, parameters and statistics) into a port ``train.trainer.Trainer``;
-``train_state_arrays`` reads them back in flax layouts.
+``load_train_state`` carries a JAX ``TrainState`` (student, teacher and,
+for a strategy with fusion, both ABF chains, parameters and statistics) into
+a port ``train.trainer.Trainer``; ``train_state_arrays`` reads them back in
+flax layouts.  Both walk the parts the trainer has: a trainer without ABF
+chains (``spkd``, ``mse``, ``stft``) takes a state whose ``abf_*`` fields
+are ``None``.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -39,8 +42,14 @@ _CONV_WEIGHTS = ("wr", "wi")
 _TRANSPOSED = re.compile(r"dec\d+_conv")
 # HWIO -> torch layout, per conv kind; the inverse permutation goes back
 _TO_TORCH = {False: (3, 2, 0, 1), True: (2, 3, 0, 1)}
-# the parts of a TrainState, each a module of the port's Trainer
+# the parts of a TrainState, each a module of the port's Trainer (the ABF
+# chains only for a strategy with fusion)
 TRAIN_STATE_PARTS = ("student", "teacher", "abf_enc", "abf_dec")
+
+
+def trainer_parts(trainer) -> Tuple[str, ...]:
+    """The parts of ``TRAIN_STATE_PARTS`` that ``trainer`` has."""
+    return tuple(p for p in TRAIN_STATE_PARTS if getattr(trainer, p) is not None)
 
 
 def _perm(path: tuple) -> "tuple | None":
@@ -93,11 +102,16 @@ def load_train_state(trainer, state) -> None:
     """Load a JAX ``TrainState``'s parameters and BN statistics (its
     ``{part}_params`` and ``{part}_stats`` trees, numpy-convertible leaves)
     into ``trainer``'s modules, strictly, and start its Adam afresh (the
-    state's optimizer moments are not carried).  ``trainer.init_state()``
-    must have run."""
+    state's optimizer moments are not carried).  The state holds a part
+    (its ``{part}_params`` is not ``None``) exactly where the trainer has its
+    module, or this raises.  ``trainer.init_state()`` must have run."""
     if trainer.optimizer is None:
         raise RuntimeError("call trainer.init_state() before loading a state")
-    for part in TRAIN_STATE_PARTS:
+    parts = trainer_parts(trainer)
+    in_state = tuple(p for p in TRAIN_STATE_PARTS if getattr(state, f"{p}_params") is not None)
+    if in_state != parts:
+        raise ValueError(f"the state holds {in_state}, the trainer {parts}")
+    for part in parts:
         variables = {"params": getattr(state, f"{part}_params"),
                      "batch_stats": getattr(state, f"{part}_stats") or {}}
         getattr(trainer, part).load_state_dict(torch_state_from_flax(variables), strict=True)
@@ -109,7 +123,7 @@ def train_state_arrays(trainer) -> Dict[str, Any]:
     """``{part}_params`` and ``{part}_stats`` of ``trainer``'s modules as
     numpy trees in flax layouts: the inverse of ``load_train_state``."""
     out: Dict[str, Any] = {}
-    for part in TRAIN_STATE_PARTS:
+    for part in trainer_parts(trainer):
         variables = flax_from_torch_state(getattr(trainer, part).state_dict())
         out[f"{part}_params"] = variables["params"]
         out[f"{part}_stats"] = variables.get("batch_stats", {})

@@ -84,7 +84,7 @@ from speech_enhancement_clskd_tpu_torch.config import (
     OptimConfig,
     TrainConfig,
 )
-from speech_enhancement_clskd_tpu_torch.train.trainer import LOG_KEYS, Trainer
+from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer, log_keys
 from speech_enhancement_clskd_tpu_torch.utils.bridge import (
     TRAIN_STATE_PARTS,
     flax_from_torch_state,
@@ -245,7 +245,7 @@ def _bn_after_conv(path):
 def test_step_logs_match_jax(runs, step):
     snap = runs[1][step]
     rtol = DRIFT_LOG_RTOL if step == STEPS else LOG_RTOL
-    assert set(snap["port_logs"]) == set(snap["jax_logs"]) == set(LOG_KEYS)
+    assert set(snap["port_logs"]) == set(snap["jax_logs"]) == set(log_keys("clskd"))
     for k, want in snap["jax_logs"].items():
         assert np.isfinite(snap["port_logs"][k]), k
         np.testing.assert_allclose(snap["port_logs"][k], want, rtol=rtol, err_msg=k)
@@ -358,9 +358,6 @@ def test_init_state_is_seeded():
 
 UNPORTED = {
     "reviewkd": dict(distill=DistillConfig(strategy="reviewkd")),
-    "spkd": dict(distill=DistillConfig(strategy="spkd")),
-    "mse": dict(distill=DistillConfig(strategy="mse")),
-    "stft": dict(distill=DistillConfig(strategy="stft")),
     "abf_reinit_each_step": dict(distill=DistillConfig(abf_reinit_each_step=True)),
     "taps_bf16": dict(distill=DistillConfig(taps_dtype="bfloat16")),
     "abf_remat": dict(distill=DistillConfig(abf_remat=True)),
