@@ -10,10 +10,13 @@ card, then drives both paths through their entry points:
 1. device: the card's name and power limit, and the TF32 flags as found
    (left alone: the float32 model and trainer turn TF32 off for their own
    calls);
-2. build: one ``nvcc`` per CUDA source, all started together;
+2. build: one ``nvcc`` per CUDA source, all started together, and the
+   tensor-core instructions in K3f's mma kernels (``cuobjdump -sass``, or
+   the PTX where the toolkit has no cuobjdump);
 3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
-   the shapes the serving path gives it, with times, the bound and a one-call
-   PyTorch yardstick (``torch.nn.LSTM``, cuDNN; never used by the port);
+   the shapes the serving and training paths give it, each with the plan
+   K1f takes, with times, the bound and a one-call PyTorch yardstick
+   (``torch.nn.LSTM``, cuDNN; never used by the port);
 4. serving, student: ``StreamingEnhancer`` on the trained r4 bundle answers
    four requests; per-chunk latency, real-time factor, launch count, and
    agreement with the same engine on the CPU;
@@ -36,9 +39,12 @@ card, then drives both paths through their entry points:
    pass), its weight gradient (``conv3x3_wgrad``, K3w), the attention fuse
    (``attention_fuse_fwd``, K4f) and its backward (``attention_fuse_bwd``,
    K4b) against their plain versions at the training step's shapes and at
-   small ragged ones; two runs of each backward must give the same bits;
-   times, the bound and a one-call PyTorch yardstick where one exists
-   (``F.conv2d`` and ``torch.nn.grad.conv2d_weight``, TF32 off);
+   small ragged ones, and K3f alone at each (D, C, O) of the kernel-config
+   step's 12 ABF conv2 forwards and 12 dx passes, labelled with its route;
+   two runs of K3f and of each backward must give the same bits; times, the
+   bound and a one-call PyTorch yardstick where one exists (``F.conv2d`` and
+   ``torch.nn.grad.conv2d_weight``, TF32 off; ``F.conv2d`` with TF32 on,
+   PyTorch's default, beside it);
 9. training with the kernels: ``Trainer(TrainConfig(distill=DistillConfig(
    abf_conv_pallas=True, abf_attfuse_pallas=True)))`` as phase 7 (one
    warm-up and 5 timed steps, launches per step: K3f 24, K3w 12, K4f 10,
@@ -112,6 +118,8 @@ SPKD_FRAMES = 5283
 # the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+# dense TF32 on the tensor cores (K3f's "mma" route takes three products)
+PEAK_TF32_FLOP_S = 495e12
 
 # float32 on both sides; the kernel sums h @ W_hh in another order than
 # cuBLAS, and the error carried through T=483 steps stays near 1e-6.
@@ -144,6 +152,21 @@ ROUNDING_FACTOR = 2.0
 # K2 vs plain: the same chunks of 2048 columns added in the same order, each
 # chunk's product summed in another order; of the largest |G| element
 GRAM_TOL = 1e-6
+
+
+# Each kernel's design: K1f and K3f are in their second, the others in their
+# first (PERF.md section 6 keeps each design's times).
+DESIGNS = {
+    "lstm_seq_fwd": "register-cluster",
+    "lstm_seq_bwd": "column-thread",
+    "conv3x3_fwd": "3xtf32-mma",
+    "conv3x3_wgrad": "fma-tile",
+    "attfuse_fwd": "warp-row",
+    "attfuse_bwd": "warp-row",
+    "abf_block_fwd": "fma-tile",
+    "abf_block_bwd": "persistent-rows",
+    "gram_pair_fwd": "column-chunks",
+}
 
 
 def say(phase: str, **fields) -> None:
@@ -186,8 +209,42 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in _build.log_path(src).read_text().splitlines()
                    if "registers" in ln or "spill" in ln] for src in sources}
+    tensor_cores = _tensor_core_check(paths[sources.index(conv3x3.FWD_SOURCE)],
+                                      conv3x3.FWD_SOURCE)
     say("build", seconds=round(seconds, 3),
-        libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas)
+        libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas,
+        k3f_tensor_cores=tensor_cores)
+    if tensor_cores["count"] == 0:
+        raise RuntimeError(f"K3f's mma kernels use no tensor-core instruction: {tensor_cores}")
+
+
+def _tensor_core_check(library: Path, source: str) -> dict:
+    """The tensor-core instructions in K3f's mma kernels: HMMA/HGMMA in
+    ``cuobjdump -sass`` of the built library where the toolkit has
+    cuobjdump, else mma/wgmma in the PTX that nvcc gives for the source."""
+    import os
+    import re
+    import shutil
+
+    from speech_enhancement_clskd_tpu_torch.kernels import _build
+
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    if os.access(tool, os.X_OK):
+        sass = subprocess.run([tool, "-sass", str(library)], check=True, capture_output=True,
+                              text=True, timeout=300).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)
+        count = sum(len(re.findall(r"\bH(?:G)?MMA\b", f)) for f in funcs
+                    if "mma_kernel" in f.split("\n", 1)[0])
+        return {"checked": "sass (cuobjdump)", "instruction": "HMMA/HGMMA", "count": count}
+    ptx = _build.BUILD_DIR / (Path(source).stem + ".ptx")
+    subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=compute_90a",
+                    "-std=c++17", "-O3", "-ptx", "-o", str(ptx),
+                    str(_build.CSRC_DIR / source)], check=True, capture_output=True,
+                   text=True, timeout=300)
+    count = len(re.findall(r"\b(?:mma|wgmma)\.", ptx.read_text()))
+    return {"checked": "ptx (nvcc -ptx; no cuobjdump)", "instruction": "mma/wgmma",
+            "count": count}
 
 
 def _time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -232,7 +289,11 @@ def _lstm_bwd_bound_ms(T: int, N: int, H: int) -> tuple:
 def phase_kernel_vs_plain():
     import torch
 
-    from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_reference
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
+        lstm_seq,
+        lstm_seq_fwd_plan,
+        lstm_seq_reference,
+    )
     from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
 
     dev = torch.device("cuda")
@@ -266,7 +327,8 @@ def phase_kernel_vs_plain():
         err_c = (c - rc).abs().max().item() / max(1.0, rc.abs().max().item())
         ok = err_y <= KERNEL_ATOL and err_c <= KERNEL_ATOL
         rec = {"T": T, "N": N, "H": H, "initial_state": with_state,
-               "max_abs_err_y": err_y, "max_rel_err_c": err_c, "tol": KERNEL_ATOL}
+               "plan": lstm_seq_fwd_plan(N, H), "max_abs_err_y": err_y,
+               "max_rel_err_c": err_c, "tol": KERNEL_ATOL}
         if not with_state:
             ms = _time_ms(lambda: lstm_seq(xw, w_hh), iters=20)
             plain_ms = _time_ms(lambda: lstm_seq_reference(xw, w_hh), iters=1 if T > 1000 else 3)
@@ -280,6 +342,7 @@ def phase_kernel_vs_plain():
                 library_ms = _time_ms(lambda: lib(xw), iters=20)
             bound_ms, bound_by = _lstm_bound_ms(T, N, H)
             rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       faster_than_library=ms < library_ms,
                        library_max_abs_err=(lib_y - ry).abs().max().item(),
                        bound_ms=bound_ms, bound_by=bound_by)
         say("kernel_vs_plain", **rec)
@@ -724,6 +787,14 @@ def _bound(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _bound_3xtf32(nbytes: float, flops: float) -> tuple:
+    """The least time for ``nbytes`` moved and ``flops`` f32 operations done
+    as three TF32 tensor-core products each."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 3 * flops / PEAK_TF32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def _rel_l2(got, want) -> float:
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
@@ -735,6 +806,7 @@ def _conv_case(B, D, T, C, O, timed: bool) -> dict:
 
     from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
         conv3x3_fwd,
+        conv3x3_fwd_route,
         conv3x3_reference,
         conv3x3_wgrad,
         conv3x3_wgrad_reference,
@@ -747,19 +819,22 @@ def _conv_case(B, D, T, C, O, timed: bool) -> dict:
     gy = torch.randn(B, D, T, O, device="cuda", generator=g)
     before = (conv3x3_fwd.launches, conv3x3_wgrad.launches)
     out = conv3x3_fwd(x, w)
+    out_again = conv3x3_fwd(x, w)
     dw = conv3x3_wgrad(x, gy)
     dw_again = conv3x3_wgrad(x, gy)
     torch.cuda.synchronize()
-    if (conv3x3_fwd.launches, conv3x3_wgrad.launches) != (before[0] + 1, before[1] + 2):
+    if (conv3x3_fwd.launches, conv3x3_wgrad.launches) != (before[0] + 2, before[1] + 2):
         raise RuntimeError("conv3x3 kernels did not count their launches")
     with float32_math():
         ref = conv3x3_reference(x, w)
         err_fwd = (out - ref).abs().max().item()
         del ref
         err_dw = _rel_l2(dw, conv3x3_wgrad_reference(x, gy))
-    rec = {"B": B, "D": D, "T": T, "C": C, "O": O, "fwd_max_abs_err": err_fwd,
+    rec = {"B": B, "D": D, "T": T, "C": C, "O": O, "fwd_route": conv3x3_fwd_route(C, O),
+           "fwd_max_abs_err": err_fwd, "fwd_bitwise_repeat": bool(torch.equal(out, out_again)),
            "wgrad_rel_l2": err_dw, "wgrad_bitwise_repeat": bool(torch.equal(dw, dw_again)),
            "tol": KERNEL_ATOL}
+    del out_again
     if timed:
         rows = B * D * T
         flops = 2.0 * rows * 9 * C * O
@@ -771,16 +846,61 @@ def _conv_case(B, D, T, C, O, timed: bool) -> dict:
                 x_nchw, w_oihw.shape, gy_nchw, padding=1), iters=5)
             fwd_plain_ms = _time_ms(lambda: conv3x3_reference(x, w), iters=2)
             wgrad_plain_ms = _time_ms(lambda: conv3x3_wgrad_reference(x, gy), iters=2)
-        fwd_bound = _bound(4.0 * (rows * C + 9 * C * O + rows * O), flops)
+        # cuDNN in TF32, what PyTorch gives by default; not the yardstick
+        with torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=torch.backends.cudnn.deterministic,
+                                        allow_tf32=True):
+            fwd_library_tf32_ms = _time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1),
+                                           iters=5)
+        fwd_bytes = 4.0 * (rows * C + 9 * C * O + rows * O)
+        fwd_bound_f32 = _bound(fwd_bytes, flops)
+        # route "mma" does each multiply-add as three TF32 products on the
+        # tensor cores: its operations, at their peak, bound it
+        fwd_bound = (_bound_3xtf32(fwd_bytes, flops) if rec["fwd_route"] == "mma"
+                     else fwd_bound_f32)
         wgrad_bound = _bound(4.0 * (rows * C + rows * O + 9 * C * O), flops)
         rec.update(
             fwd_ms=_time_ms(lambda: conv3x3_fwd(x, w), iters=5), fwd_plain_ms=fwd_plain_ms,
-            fwd_library_ms=fwd_library_ms, fwd_bound_ms=fwd_bound[0],
-            fwd_bound_by=fwd_bound[1],
+            fwd_library_ms=fwd_library_ms, fwd_library_tf32_ms=fwd_library_tf32_ms,
+            fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+            fwd_bound_f32_ms=fwd_bound_f32[0],
             wgrad_ms=_time_ms(lambda: conv3x3_wgrad(x, gy), iters=5),
             wgrad_plain_ms=wgrad_plain_ms, wgrad_library_ms=wgrad_library_ms,
             wgrad_bound_ms=wgrad_bound[0], wgrad_bound_by=wgrad_bound[1])
     return rec
+
+
+def _step_conv_case(B, D, T, C, O) -> dict:
+    """K3f alone at one of the kernel-config step's conv shapes: its route,
+    error against the plain version, a bitwise repeat, and its time beside
+    cuDNN's ``F.conv2d`` (TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
+        conv3x3_fwd,
+        conv3x3_fwd_route,
+        conv3x3_reference,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + C + O)
+    x = torch.randn(B, D, T, C, device="cuda", generator=g)
+    w = torch.randn(3, 3, C, O, device="cuda", generator=g) / (3 * C ** 0.5)
+    before = conv3x3_fwd.launches
+    out = conv3x3_fwd(x, w)
+    repeat = bool(torch.equal(out, conv3x3_fwd(x, w)))
+    if conv3x3_fwd.launches != before + 2:
+        raise RuntimeError("conv3x3_fwd did not count its launches")
+    with float32_math():
+        err = (out - conv3x3_reference(x, w)).abs().max().item()
+        del out
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+        library_ms = _time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), iters=5)
+    return {"B": B, "D": D, "T": T, "C": C, "O": O, "fwd_route": conv3x3_fwd_route(C, O),
+            "fwd_max_abs_err": err, "fwd_bitwise_repeat": repeat, "tol": KERNEL_ATOL,
+            "fwd_ms": _time_ms(lambda: conv3x3_fwd(x, w), iters=5),
+            "fwd_library_ms": library_ms}
 
 
 def _fuse_case(B, D, Dp, T, C, timed: bool) -> dict:
@@ -851,6 +971,13 @@ CONV_CASES = [(32, 4, 483, 64, 256, False), (32, 64, 483, 64, 64, True),
               (32, 256, 483, 64, 2, False), (32, 16, 483, 256, 64, False),
               (3, 5, 37, 64, 32, False), (2, 3, 19, 2, 64, False)]
 CONV_REF = (32, 64, 483, 64, 64)
+# The 12 ABF conv2 forwards of the kernel-config step at 32 x 3 s (D, C, O):
+# mid C = 64 to each teacher tap's O, the encoder chain's blocks deepest first
+# (D 4 .. 128) and the decoder chain's (D 8 .. 256); their dx passes swap C
+# and O.  Each (D, C, O) with its count a step.
+STEP_CONV_FWD = [(4, 64, 256), (8, 64, 256), (16, 64, 256), (32, 64, 128), (64, 64, 64),
+                 (128, 64, 32), (8, 64, 256), (16, 64, 256), (32, 64, 128), (64, 64, 64),
+                 (128, 64, 32), (256, 64, 2)]
 FUSE_CASES = [(32, 128, 64, 483, 64, True), (3, 5, 5, 37, 64, False),
               (2, 16, 4, 29, 64, False)]
 FUSE_REF = (32, 128, 64, 483, 64)
@@ -866,8 +993,23 @@ def phase_abf_kernels_vs_plain():
         conv.append(rec)
         torch.cuda.empty_cache()
         if not (rec["fwd_max_abs_err"] <= KERNEL_ATOL and rec["wgrad_rel_l2"] <= KERNEL_ATOL
-                and rec["wgrad_bitwise_repeat"]):
+                and rec["fwd_bitwise_repeat"] and rec["wgrad_bitwise_repeat"]):
             raise RuntimeError(f"conv3x3 kernels disagree with their plain versions: {rec}")
+    step_convs = {}
+    for D, C, O in STEP_CONV_FWD:
+        for pass_, (c, o) in (("fwd", (C, O)), ("dx", (O, C))):
+            key = (D, c, o)
+            step_convs.setdefault(key, {"passes": [], "count": 0})
+            step_convs[key]["passes"].append(pass_)
+            step_convs[key]["count"] += 1
+    for (D, C, O), use in step_convs.items():
+        rec = _step_conv_case(TEACHER_BATCH, D, 483, C, O)
+        rec.update(use)
+        say("abf_kernels_vs_plain", kernel="conv3x3_fwd", step_shape=True, **rec)
+        conv.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["fwd_max_abs_err"] <= KERNEL_ATOL and rec["fwd_bitwise_repeat"]):
+            raise RuntimeError(f"conv3x3_fwd disagrees with its plain version: {rec}")
     for *shape, timed in FUSE_CASES:
         rec = _fuse_case(*shape, timed=timed)
         say("abf_kernels_vs_plain", kernel="attention_fuse", **rec)
@@ -1197,7 +1339,7 @@ def main() -> None:
             "source": src + source,
             "replaces": pallas + line,
             "launches": kernel_training["launches"][name],
-            "max_abs_err": max(r[err] for r in cases),
+            "max_abs_err": max(r[err] for r in cases if err in r),
             "ms": shape[f"{key}_ms"],
             "plain_ms": shape[f"{key}_plain_ms"],
             "bound_ms": shape[f"{key}_bound_ms"],
@@ -1247,6 +1389,13 @@ def main() -> None:
         "shape": {"B": spkd_batch, "Ds": SPKD_SAMPLES, "Dt": SPKD_SAMPLES},
         "per_shape": gram_shapes,
     })
+    for k in kernels:
+        k["design"] = DESIGNS[k["name"]]
+        if k["name"] == "conv3x3_fwd":  # bound_ms is 3xTF32's; f32 FMA's, and TF32 cuDNN
+            k.update(bound_f32_ms=conv["fwd_bound_f32_ms"],
+                     library_tf32_ms=conv["fwd_library_tf32_ms"],
+                     routes={r: sum(1 for c in conv_shapes if c["fwd_route"] == r)
+                             for r in ("mma", "fma")})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

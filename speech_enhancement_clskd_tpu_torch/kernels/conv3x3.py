@@ -20,7 +20,11 @@ kernel on flipped, transposed weights) and ``_wgrad_kernel`` (K3w, via
   ``conv3x3_wgrad_reference``, explicit sums over the nine shifts.  Their
   ``launches`` counters count kernel launches only.
 
-Everything is float32; the kernels use f32 FMA, not TF32.
+Everything is float32.  K3f takes one of two routes by shape
+(``conv3x3_fwd_route``): ``"mma"``, f32 operands split into two TF32 parts
+each and three tensor-core products a pair ("3xTF32", within f32 rounding
+of an f32 sum), or ``"fma"``, f32 FMA, for O < 8 or C < 4.  K3w uses f32
+FMA.
 """
 
 from __future__ import annotations
@@ -80,8 +84,12 @@ def _library(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
-        lib.conv3x3_fwd.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+        lib.conv3x3_fwd.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
         lib.conv3x3_fwd.restype = i32
+        lib.conv3x3_fwd_scratch_floats.argtypes = [i32] * 2
+        lib.conv3x3_fwd_scratch_floats.restype = ctypes.c_long
+        lib.conv3x3_fwd_route.argtypes = [i32] * 2
+        lib.conv3x3_fwd_route.restype = i32
     else:
         lib.conv3x3_wgrad_chunks.argtypes = [i32] * 3
         lib.conv3x3_wgrad_chunks.restype = i32
@@ -108,9 +116,13 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv3x3_reference(x, w)
     lib = _library(FWD_SOURCE)
     out = torch.empty(B, D, T, O, device=x.device, dtype=torch.float32)
+    # the weights split into TF32 parts, in the tensor-core route's layout
+    n_split = lib.conv3x3_fwd_scratch_floats(C, O)
+    split = torch.empty(n_split, device=x.device, dtype=torch.float32) if n_split else None
     with torch.cuda.device(x.device):
-        err = lib.conv3x3_fwd(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, D, T, C, O,
-                              _stream(x))
+        err = lib.conv3x3_fwd(x.data_ptr(), w.data_ptr(),
+                              None if split is None else split.data_ptr(), out.data_ptr(),
+                              B, D, T, C, O, _stream(x))
     if err != 0:
         raise RuntimeError(f"conv3x3_fwd launch failed: CUDA error {err}")
     conv3x3_fwd.launches += 1
@@ -118,6 +130,16 @@ def conv3x3_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3_fwd.launches = 0
+
+FWD_ROUTES = ("fma", "mma")
+
+
+def conv3x3_fwd_route(C: int, O: int) -> str:
+    """The route K3f takes for C input and O output channels, as its C entry
+    chooses it: ``"mma"`` (split TF32 on the tensor cores) or ``"fma"`` (f32
+    FMA, where an m16n8k8 tile would be mostly padding).  Asks the built
+    library, so it needs the CUDA toolkit."""
+    return FWD_ROUTES[_library(FWD_SOURCE).conv3x3_fwd_route(C, O)]
 
 
 def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,7 @@ from . import _build, check_tensors
 FWD_SOURCE = "lstm_seq_fwd.cu"
 BWD_SOURCE = "lstm_seq_bwd.cu"
 SOURCES = (FWD_SOURCE, BWD_SOURCE)
-MAX_GATES = 1024  # one thread per gate column, at most 1024 threads a block
+MAX_GATES = 1024  # 4H: the forward's plans take H <= 256, the backward one thread a column
 # rows of the T*N axis per block of the backward's dW_hh pass; the scratch
 # holds one [H, 4H] partial per chunk (grid.y allows at most 65535 chunks)
 DW_CHUNK_ROWS = 512
@@ -118,7 +118,7 @@ def _check(xw, w_hh, h0, c0) -> None:
             raise ValueError(f"{name} must be [{N}, {H}], got {tuple(s.shape)}")
     check_tensors((("xw", xw), ("w_hh", w_hh), ("h0", h0), ("c0", c0)), xw.device, "lstm_seq")
     if xw.device.type == "cuda" and G > MAX_GATES:
-        raise ValueError(f"the kernels run one thread per gate column: 4H <= {MAX_GATES}, got {G}")
+        raise ValueError(f"the kernels take 4H <= {MAX_GATES}, got {G}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,6 +128,8 @@ def _library(source: str) -> ctypes.CDLL:
     if source == FWD_SOURCE:
         lib.lstm_seq_fwd.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
         lib.lstm_seq_fwd.restype = i32
+        lib.lstm_seq_fwd_plan_of.argtypes = [i32] * 2 + [ctypes.POINTER(i32)] * 4
+        lib.lstm_seq_fwd_plan_of.restype = i32
     else:
         lib.lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
         lib.lstm_seq_bwd.restype = i32
@@ -155,6 +157,17 @@ def _fwd(xw, w_hh, h0, c0) -> Tuple[torch.Tensor, torch.Tensor]:
         raise RuntimeError(f"lstm_seq_fwd launch failed: CUDA error {err}")
     lstm_seq.launches += 1
     return y, c
+
+
+def lstm_seq_fwd_plan(N: int, H: int) -> dict:
+    """The plan K1f takes for N rows of width H on the current card, as its C
+    entry chooses it: cluster size ``P``, lanes a gate column ``KS`` and batch
+    rows a cluster ``rows``.  Asks the built library, so it needs the card."""
+    out = [ctypes.c_int() for _ in range(4)]
+    err = _library(FWD_SOURCE).lstm_seq_fwd_plan_of(N, H, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_fwd_plan_of failed: CUDA error {err}")
+    return dict(zip(("plan", "P", "KS", "rows"), (v.value for v in out)))
 
 
 def lstm_seq_bwd(

@@ -26,6 +26,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
 from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
     conv3x3,
     conv3x3_fwd,
+    conv3x3_fwd_route,
     conv3x3_reference,
     conv3x3_wgrad,
     conv3x3_wgrad_reference,
@@ -102,6 +103,34 @@ def test_conv_autograd_launches_its_kernels(cuda):
     conv3x3_reference(xr, wr).backward(gy)
     assert (x.grad - xr.grad).abs().max().item() <= ATOL
     assert _rel_l2(w_mod.grad, wr.grad.permute(3, 2, 0, 1)) <= REL_L2
+
+
+# K3f by route (B, D, T, C, O, route): ragged T, D = 1, C not a multiple of 8
+# (16-byte copies at C = 12, 4-byte copies at C = 6), O = 8 and 256, the dx
+# passes of the training step (C = 256, 128, 32 -> 64; C = 2 -> 64 on the FMA
+# tile), and the FMA tile's O = 2 and 7 and C = 3
+K3F_SHAPES = [(2, 5, 37, 12, 64, "mma"), (1, 1, 483, 64, 256, "mma"),
+              (2, 3, 21, 6, 10, "mma"), (3, 2, 19, 64, 8, "mma"), (2, 4, 70, 64, 32, "mma"),
+              (2, 16, 483, 256, 64, "mma"), (2, 32, 100, 128, 64, "mma"),
+              (2, 64, 61, 32, 64, "mma"), (1, 1, 1, 64, 16, "mma"),
+              (2, 64, 50, 2, 64, "fma"), (1, 16, 300, 64, 2, "fma"), (2, 3, 9, 64, 7, "fma"),
+              (2, 3, 9, 3, 64, "fma")]
+
+
+@pytest.mark.parametrize("shape", K3F_SHAPES, ids=str)
+def test_k3f_matches_plain_on_its_route(cuda, shape):
+    """Each shape takes the route its C entry states, matches the plain
+    version and gives the same bits on a second run."""
+    *dims, route = shape
+    x, w, _ = _conv_inputs(dims, sum(dims), cuda)
+    assert conv3x3_fwd_route(dims[3], dims[4]) == route
+    before = conv3x3_fwd.launches
+    out = conv3x3_fwd(x, w)
+    again = conv3x3_fwd(x, w)
+    torch.cuda.synchronize()
+    assert conv3x3_fwd.launches == before + 2
+    assert (out - conv3x3_reference(x, w)).abs().max().item() <= ATOL
+    assert torch.equal(out, again)
 
 
 def _fuse_inputs(shape, seed, dev):

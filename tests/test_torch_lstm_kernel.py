@@ -13,6 +13,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
     lstm_seq,
     lstm_seq_bwd,
     lstm_seq_bwd_reference,
+    lstm_seq_fwd_plan,
     lstm_seq_reference,
 )
 
@@ -109,5 +110,50 @@ def test_autograd_launches_both_kernels(cuda):
     rdxw, rdw = lstm_seq_bwd_reference(xw.detach(), w_hh.detach(), y.detach(),
                                        lstm_seq_reference(xw.detach(), w_hh.detach())[1],
                                        2 * y.detach())
+    assert (xw.grad - rdxw).abs().max().item() <= ATOL
+    assert (w_hh.grad - rdw).abs().max().item() <= ATOL * max(1.0, rdw.abs().max().item())
+
+
+# K1f's plans (T, N, H, initial state): N = 1 and odd N that leave the last
+# cluster's row tile ragged, H = 64 and 256 (4H = 1024, the widest; a
+# cluster of 8), T = 1, the spkd step's T = 5283 at N = 32 for both widths,
+# and an initial state through a cluster
+K1F_SHAPES = [(483, 1, 32, False), (483, 1, 128, False), (57, 3, 128, False),
+              (40, 67, 32, False), (30, 133, 128, False), (118, 5, 64, False),
+              (60, 3, 256, False), (1, 4, 128, False), (1, 2, 32, False),
+              (5283, 32, 32, False), (5283, 32, 128, False), (118, 6, 128, True),
+              (40, 3, 256, True)]
+
+
+@pytest.mark.parametrize("shape", K1F_SHAPES, ids=str)
+def test_forward_plans_match_plain(cuda, shape):
+    T, N, H, with_state = shape
+    xw, w_hh, (h0, c0) = _inputs(T, N, H, seed=3 * H + N + T, with_state=with_state)
+    args = [None if t is None else t.to(cuda) for t in (xw, w_hh, h0, c0)]
+    plan = lstm_seq_fwd_plan(N, H)
+    assert 1 <= plan["P"] <= 8 and plan["rows"] in (1, 2, 4)
+    before = lstm_seq.launches
+    y, c = lstm_seq(*args)
+    torch.cuda.synchronize()
+    assert lstm_seq.launches == before + 1
+    ry, rc = lstm_seq_reference(*args)
+    assert (y - ry).abs().max().item() <= ATOL, plan
+    assert (c - rc).abs().max().item() <= ATOL * max(1.0, rc.abs().max().item()), plan
+
+
+@pytest.mark.parametrize("H", [32, 128])
+def test_backward_on_the_forward_kernels_outputs(cuda, H):
+    """K1b on what K1f wrote (a single CTA at H = 32, a cluster at H = 128)
+    matches the plain backward on the plain forward's outputs."""
+    xw, w_hh, _ = _inputs(200, 6, H, seed=H)
+    xw = xw.to(cuda).requires_grad_(True)
+    w_hh = w_hh.to(cuda).requires_grad_(True)
+    fwd, bwd = lstm_seq.launches, lstm_seq_bwd.launches
+    y, _ = lstm_seq(xw, w_hh)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (lstm_seq.launches, lstm_seq_bwd.launches) == (fwd + 1, bwd + 1)
+    ry, rc = lstm_seq_reference(xw.detach(), w_hh.detach())
+    rdxw, rdw = lstm_seq_bwd_reference(xw.detach(), w_hh.detach(), ry, rc, 2 * ry)
     assert (xw.grad - rdxw).abs().max().item() <= ATOL
     assert (w_hh.grad - rdw).abs().max().item() <= ATOL * max(1.0, rdw.abs().max().item())

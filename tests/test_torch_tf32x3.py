@@ -1,0 +1,95 @@
+"""The split-TF32 ("3xTF32") arithmetic of the 3x3 conv kernel K3f's tensor-core
+route (``kernels/csrc/conv3x3_fwd.cu``), emulated in plain PyTorch on the CPU.
+
+The kernel splits each float32 operand a into hi = cvt.rna.tf32(a) and
+lo = cvt.rna.tf32(a - hi) and takes each product as lo_a*hi_b + hi_a*lo_b +
+hi_a*hi_b on the tensor cores, which multiply TF32 values exactly and add in
+float32.  Here ``tf32_rna`` rounds float32 bits as cvt.rna.tf32.f32 does (to
+nearest, ties away from zero, 10 mantissa bits kept), and the three products
+are three float32 convolutions of the split operands.  At the reference
+conv's width (C = 64, K = 9C = 576) against a float64 conv, the three-product
+scheme stays within the kernel's tolerance against its plain version
+(``KERNEL_ATOL`` of ``chip_smoke.py``) and a single TF32 pass does not: that
+is why the design takes three passes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_reference
+
+KERNEL_ATOL = 1e-4  # chip_smoke.py: K3f against its plain version
+
+
+def tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """float32 -> the float32 value cvt.rna.tf32.f32 gives: the 13 low
+    mantissa bits rounded off to nearest, ties away from zero (adding half an
+    ulp of TF32 to the magnitude bits carries into the exponent where it
+    should)."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + (1 << 12)) & ~((1 << 13) - 1)).view(torch.float32)
+
+
+def split(a: torch.Tensor):
+    hi = tf32_rna(a)
+    return hi, tf32_rna(a - hi)
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    one = 1.0
+    cases = {
+        one: one,
+        one + 2.0 ** -12: one,                 # below half a TF32 ulp (2^-10)
+        one + 2.0 ** -11: one + 2.0 ** -10,    # a tie: away from zero
+        -(one + 2.0 ** -11): -(one + 2.0 ** -10),
+        one + 3 * 2.0 ** -12: one + 2.0 ** -10,
+        2.0 - 2.0 ** -23: 2.0,                 # carries into the exponent
+        1e-30: tf32_rna(torch.tensor([1e-30])).item(),
+    }
+    got = tf32_rna(torch.tensor(list(cases), dtype=torch.float32))
+    want = torch.tensor(list(cases.values()), dtype=torch.float32)
+    assert torch.equal(got, want)
+    low = got.view(torch.int32) & ((1 << 13) - 1)
+    assert torch.all(low == 0)
+
+
+def test_split_keeps_float32_precision():
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    hi, lo = split(a)
+    assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((lo.view(torch.int32) & 0x1FFF) == 0)
+    rel = ((hi.double() + lo.double() - a.double()).abs() / a.double().abs()).max().item()
+    assert rel <= 2.0 ** -21, rel  # hi: 11 bits, lo: 11 more
+    rel_hi = ((hi.double() - a.double()).abs() / a.double().abs()).max().item()
+    assert 2.0 ** -13 < rel_hi <= 2.0 ** -11, rel_hi
+
+
+@pytest.fixture(scope="module")
+def conv_case():
+    """x [2, 6, 37, 64] and w [3, 3, 64, 64] as chip_smoke.py's conv cases
+    make them, and their float64 convolution."""
+    rng = np.random.default_rng(0)
+    C, O = 64, 64
+    x = torch.from_numpy(rng.standard_normal((2, 6, 37, C)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, C, O)) / (3 * C ** 0.5)).astype(np.float32))
+    exact = conv3x3_reference(x.double(), w.double())
+    return x, w, exact
+
+
+def test_three_tf32_products_stay_within_the_kernel_tolerance(conv_case):
+    x, w, exact = conv_case
+    (xh, xl), (wh, wl) = split(x), split(w)
+    got = conv3x3_reference(xl, wh) + conv3x3_reference(xh, wl) + conv3x3_reference(xh, wh)
+    err = (got.double() - exact).abs().max().item()
+    f32 = (conv3x3_reference(x, w).double() - exact).abs().max().item()
+    assert err <= KERNEL_ATOL, err
+    assert err <= 10 * f32, (err, f32)  # near a plain float32 sum
+
+
+def test_one_tf32_pass_misses_the_kernel_tolerance(conv_case):
+    x, w, exact = conv_case
+    got = conv3x3_reference(tf32_rna(x), tf32_rna(w))
+    err = (got.double() - exact).abs().max().item()
+    assert err > KERNEL_ATOL, err

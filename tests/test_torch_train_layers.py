@@ -37,6 +37,8 @@ BN_ATOL, BN_RTOL = 1e-6, 1e-6
 ATOL, RTOL = 1e-5, 1e-5
 # gradients, compared as whole tensors
 GRAD_REL_L2 = 1e-4
+# an ill-conditioned gradient against its own rounding floor (chip_smoke.py's)
+ROUNDING_FACTOR = 2.0
 
 
 def _t(a):
@@ -175,7 +177,15 @@ def test_multi_resolution_stft_loss_matches_jax(rng, resolutions):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.item(), float(w), rtol=RTOL)
     sum(got).backward()
-    assert _rel_l2(xt.grad.numpy(), want_g) <= GRAD_REL_L2
+    # The log-magnitude L1's gradient flips sign where two bins meet, so a
+    # rounding of the input can move it by more than GRAD_REL_L2: the floor
+    # is the JAX gradient's own change when the input is rounded once more,
+    # and the port is held to ROUNDING_FACTOR times it where that is larger.
+    again = jax.grad(lambda a: sum(jspectral.multi_resolution_stft_loss(
+        a, jnp.asarray(y), ffts, hops, wins)))(jnp.asarray(x * np.float32(1 + 2 ** -23)))
+    floor = _rel_l2(again, want_g)
+    err = _rel_l2(xt.grad.numpy(), want_g)
+    assert err <= max(GRAD_REL_L2, ROUNDING_FACTOR * floor), (err, floor)
 
 
 @pytest.mark.parametrize("groups", [1, 2])
