@@ -11,8 +11,8 @@ card, then drives both paths through their entry points:
    (left alone: the float32 model and trainer turn TF32 off for their own
    calls);
 2. build: one ``nvcc`` per CUDA source, all started together, and the
-   tensor-core instructions in K3f's mma kernels (``cuobjdump -sass``, or
-   the PTX where the toolkit has no cuobjdump);
+   tensor-core instructions in K3f's and K3w's mma kernels (``cuobjdump
+   -sass``, or the PTX where the toolkit has no cuobjdump);
 3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
    the shapes the serving and training paths give it, each with the plan
    K1f takes, with times, the bound and a one-call PyTorch yardstick
@@ -24,9 +24,9 @@ card, then drives both paths through their entry points:
    forward on 32 x 3 s; real-time factor, peak memory, agreement with the
    CPU on one utterance;
 6. backward kernel vs plain: ``lstm_seq_bwd`` against
-   ``lstm_seq_bwd_reference`` at the training step's shape and others, with
-   times, the bound and the backward of cuDNN's ``torch.nn.LSTM`` as the
-   yardstick;
+   ``lstm_seq_bwd_reference`` at the training step's shape and others, each
+   with the plan K1b takes; two runs must give the same bits; times, the
+   bound and the backward of cuDNN's ``torch.nn.LSTM`` as the yardstick;
 7. training at full width: ``Trainer(TrainConfig())`` (teacher ``dccrn-cl``,
    student ``dccrn-cl-test``, seeded) takes one warm-up and 10 timed CLSKD
    steps on 32 x 3 s synthetic batches; step time, audio-seconds per second,
@@ -39,8 +39,9 @@ card, then drives both paths through their entry points:
    pass), its weight gradient (``conv3x3_wgrad``, K3w), the attention fuse
    (``attention_fuse_fwd``, K4f) and its backward (``attention_fuse_bwd``,
    K4b) against their plain versions at the training step's shapes and at
-   small ragged ones, and K3f alone at each (D, C, O) of the kernel-config
-   step's 12 ABF conv2 forwards and 12 dx passes, labelled with its route;
+   small ragged ones, K3f alone at each (D, C, O) of the kernel-config
+   step's 12 ABF conv2 forwards and 12 dx passes, and K3w alone at each
+   distinct shape of its 12 weight gradients, each labelled with its route;
    two runs of K3f and of each backward must give the same bits; times, the
    bound and a one-call PyTorch yardstick where one exists (``F.conv2d`` and
    ``torch.nn.grad.conv2d_weight``, TF32 off; ``F.conv2d`` with TF32 on,
@@ -154,13 +155,13 @@ ROUNDING_FACTOR = 2.0
 GRAM_TOL = 1e-6
 
 
-# Each kernel's design: K1f and K3f are in their second, the others in their
-# first (PERF.md section 6 keeps each design's times).
+# Each kernel's design: K1f, K1b, K3f and K3w are in their second, the others
+# in their first (PERF.md section 6 keeps each design's times).
 DESIGNS = {
     "lstm_seq_fwd": "register-cluster",
-    "lstm_seq_bwd": "column-thread",
+    "lstm_seq_bwd": "gate-prepass-register-chain",
     "conv3x3_fwd": "3xtf32-mma",
-    "conv3x3_wgrad": "fma-tile",
+    "conv3x3_wgrad": "3xtf32-mma",
     "attfuse_fwd": "warp-row",
     "attfuse_bwd": "warp-row",
     "abf_block_fwd": "fma-tile",
@@ -209,17 +210,20 @@ def phase_build():
     seconds = time.perf_counter() - t0
     ptxas = {src: [ln.strip() for ln in _build.log_path(src).read_text().splitlines()
                    if "registers" in ln or "spill" in ln] for src in sources}
-    tensor_cores = _tensor_core_check(paths[sources.index(conv3x3.FWD_SOURCE)],
-                                      conv3x3.FWD_SOURCE)
+    tensor_cores = {name: _tensor_core_check(paths[sources.index(source)], source)
+                    for name, source in (("k3f", conv3x3.FWD_SOURCE),
+                                         ("k3w", conv3x3.WGRAD_SOURCE))}
     say("build", seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas,
-        k3f_tensor_cores=tensor_cores)
-    if tensor_cores["count"] == 0:
-        raise RuntimeError(f"K3f's mma kernels use no tensor-core instruction: {tensor_cores}")
+        tensor_cores=tensor_cores)
+    for name, found in tensor_cores.items():
+        if found["count"] == 0:
+            raise RuntimeError(f"{name}'s mma kernels use no tensor-core instruction: {found}")
 
 
 def _tensor_core_check(library: Path, source: str) -> dict:
-    """The tensor-core instructions in K3f's mma kernels: HMMA/HGMMA in
+    """The tensor-core instructions in the mma kernels (``*mma_kernel*``) of
+    ``source``'s library (K3f's, K3w's): HMMA/HGMMA in
     ``cuobjdump -sass`` of the built library where the toolkit has
     cuobjdump, else mma/wgmma in the PTX that nvcc gives for the source."""
     import os
@@ -479,6 +483,7 @@ def phase_backward_vs_plain():
 
     from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
         lstm_seq_bwd,
+        lstm_seq_bwd_plan,
         lstm_seq_bwd_reference,
         lstm_seq_reference,
     )
@@ -507,16 +512,20 @@ def phase_backward_vs_plain():
             y, c = lstm_seq_reference(xw, w_hh, h0, c0)
         before = lstm_seq_bwd.launches
         dxw, dw = lstm_seq_bwd(xw, w_hh, y, c, dy, h0, c0)
-        if lstm_seq_bwd.launches != before + 1:
-            raise RuntimeError("lstm_seq_bwd did not count its launch")
+        again = lstm_seq_bwd(xw, w_hh, y, c, dy, h0, c0)
+        if lstm_seq_bwd.launches != before + 2:
+            raise RuntimeError("lstm_seq_bwd did not count its launches")
         with float32_math():
             rdxw, rdw = lstm_seq_bwd_reference(xw, w_hh, y, c, dy, h0, c0)
         torch.cuda.synchronize()
         err_dxw = (dxw - rdxw).abs().max().item()
         err_dw = (dw - rdw).abs().max().item() / max(1.0, rdw.abs().max().item())
-        ok = err_dxw <= KERNEL_ATOL and err_dw <= KERNEL_ATOL
+        repeat = bool(torch.equal(dxw, again[0]) and torch.equal(dw, again[1]))
+        ok = err_dxw <= KERNEL_ATOL and err_dw <= KERNEL_ATOL and repeat
         rec = {"T": T, "N": N, "H": H, "initial_state": with_state,
-               "max_abs_err_dxw": err_dxw, "max_rel_err_dw_hh": err_dw, "tol": KERNEL_ATOL}
+               "plan": lstm_seq_bwd_plan(H), "max_abs_err_dxw": err_dxw,
+               "max_rel_err_dw_hh": err_dw, "tol": KERNEL_ATOL, "bitwise_repeat": repeat}
+        del again
         if not with_state:
             ms = _time_ms(lambda: lstm_seq_bwd(xw, w_hh, y, c, dy), iters=20)
             with float32_math():
@@ -810,6 +819,7 @@ def _conv_case(B, D, T, C, O, timed: bool) -> dict:
         conv3x3_reference,
         conv3x3_wgrad,
         conv3x3_wgrad_reference,
+        conv3x3_wgrad_route,
     )
     from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
 
@@ -831,6 +841,7 @@ def _conv_case(B, D, T, C, O, timed: bool) -> dict:
         del ref
         err_dw = _rel_l2(dw, conv3x3_wgrad_reference(x, gy))
     rec = {"B": B, "D": D, "T": T, "C": C, "O": O, "fwd_route": conv3x3_fwd_route(C, O),
+           "wgrad_route": conv3x3_wgrad_route(C, O),
            "fwd_max_abs_err": err_fwd, "fwd_bitwise_repeat": bool(torch.equal(out, out_again)),
            "wgrad_rel_l2": err_dw, "wgrad_bitwise_repeat": bool(torch.equal(dw, dw_again)),
            "tol": KERNEL_ATOL}
@@ -858,7 +869,10 @@ def _conv_case(B, D, T, C, O, timed: bool) -> dict:
         # tensor cores: its operations, at their peak, bound it
         fwd_bound = (_bound_3xtf32(fwd_bytes, flops) if rec["fwd_route"] == "mma"
                      else fwd_bound_f32)
-        wgrad_bound = _bound(4.0 * (rows * C + rows * O + 9 * C * O), flops)
+        wgrad_bytes = 4.0 * (rows * C + rows * O + 9 * C * O)
+        wgrad_bound_f32 = _bound(wgrad_bytes, flops)
+        wgrad_bound = (_bound_3xtf32(wgrad_bytes, flops) if rec["wgrad_route"] == "mma"
+                       else wgrad_bound_f32)
         rec.update(
             fwd_ms=_time_ms(lambda: conv3x3_fwd(x, w), iters=5), fwd_plain_ms=fwd_plain_ms,
             fwd_library_ms=fwd_library_ms, fwd_library_tf32_ms=fwd_library_tf32_ms,
@@ -866,7 +880,8 @@ def _conv_case(B, D, T, C, O, timed: bool) -> dict:
             fwd_bound_f32_ms=fwd_bound_f32[0],
             wgrad_ms=_time_ms(lambda: conv3x3_wgrad(x, gy), iters=5),
             wgrad_plain_ms=wgrad_plain_ms, wgrad_library_ms=wgrad_library_ms,
-            wgrad_bound_ms=wgrad_bound[0], wgrad_bound_by=wgrad_bound[1])
+            wgrad_bound_ms=wgrad_bound[0], wgrad_bound_by=wgrad_bound[1],
+            wgrad_bound_f32_ms=wgrad_bound_f32[0])
     return rec
 
 
@@ -901,6 +916,46 @@ def _step_conv_case(B, D, T, C, O) -> dict:
             "fwd_max_abs_err": err, "fwd_bitwise_repeat": repeat, "tol": KERNEL_ATOL,
             "fwd_ms": _time_ms(lambda: conv3x3_fwd(x, w), iters=5),
             "fwd_library_ms": library_ms}
+
+
+def _step_wgrad_case(B, D, T, C, O) -> dict:
+    """K3w alone at one of the kernel-config step's weight-gradient shapes
+    (x [B, D, T, C], g [B, D, T, O]): its route, relative L2 error against
+    the plain version, a bitwise repeat, its launches, and its time beside
+    the bound and ``torch.nn.grad.conv2d_weight`` (TF32 off)."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
+        conv3x3_wgrad,
+        conv3x3_wgrad_reference,
+        conv3x3_wgrad_route,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + C + O + 1)
+    x = torch.randn(B, D, T, C, device="cuda", generator=g)
+    gy = torch.randn(B, D, T, O, device="cuda", generator=g)
+    before = conv3x3_wgrad.launches
+    dw = conv3x3_wgrad(x, gy)
+    repeat = bool(torch.equal(dw, conv3x3_wgrad(x, gy)))
+    torch.cuda.synchronize()
+    launched = conv3x3_wgrad.launches - before
+    with float32_math():
+        err = _rel_l2(dw, conv3x3_wgrad_reference(x, gy))
+        del dw
+        x_nchw, gy_nchw = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        library_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
+            x_nchw, (O, C, 3, 3), gy_nchw, padding=1), iters=5)
+    route = conv3x3_wgrad_route(C, O)
+    rows = B * D * T
+    nbytes, flops = 4.0 * (rows * C + rows * O + 9 * C * O), 2.0 * rows * 9 * C * O
+    bound = _bound_3xtf32(nbytes, flops) if route == "mma" else _bound(nbytes, flops)
+    return {"B": B, "D": D, "T": T, "C": C, "O": O, "wgrad_route": route,
+            "wgrad_rel_l2": err, "wgrad_bitwise_repeat": repeat, "tol": KERNEL_ATOL,
+            "wgrad_launches": launched,
+            "wgrad_ms": _time_ms(lambda: conv3x3_wgrad(x, gy), iters=5),
+            "wgrad_library_ms": library_ms, "wgrad_bound_ms": bound[0],
+            "wgrad_bound_by": bound[1], "wgrad_bound_f32_ms": _bound(nbytes, flops)[0]}
 
 
 def _fuse_case(B, D, Dp, T, C, timed: bool) -> dict:
@@ -1010,6 +1065,15 @@ def phase_abf_kernels_vs_plain():
         torch.cuda.empty_cache()
         if not (rec["fwd_max_abs_err"] <= KERNEL_ATOL and rec["fwd_bitwise_repeat"]):
             raise RuntimeError(f"conv3x3_fwd disagrees with its plain version: {rec}")
+    for D, C, O in dict.fromkeys(STEP_CONV_FWD):  # the distinct wgrad shapes, in order
+        rec = _step_wgrad_case(TEACHER_BATCH, D, 483, C, O)
+        rec["count"] = STEP_CONV_FWD.count((D, C, O))
+        say("abf_kernels_vs_plain", kernel="conv3x3_wgrad", step_shape=True, **rec)
+        conv.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["wgrad_rel_l2"] <= KERNEL_ATOL and rec["wgrad_bitwise_repeat"]
+                and rec["wgrad_launches"] == 2):
+            raise RuntimeError(f"conv3x3_wgrad disagrees with its plain version: {rec}")
     for *shape, timed in FUSE_CASES:
         rec = _fuse_case(*shape, timed=timed)
         say("abf_kernels_vs_plain", kernel="attention_fuse", **rec)
@@ -1394,8 +1458,12 @@ def main() -> None:
         if k["name"] == "conv3x3_fwd":  # bound_ms is 3xTF32's; f32 FMA's, and TF32 cuDNN
             k.update(bound_f32_ms=conv["fwd_bound_f32_ms"],
                      library_tf32_ms=conv["fwd_library_tf32_ms"],
-                     routes={r: sum(1 for c in conv_shapes if c["fwd_route"] == r)
+                     routes={r: sum(1 for c in conv_shapes if c.get("fwd_route") == r)
                              for r in ("mma", "fma")})
+        if k["name"] == "conv3x3_wgrad":  # bound_ms is 3xTF32's; f32 FMA's beside it
+            k.update(bound_f32_ms=conv["wgrad_bound_f32_ms"],
+                     routes={r: sum(1 for c in conv_shapes if c.get("wgrad_route") == r)
+                             for r in ("mma", "narrow")})
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,164 @@
+#!/usr/bin/env python3
+"""Times the redesigned kernels of one source tree on one NVIDIA GPU, so that
+two trees (a parent commit unpacked beside this one, and this one) can be
+compared in one call on one card, in turns: parent, change, change, parent.
+
+    python3 scripts/kernel_pair_timing.py --root DIR --label NAME [--out FILE]
+
+Imports ``speech_enhancement_clskd_tpu_torch`` from ``--root`` (the tree to
+time; this script's own tree by default), builds its kernels there, and
+prints one JSON line per shape, then writes them all to ``--out``:
+
+- K1b (``lstm_seq_bwd``) at the spkd step's student LSTM on 33 s clips
+  (T=5283, N=32, H=32), the clskd step's (T=483, N=64, H=32) and the
+  teacher's width (T=483, N=64, H=128; no main path trains it), beside the
+  backward of cuDNN's ``torch.nn.LSTM`` (f32, TF32 off), and a hash of its
+  outputs' bits (the forward's y and c come from the tree's own K1f);
+- K3w (``conv3x3_wgrad``) at each distinct weight-gradient shape of the
+  kernel-config step (x [32, D, 483, 64], g [32, D, 483, O]), beside
+  ``torch.nn.grad.conv2d_weight`` (TF32 off);
+- K5b (``abf_block_bwd``) at phase 10's reference, mask and deepest blocks.
+
+Each time is CUDA events over repeated launches after a warm-up; inputs come
+from seeded generators, so both trees see the same data.  Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+K1B_SHAPES = [(5283, 32, 32), (483, 64, 32), (483, 64, 128)]
+# (D, C, O) of the kernel-config step's weight gradients, at batch 32, T=483
+K3W_SHAPES = [(4, 64, 256), (8, 64, 256), (16, 64, 256), (32, 64, 128), (64, 64, 64),
+              (128, 64, 32), (256, 64, 2)]
+# (fuse, B, D, k, T, Cs, M, O): chip_smoke.py phase 10's timed blocks
+K5B_SHAPES = [(True, 32, 64, 2, 483, 16, 64, 64), (True, 32, 256, 2, 483, 2, 64, 2),
+              (False, 32, 4, 1, 483, 64, 64, 256)]
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k1b(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_bwd
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    for T, N, H in K1B_SHAPES:
+        g = torch.Generator().manual_seed(2000 * H + N)
+        xw = torch.randn(T, N, 4 * H, generator=g).cuda()
+        w_hh = ((torch.rand(H, 4 * H, generator=g) * 2 - 1) / H ** 0.5).cuda()
+        dy = torch.randn(T, N, H, generator=g).cuda()
+        with torch.no_grad():
+            y, c = lstm_seq(xw, w_hh)
+        ms = _time_ms(lambda: lstm_seq_bwd(xw, w_hh, y, c, dy), 20)
+        # the bits of dxw and dW_hh, to see whether two trees compute the same
+        bits = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                       for t in lstm_seq_bwd(xw, w_hh, y, c, dy))).hexdigest()
+        lib = torch.nn.LSTM(4 * H, H).cuda()
+        with float32_math():
+            with torch.no_grad():
+                lib.weight_ih_l0.copy_(torch.eye(4 * H))
+                lib.weight_hh_l0.copy_(w_hh.t())
+                lib.bias_ih_l0.zero_()
+                lib.bias_hh_l0.zero_()
+            x_in = xw.clone().requires_grad_(True)
+            lib_y = lib(x_in)[0]
+            library_ms = _time_ms(lambda: torch.autograd.grad(
+                lib_y, (x_in, lib.weight_hh_l0), dy, retain_graph=True), 20)
+        emit(kernel="lstm_seq_bwd", T=T, N=N, H=H, ms=ms, library_ms=library_ms,
+             sha256_dxw_dw=bits[:16])
+
+
+def k3w(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_wgrad
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    for D, C, O in K3W_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(D + C + O)
+        x = torch.randn(32, D, 483, C, device="cuda", generator=g)
+        gy = torch.randn(32, D, 483, O, device="cuda", generator=g)
+        ms = _time_ms(lambda: conv3x3_wgrad(x, gy), 10)
+        with float32_math():
+            library_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
+                x.permute(0, 3, 1, 2), (O, C, 3, 3), gy.permute(0, 3, 1, 2), padding=1), 5)
+        emit(kernel="conv3x3_wgrad", B=32, D=D, T=483, C=C, O=O, ms=ms, library_ms=library_ms)
+        del x, gy
+        torch.cuda.empty_cache()
+
+
+def k5b(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
+
+    for fuse, B, D, k, T, Cs, M, O in K5B_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(B * D + k + Cs + O)
+
+        def r(*shape, scale=1.0):
+            return scale * torch.randn(*shape, device="cuda", generator=g)
+
+        kw = dict(tap=r(B, D, T, Cs), res=r(B, D // k, T, M) if fuse else None,
+                  w1a=r(Cs, M, scale=Cs ** -0.5), bvec=r(M, scale=0.2), wxt=r(Cs, 2, scale=0.3),
+                  wy=r(M, 2, scale=0.3), zoff=r(2, scale=0.1),
+                  w2=r(3, 3, M, O, scale=1 / (3 * M ** 0.5)))
+        gxf, gout = r(B, D, T, M), r(B, D, T, O)
+        xf, _ = abf_block_fwd(**kw)
+        ms = _time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout), 5)
+        emit(kernel="abf_block_bwd", fuse=fuse, B=B, D=D, k=k, T=T, Cs=Cs, M=M, O=O, ms=ms)
+        del kw, gxf, gout, xf
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(HERE), help="the source tree to time")
+    ap.add_argument("--label", default="tree")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("kernel_pair_timing: needs an NVIDIA GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], check=True, capture_output=True,
+                          text=True, timeout=60).stdout.strip().splitlines()[0]
+    records = []
+
+    def emit(**rec):
+        rec = {"label": args.label, "card": card, **rec}
+        print(json.dumps(rec), flush=True)
+        records.append(rec)
+
+    k1b(emit)
+    k3w(emit)
+    k5b(emit)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(records, indent=1))
+
+
+if __name__ == "__main__":
+    main()

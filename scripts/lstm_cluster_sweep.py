@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The measurements behind the LSTM forward kernel's plan (K1f,
-``speech_enhancement_clskd_tpu_torch/kernels/csrc/lstm_seq_fwd.cu``), on one
-NVIDIA GPU.
+"""The measurements behind the LSTM kernels' plans (K1f,
+``speech_enhancement_clskd_tpu_torch/kernels/csrc/lstm_seq_fwd.cu``, and
+K1b, ``lstm_seq_bwd.cu``), on one NVIDIA GPU.
 
     python3 scripts/lstm_cluster_sweep.py [--out FILE]
 
@@ -18,11 +18,16 @@ NVIDIA GPU.
    shapes of the serving and training paths, against its plain version (max
    abs error of y) and against cuDNN's ``torch.nn.LSTM`` (f32, TF32 off) in
    the same run, at 1, 2 and 4 batch rows a cluster.
-3. step: ``chip_smoke.py`` phase 7's card-vs-CPU check (one clskd step of
+3. bwd_plans: K1b's source built here with every plan of ``BWD_PLANS``
+   (``BWD_VARIANT_SOURCE``), each at the student's width on the spkd and
+   clskd steps' shapes, against its plain version (max abs error of dxw) and
+   cuDNN's LSTM backward (f32, TF32 off) in the same run.
+4. step: ``chip_smoke.py`` phase 7's card-vs-CPU check (one clskd step of
    ``TrainConfig()`` on the card and on the CPU, white-noise batch, the
-   gradients held to ``TRAIN_GRAD_REL_L2``) with the kernel's own plans and
-   with the gate sums split over KS = 2 lanes (``STEP_VARIANTS``), the
-   wrapper's library swapped for the variant's in this process only.
+   gradients held to ``TRAIN_GRAD_REL_L2``) with the kernels' own plans and
+   with sums split over KS = 2 lanes (``STEP_VARIANTS``: K1f's gate columns,
+   K1b's quarters of dh), the wrappers' libraries swapped for the variants'
+   in this process only.
 
 Prints one JSON line per measurement and writes them all to ``--out``.
 Needs CUDA; fails without it.
@@ -136,11 +141,47 @@ SHAPES = [(118, 2, 32), (483, 2, 32), (483, 64, 32), (5283, 32, 32), (5283, 64, 
 PLANS = [(1, 1, 32), (2, 1, 128),
          (2, 1, 32), (1, 2, 16), (1, 4, 8), (1, 8, 4),
          (4, 1, 128), (8, 1, 128), (2, 2, 64), (4, 4, 32), (4, 8, 16), (8, 8, 16)]
-# the step check's variants: the plan of each width (None: the kernel as the
-# port builds it)
-STEP_VARIANTS = {"kernel": None,
-                 "ks2_student": {32: (1, 2, 16), 128: (2, 1, 128)},
-                 "ks2": {32: (1, 2, 16), 128: (2, 2, 64)}}
+# K1b's plans (KS, WPT): the kernel's own at H = 32 (lstm_seq_bwd.cu, kPlans),
+# then each quarter of dh split over two lanes
+BWD_PLANS = [(1, 32), (2, 16)]
+BWD_SHAPES = [(5283, 32, 32), (483, 64, 32)]
+BWD_VARIANT_SOURCE = r"""
+#include "{source}"
+
+// plan `plan` of the sweep's K1b table
+extern "C" int sweep_lstm_bwd(const void* xw, const void* w_hh, const void* y, const void* c,
+                              const void* dy, const void* h0, const void* c0, void* dxw,
+                              void* dw_hh, void* scratch, int T, int N, int H, int chunk_rows,
+                              int plan, void* stream) {{
+  int dev = 0, sms = 0, max_smem = 0;
+  cudaError_t err = lstm_common::device_limits(&dev, &sms, &max_smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = lstm_common::rows_per_block(N, sms);
+  const float* a = static_cast<const float*>(xw);
+  const float* w = static_cast<const float*>(w_hh);
+  const float* yo = static_cast<const float*>(y);
+  const float* co = static_cast<const float*>(c);
+  const float* d = static_cast<const float*>(dy);
+  const float* hi = static_cast<const float*>(h0);
+  const float* ci = static_cast<const float*>(c0);
+  float* dx = static_cast<float*>(dxw);
+  float* dw = static_cast<float*>(dw_hh);
+  float* sc = static_cast<float*>(scratch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan) {{
+{cases}
+    default: return (int)cudaErrorInvalidValue;
+  }}
+}}
+"""
+BWD_CASE = ("    case {i}: return (int)run_plan<{ks}, {wpt}>(rows, a, w, yo, co, d, hi, ci, dx, "
+            "dw, sc, T, N, H, chunk_rows, s);")
+# the step check's variants: K1f's and K1b's plan of each width (None: the
+# kernel as the port builds it)
+STEP_VARIANTS = {"kernel": {"fwd": None, "bwd": None},
+                 "ks2_student": {"fwd": {32: (1, 2, 16), 128: (2, 1, 128)}, "bwd": None},
+                 "ks2": {"fwd": {32: (1, 2, 16), 128: (2, 2, 64)}, "bwd": None},
+                 "bwd_ks2_student": {"fwd": None, "bwd": {32: (2, 16)}}}
 ITERS = 100_000
 
 
@@ -259,6 +300,77 @@ def plans(records: list, lib: ctypes.CDLL) -> None:
                      library_ms=library_ms)
 
 
+def bwd_variant_library() -> ctypes.CDLL:
+    """K1b's source with ``sweep_lstm_bwd``, built here."""
+    from speech_enhancement_clskd_tpu_torch.kernels import _build
+
+    build = _build.BUILD_DIR / "sweep"
+    build.mkdir(parents=True, exist_ok=True)
+    src, lib_path = build / "lstm_seq_bwd_plans.cu", build / "liblstm_seq_bwd_plans.so"
+    cases = "\n".join(BWD_CASE.format(i=i, ks=ks, wpt=wpt)
+                      for i, (ks, wpt) in enumerate(BWD_PLANS))
+    src.write_text(BWD_VARIANT_SOURCE.format(source=_build.CSRC_DIR / "lstm_seq_bwd.cu",
+                                             cases=cases))
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                   check=True, capture_output=True, text=True, timeout=900)
+    lib = ctypes.CDLL(str(lib_path))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.sweep_lstm_bwd.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+    lib.sweep_lstm_bwd.restype = i32
+    lib.lstm_seq_bwd_scratch_floats.argtypes = [i32] * 4
+    lib.lstm_seq_bwd_scratch_floats.restype = ctypes.c_long
+    return lib
+
+
+def bwd_plans(records: list, lib: ctypes.CDLL) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels import lstm
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    dev = torch.device("cuda")
+    for T, N, H in BWD_SHAPES:
+        g = torch.Generator().manual_seed(2000 * H + N)
+        xw = torch.randn(T, N, 4 * H, generator=g).to(dev)
+        w_hh = ((torch.rand(H, 4 * H, generator=g) * 2 - 1) / H ** 0.5).to(dev)
+        dy = torch.randn(T, N, H, generator=g).to(dev)
+        with float32_math():
+            y, c = lstm.lstm_seq_reference(xw, w_hh)
+            rdxw, _ = lstm.lstm_seq_bwd_reference(xw, w_hh, y, c, dy)
+        lstm_lib = torch.nn.LSTM(4 * H, H).to(dev)
+        with float32_math():
+            with torch.no_grad():
+                lstm_lib.weight_ih_l0.copy_(torch.eye(4 * H))
+                lstm_lib.weight_hh_l0.copy_(w_hh.t())
+                lstm_lib.bias_ih_l0.zero_()
+                lstm_lib.bias_hh_l0.zero_()
+            x_in = xw.clone().requires_grad_(True)
+            lib_y = lstm_lib(x_in)[0]
+            library_ms = _time_ms(lambda: torch.autograd.grad(
+                lib_y, (x_in, lstm_lib.weight_hh_l0), dy, retain_graph=True), 10)
+        chunk_rows = max(lstm.DW_CHUNK_ROWS, -(-T * N // lstm.MAX_DW_CHUNKS))
+        dxw, dw = torch.empty_like(xw), torch.empty_like(w_hh)
+        scratch = torch.empty(lib.lstm_seq_bwd_scratch_floats(T, N, H, chunk_rows), device=dev)
+        stream = torch.cuda.current_stream().cuda_stream
+        for plan, shape in enumerate(BWD_PLANS):
+            if not shape[0] * shape[1] // 2 < H <= shape[0] * shape[1]:
+                continue
+
+            def run():
+                err = lib.sweep_lstm_bwd(xw.data_ptr(), w_hh.data_ptr(), y.data_ptr(),
+                                         c.data_ptr(), dy.data_ptr(), None, None,
+                                         dxw.data_ptr(), dw.data_ptr(), scratch.data_ptr(),
+                                         T, N, H, chunk_rows, plan, stream)
+                if err != 0:
+                    raise RuntimeError(f"K1b plan {shape}: CUDA error {err}")
+            dxw.zero_()
+            run()
+            torch.cuda.synchronize()
+            emit(records, phase="bwd_plan", T=T, N=N, H=H, plan=plan, KS_WPT=shape,
+                 ms=_time_ms(run, 20), max_abs_err_dxw=(dxw - rdxw).abs().max().item(),
+                 library_ms=library_ms)
+
+
 class _VariantFwd:
     """Stands in for K1f's library in ``kernels.lstm``: each width runs the
     plan ``plan_by_width`` gives it, at the kernel's own rows a cluster."""
@@ -271,23 +383,42 @@ class _VariantFwd:
                                        PLANS.index(self.plan_by_width[H]), 0, stream)
 
 
-def step(records: list, lib: ctypes.CDLL) -> None:
+class _VariantBwd:
+    """Stands in for K1b's library in ``kernels.lstm``: each width of
+    ``plan_by_width`` runs that plan, the others the kernel's own."""
+
+    def __init__(self, lib: ctypes.CDLL, kernel_lib, plan_by_width: dict):
+        self.lib, self.kernel_lib, self.plan_by_width = lib, kernel_lib, plan_by_width
+        self.lstm_seq_bwd_scratch_floats = lib.lstm_seq_bwd_scratch_floats
+
+    def lstm_seq_bwd(self, *args):
+        H = args[12]
+        if H not in self.plan_by_width:
+            return self.kernel_lib.lstm_seq_bwd(*args)
+        return self.lib.sweep_lstm_bwd(*args[:14], BWD_PLANS.index(self.plan_by_width[H]),
+                                       args[14])
+
+
+def step(records: list, lib: ctypes.CDLL, bwd_lib: ctypes.CDLL) -> None:
     from unittest import mock
 
     import chip_smoke
     from speech_enhancement_clskd_tpu_torch.kernels import lstm
 
     library = lstm._library
-    for name, plan_by_width in STEP_VARIANTS.items():
-        def swapped(source, plan_by_width=plan_by_width):
-            if source == lstm.FWD_SOURCE and plan_by_width is not None:
-                return _VariantFwd(lib, plan_by_width)
+    for name, variant in STEP_VARIANTS.items():
+        def swapped(source, variant=variant):
+            if source == lstm.FWD_SOURCE and variant["fwd"] is not None:
+                return _VariantFwd(lib, variant["fwd"])
+            if source == lstm.BWD_SOURCE and variant["bwd"] is not None:
+                return _VariantBwd(bwd_lib, library(source), variant["bwd"])
             return library(source)
 
         with mock.patch.object(lstm, "_library", swapped):
             rec = chip_smoke._card_vs_cpu(*chip_smoke.gaussian_batch(
                 chip_smoke.CHECK_BATCH, chip_smoke.CHECK_SECONDS), {})
-        emit(records, phase="step", variant=name, P_KS_WPT_by_width=plan_by_width,
+        emit(records, phase="step", variant=name,
+             fwd_P_KS_WPT_by_width=variant["fwd"], bwd_KS_WPT_by_width=variant["bwd"],
              within_tol=rec["grad_max_rel_l2"] <= rec["grad_tol"], **rec)
 
 
@@ -308,7 +439,9 @@ def main() -> None:
     barriers(records)
     lib = variant_library()
     plans(records, lib)
-    step(records, lib)
+    bwd_lib = bwd_variant_library()
+    bwd_plans(records, bwd_lib)
+    step(records, lib, bwd_lib)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(records, indent=1))
 

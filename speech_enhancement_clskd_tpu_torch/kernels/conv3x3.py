@@ -23,8 +23,10 @@ kernel on flipped, transposed weights) and ``_wgrad_kernel`` (K3w, via
 Everything is float32.  K3f takes one of two routes by shape
 (``conv3x3_fwd_route``): ``"mma"``, f32 operands split into two TF32 parts
 each and three tensor-core products a pair ("3xTF32", within f32 rounding
-of an f32 sum), or ``"fma"``, f32 FMA, for O < 8 or C < 4.  K3w uses f32
-FMA.
+of an f32 sum), or ``"fma"``, f32 FMA, for O < 8 or C < 4.  K3w takes one
+of two routes by shape (``conv3x3_wgrad_route``): ``"mma"``, the same split
+TF32 on the tensor cores with the pixels as the product's reduction, or
+``"narrow"``, f32 FMA, for O <= 8.
 """
 
 from __future__ import annotations
@@ -95,6 +97,8 @@ def _library(source: str) -> ctypes.CDLL:
         lib.conv3x3_wgrad_chunks.restype = i32
         lib.conv3x3_wgrad.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
         lib.conv3x3_wgrad.restype = i32
+        lib.conv3x3_wgrad_route.argtypes = [i32] * 2
+        lib.conv3x3_wgrad_route.restype = i32
     return lib
 
 
@@ -170,6 +174,16 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3_wgrad.launches = 0
+
+WGRAD_ROUTES = ("narrow", "mma")
+
+
+def conv3x3_wgrad_route(C: int, O: int) -> str:
+    """The route K3w takes for C input and O output channels, as its C entry
+    chooses it: ``"mma"`` (split TF32 on the tensor cores) or ``"narrow"``
+    (f32 FMA, where an n8 tile of output channels would be mostly padding).
+    Asks the built library, so it needs the CUDA toolkit."""
+    return WGRAD_ROUTES[_library(WGRAD_SOURCE).conv3x3_wgrad_route(C, O)]
 
 
 class _Conv3x3(torch.autograd.Function):

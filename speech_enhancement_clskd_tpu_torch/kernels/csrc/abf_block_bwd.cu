@@ -45,8 +45,9 @@
 //      same g_res, nothing is added atomically.  At the end each block writes
 //      one partial [dw1a | dbvec | dwxt | dwy | dzoff].
 //   2. reduce_partials_kernel adds the blocks' partials in block order.
-//   3. dw2: K3w's split reduction (conv3x3_tiles.cuh) over xf and g_out, not
-//      K3w's wrapper, so K3w's launch count stays at 0 on this path.
+//   3. dw2: K3w's split reduction (conv3x3_tiles.cuh::wgrad_run, on K3w's
+//      route by shape: split TF32 on the tensor cores for O > 8) over xf and
+//      g_out, not K3w's wrapper, so K3w's launch count stays at 0 on this path.
 // Every split depends only on the shape, so every run gives the same bits.
 // Offsets are 64-bit.
 //

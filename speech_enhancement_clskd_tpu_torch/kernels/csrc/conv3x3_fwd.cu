@@ -16,7 +16,8 @@
 // first design of this kernel (a 4 x 4 FMA register tile) took 3.65 ms and
 // cuDNN's f32 convolution 2.18 ms.
 //
-// Design: split TF32 on the tensor cores (route "mma", O >= 8 and C >= 4).
+// Design: split TF32 on the tensor cores (route "mma", O >= 8 and C >= 4;
+// the helpers are tf32x3.cuh's, shared with K3w).
 //   - Each f32 operand a is split into a TF32 high part hi = cvt.rna.tf32(a)
 //     and a TF32 residual lo = cvt.rna.tf32(a - hi), and each product is
 //     taken as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b ("3xTF32"), accumulated in
@@ -82,10 +83,12 @@
 #include <cstdint>
 
 #include "conv3x3_tiles.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using namespace conv3x3_tiles;
+using namespace tf32x3;
 
 // ---- route "fma": the f32 FMA register tile
 
@@ -156,45 +159,6 @@ struct MmaTile {
 
 // The block tile's output channels, by O (see conv3x3_fwd).
 int mma_bn(int O) { return O >= 64 ? 64 : O >= 32 ? 32 : 16; }
-
-__device__ __forceinline__ uint32_t to_tf32(float a) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
-  return r;
-}
-
-// a = hi + lo, each a TF32 value held in a 32-bit register
-__device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(a);
-  lo = to_tf32(a - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bytes (16 or 4) from src to shared dst, or zeros where !valid
-template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // The weights in the layout the B fragments want, split once per call:
 // wp[k][p][o] = (hi(w[k, 2p, o]), hi(w[k, 2p + 1, o]), lo(..2p..), lo(..2p + 1..))
@@ -292,11 +256,7 @@ __device__ __forceinline__ void mma_chunk(const float* xs, const float* ws,
         const uint32_t bh[2] = {__float_as_uint(b.x), __float_as_uint(b.y)};
         const uint32_t bl[2] = {__float_as_uint(b.z), __float_as_uint(b.w)};
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_tf32(acc[mt][nt], al[mt], bh);
-          mma_tf32(acc[mt][nt], ah[mt], bl);
-          mma_tf32(acc[mt][nt], ah[mt], bh);
-        }
+        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(acc[mt][nt], ah[mt], al[mt], bh, bl);
       }
     }
   }

@@ -11,16 +11,22 @@
 // and stage_weights() the nine weight slices; fma_chunk() adds the chunk into
 // each thread's 4 (time) x 4 (channel) register tile; store_tile() writes it.
 //
-// Weight gradient (K3w's design, see conv3x3_wgrad.cu):
-// conv3x3_wgrad_partial_kernel sums one chunk of freq rows per block into a
-// partial (conv3x3_wgrad_narrow_kernel one range of rows per thread group,
-// for O <= 8), and reduce_partials_kernel adds partials in partial order.  wgrad_chunks() and
-// wgrad_run() are the host side.  No atomics: the split depends only on the
-// shape, so every run gives the same bits.
+// Weight gradient (K3w's design, see conv3x3_wgrad.cu; K5b's dw2 runs it
+// too): per-block partial sums over chunks of freq rows, on route "mma"
+// (conv3x3_wgrad_mma_kernel, split TF32 on the tensor cores, helpers from
+// tf32x3.cuh) for O > 8 and route "narrow" (conv3x3_wgrad_narrow_kernel,
+// f32 FMA, one range of rows per thread group) for O <= 8; then
+// reduce_partials_kernel adds the partials in partial order.  wgrad_route(),
+// wgrad_chunks() and wgrad_run() are the host side.  No atomics: the split
+// depends only on the shape, so every run gives the same bits.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "tf32x3.cuh"
 
 namespace conv3x3_tiles {
 
@@ -102,92 +108,173 @@ __device__ __forceinline__ void store_tile(float* __restrict__ out, const float 
 
 // ---- weight gradient: dw[dd, tt, c, o] = sum_{b, d, t} x[b, d+dd-1, t+tt-1, c] g[b, d, t, o]
 
-constexpr int kBT = 32;              // time steps staged per pass
 constexpr int kTargetBlocks = 1024;  // blocks of the partial pass (chunks x tiles)
 constexpr int kReduceThreads = 256;
 
-// Each block: one chunk of freq rows (blockIdx.y) and one output tile (CT input
-// x BN output channels, all nine shifts); thread (dd, c group, o group) keeps
-// 3 shifts x 4 x 4 sums in registers.  Writes partial[chunk, 3, 3, C, O].
-template <int CT, int BN>
-__global__ void __launch_bounds__(3 * (CT / 4) * (BN / 4))
-conv3x3_wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                             float* __restrict__ partial, int D, int T, int C, int O, long BD,
-                             int rows_per_chunk) {
-  constexpr int kThreads = 3 * (CT / 4) * (BN / 4);
-  __shared__ __align__(16) float xs[3][kBT + 2][CT];
-  __shared__ __align__(16) float gs[kBT][BN];
+// Route "mma" (O > 8): the GEMM dw[(dd, tt, c), o] = sum_m x_shifted[m, c] g[m, o]
+// over the pixels m on the tensor cores in split TF32 (tf32x3.cuh).  A block
+// owns one chunk of freq rows and an output tile of kWgCT input channels x
+// kWgBN output channels x all nine shifts; 6 warps, warp (dd, m tile) holding
+// the 16 x 32 tiles of its three time shifts (3 x 4 m16n8 fragments).
+constexpr int kWgCT = 32;                 // input channels of a block: 2 m16 tiles
+constexpr int kWgBN = 32;                 // output channels of a block: 4 n8 tiles
+constexpr int kWgBT = 64;                 // time steps a stage: 8 k8 steps
+constexpr int kWgWarps = 6;               // (dd, m tile)
+constexpr int kWgThreads = kWgWarps * 32;
+constexpr int kWgXs = kWgCT + 4;          // padded stride of a staged time step of x
+constexpr int kWgGs = kWgBN + 4;          // padded stride of a staged time step of g
+constexpr int kWgXsFloats = 3 * (kWgBT + 2) * kWgXs;
+constexpr int kWgStageFloats = kWgXsFloats + kWgBT * kWgGs;
+constexpr int kWgStages = 2;
+constexpr int kWgSmemBytes = kWgStages * kWgStageFloats * (int)sizeof(float);
 
-  const int tiles_o = (O + BN - 1) / BN;
-  const int c0 = (blockIdx.x / tiles_o) * CT;
-  const int o0 = (blockIdx.x % tiles_o) * BN;
-  const int og = threadIdx.x % (BN / 4);
-  const int cg = (threadIdx.x / (BN / 4)) % (CT / 4);
-  const int dd = threadIdx.x / ((BN / 4) * (CT / 4));
+// One stage (freq row bd, time steps t0 .. t0 + kWgBT - 1) into shared memory
+// by cp.async: the x halo xs[r][j][c] = x[b, d + r - 1, t0 + j - 1, c0 + c]
+// and gs[j][o] = g[b, d, t0 + j, o0 + o], zeros outside the map, past T, C
+// and O.  VEC: 16-byte copies (C and O multiples of 4, x and g aligned).
+template <bool VEC>
+__device__ __forceinline__ void wgrad_stage(float* xs, float* gs, const float* __restrict__ x,
+                                            const float* __restrict__ g, long bd, int t0,
+                                            int c0, int o0, int D, int T, int C, int O) {
+  constexpr int kV = VEC ? 4 : 1;  // floats a copy
+  const int d = (int)(bd % D);
+  for (int e = threadIdx.x; e < 3 * (kWgBT + 2) * (kWgCT / kV); e += kWgThreads) {
+    const int c = (e % (kWgCT / kV)) * kV;
+    const int j = (e / (kWgCT / kV)) % (kWgBT + 2);
+    const int r = e / ((kWgCT / kV) * (kWgBT + 2));
+    const int dr = d + r - 1, t = t0 + j - 1, cc = c0 + c;
+    const bool valid = dr >= 0 && dr < D && t >= 0 && t < T && cc < C;
+    const float* src = valid ? x + ((bd + r - 1) * T + t) * (long)C + cc : x;
+    tf32x3::cp_async<4 * kV>(xs + (r * (kWgBT + 2) + j) * kWgXs + c, src, valid);
+  }
+  for (int e = threadIdx.x; e < kWgBT * (kWgBN / kV); e += kWgThreads) {
+    const int o = (e % (kWgBN / kV)) * kV;
+    const int j = e / (kWgBN / kV);
+    const int t = t0 + j, oo = o0 + o;
+    const bool valid = t < T && oo < O;
+    const float* src = valid ? g + (bd * T + t) * (long)O + oo : g;
+    tf32x3::cp_async<4 * kV>(gs + j * kWgGs + o, src, valid);
+  }
+}
+
+// One staged stage into a warp's fragments, from zero: part[s][nt] of shift
+// (dd = r, tt = s), channels c0 + 16 mt .. + 15 and output channels 8 nt ..
+// 8 nt + 7 of the block's tile.  The product's rows are channels, its
+// columns output channels and its k the stage's time steps.  Fragment
+// layouts of the PTX ISA, with g = lane / 4 and q = lane % 4:
+//   A (m16 x k8, row): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)
+//   B (k8 x n8, col): b0 (q, g), b1 (q + 4, g)
+// A k8 step's k = q and q + 4 stand for time steps 2q and 2q + 1 (A and B
+// agree, and the sum over k does not care which step each k is).  Shift tt
+// reads halo row tau + tt for time step tau, so the three shifts of a lane
+// need halo rows 2q .. 2q + 3 of its two channels: 8 values, split once and
+// used by all three.  Bank conflicts: none; a lane's reads fall on word
+// 36 (2q + i) + g (+ 8) of a stride of 36 floats, i.e. banks 8q + g (+ 4i).
+__device__ __forceinline__ void wgrad_mma_stage(const float* xs, const float* gs,
+                                                float (&part)[3][4][4], int r, int mt, int g,
+                                                int q) {
+#pragma unroll
+  for (int ks = 0; ks < kWgBT / 8; ++ks) {
+    const float* xr = xs + (r * (kWgBT + 2) + ks * 8 + 2 * q) * kWgXs + mt * 16 + g;
+    uint32_t xh[2][4], xl[2][4];  // [channel g, g + 8][halo row 2q + i]
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tf32x3::split_tf32(xr[i * kWgXs], xh[0][i], xl[0][i]);
+      tf32x3::split_tf32(xr[i * kWgXs + 8], xh[1][i], xl[1][i]);
+    }
+    const float* gr = gs + (ks * 8 + 2 * q) * kWgGs + g;
+    uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      tf32x3::split_tf32(gr[nt * 8], bh[nt][0], bl[nt][0]);
+      tf32x3::split_tf32(gr[kWgGs + nt * 8], bh[nt][1], bl[nt][1]);
+    }
+#pragma unroll
+    for (int s = 0; s < 3; ++s) {
+      const uint32_t ah[4] = {xh[0][s], xh[1][s], xh[0][s + 1], xh[1][s + 1]};
+      const uint32_t al[4] = {xl[0][s], xl[1][s], xl[0][s + 1], xl[1][s + 1]};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) tf32x3::mma_3xtf32(part[s][nt], ah, al, bh[nt], bl[nt]);
+    }
+  }
+}
+
+// Route "mma"'s pass 1: block (output tile blockIdx.x, chunk blockIdx.y)
+// walks the chunk's freq rows and their time tiles in order, each stage
+// staged by cp.async into a ring of two while the tensor cores work on the
+// other.  The tensor cores add into their accumulator with truncation, so
+// each stage's 64 time steps (24 products a fragment) go into `part` from
+// zero and `acc` adds the stages with round-to-nearest f32 adds.  Writes
+// partial[chunk, 3, 3, C, O] for the tile.  C/D fragment: d0 (g, 2q), d1
+// (g, 2q + 1), d2 (g + 8, 2q), d3 (g + 8, 2q + 1).
+template <bool VEC>
+__global__ void __launch_bounds__(kWgThreads, 2)
+conv3x3_wgrad_mma_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                         float* __restrict__ partial, int D, int T, int C, int O, long BD,
+                         int rows_per_chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const int tiles_o = (O + kWgBN - 1) / kWgBN;
+  const int c0 = (blockIdx.x / tiles_o) * kWgCT;
+  const int o0 = (blockIdx.x % tiles_o) * kWgBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = warp / 2, mt = warp % 2;
+  const int gl = lane / 4, q = lane % 4;
   const long row_begin = (long)blockIdx.y * rows_per_chunk;
   const long row_end = row_begin + rows_per_chunk < BD ? row_begin + rows_per_chunk : BD;
+  const int t_tiles = (T + kWgBT - 1) / kWgBT;
+  const int stages = (int)(row_end - row_begin) * t_tiles;
 
-  float acc[3][4][4];
+  float acc[3][4][4], part[3][4][4];
 #pragma unroll
   for (int s = 0; s < 3; ++s)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[s][i][j] = 0.0f;
+      for (int i = 0; i < 4; ++i) acc[s][nt][i] = 0.0f;
 
-  for (long bd = row_begin; bd < row_end; ++bd) {
-    const int d = (int)(bd % D);
-    for (int t0 = 0; t0 < T; t0 += kBT) {
-      // xs[r][j][c] = x[b, d + r - 1, t0 + j - 1, c0 + c]
-      for (int e = threadIdx.x; e < 3 * (kBT + 2) * CT; e += kThreads) {
-        const int c = e % CT;
-        const int j = (e / CT) % (kBT + 2);
-        const int r = e / (CT * (kBT + 2));
-        const int dr = d + r - 1, t = t0 + j - 1, cc = c0 + c;
-        float v = 0.0f;
-        if (dr >= 0 && dr < D && t >= 0 && t < T && cc < C)
-          v = __ldg(x + ((bd + r - 1) * T + t) * (long)C + cc);
-        xs[r][j][c] = v;
-      }
-      // gs[j][o] = g[b, d, t0 + j, o0 + o]
-      for (int e = threadIdx.x; e < kBT * BN; e += kThreads) {
-        const int o = e % BN;
-        const int j = e / BN;
-        const int t = t0 + j, oo = o0 + o;
-        gs[j][o] = (t < T && oo < O) ? __ldg(g + (bd * T + t) * (long)O + oo) : 0.0f;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int j = 0; j < kBT; ++j) {
-        const float4 gv = *reinterpret_cast<const float4*>(&gs[j][og * 4]);
-#pragma unroll
-        for (int s = 0; s < 3; ++s) {
-          const float4 xv = *reinterpret_cast<const float4*>(&xs[dd][j + s][cg * 4]);
-          const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[s][i][0] = fmaf(xa[i], gv.x, acc[s][i][0]);
-            acc[s][i][1] = fmaf(xa[i], gv.y, acc[s][i][1]);
-            acc[s][i][2] = fmaf(xa[i], gv.z, acc[s][i][2]);
-            acc[s][i][3] = fmaf(xa[i], gv.w, acc[s][i][3]);
-          }
-        }
-      }
-      __syncthreads();
+  wgrad_stage<VEC>(smem, smem + kWgXsFloats, x, g, row_begin, 0, c0, o0, D, T, C, O);
+  tf32x3::cp_async_commit();
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {
+      float* next = smem + ((st + 1) % kWgStages) * kWgStageFloats;
+      wgrad_stage<VEC>(next, next + kWgXsFloats, x, g, row_begin + (st + 1) / t_tiles,
+                       ((st + 1) % t_tiles) * kWgBT, c0, o0, D, T, C, O);
+      tf32x3::cp_async_commit();
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
     }
+    __syncthreads();
+    const float* cur = smem + (st % kWgStages) * kWgStageFloats;
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[s][nt][i] = 0.0f;
+    wgrad_mma_stage(cur, cur + kWgXsFloats, part, r, mt, gl, q);
+#pragma unroll
+    for (int s = 0; s < 3; ++s)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[s][nt][i] += part[s][nt][i];
+    __syncthreads();  // the next iteration's copies overwrite this stage
   }
 
   float* dst = partial + (size_t)blockIdx.y * 9 * C * O;
 #pragma unroll
   for (int s = 0; s < 3; ++s)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = c0 + cg * 4 + i;
+    for (int half = 0; half < 2; ++half) {
+      const int c = c0 + mt * 16 + gl + half * 8;
       if (c >= C) continue;
+      float* row = dst + ((long)(r * 3 + s) * C + c) * O;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int o = o0 + og * 4 + j;
-        if (o < O) dst[((long)(dd * 3 + s) * C + c) * O + o] = acc[s][i][j];
+      for (int nt = 0; nt < 4; ++nt) {
+        const int o = o0 + nt * 8 + 2 * q;
+        if (o < O) row[o] = acc[s][nt][2 * half];
+        if (o + 1 < O) row[o + 1] = acc[s][nt][2 * half + 1];
       }
     }
 }
@@ -280,25 +367,20 @@ inline cudaError_t reduce_partials(const float* partial, float* out, int parts, 
   return cudaGetLastError();
 }
 
-// The output tile (CT input x BN output channels) for O > 8 output channels
-// (conv3x3_wgrad_narrow_kernel takes O <= 8).
-inline void wgrad_tile_of(int O, int* ct, int* bn) {
-  *ct = 32;
-  *bn = O >= 32 ? 32 : 16;
-}
+// The route of a shape: 0 "narrow" (O <= 8, conv3x3_wgrad_narrow_kernel),
+// 1 "mma" (conv3x3_wgrad_mma_kernel).  By shape alone.
+inline int wgrad_route(int C, int O) { return O <= 8 ? 0 : 1; }
 
 // The number of partials (chunks or units of freq rows) for B*D = BD rows
 // (none empty).
 inline int wgrad_chunks(int C, int O, int BD) {
   if (C < 1 || O < 1 || BD < 1) return 1;
-  if (O <= 8) {
+  if (wgrad_route(C, O) == 0) {
     const int units = BD < kNarrowUnits ? BD : kNarrowUnits;
     const int rows = (BD + units - 1) / units;
     return (BD + rows - 1) / rows;
   }
-  int ct, bn;
-  wgrad_tile_of(O, &ct, &bn);
-  const int tiles = ((C + ct - 1) / ct) * ((O + bn - 1) / bn);
+  const int tiles = ((C + kWgCT - 1) / kWgCT) * ((O + kWgBN - 1) / kWgBN);
   int chunks = kTargetBlocks / tiles;
   if (chunks < 1) chunks = 1;
   if (chunks > BD) chunks = BD;
@@ -307,14 +389,20 @@ inline int wgrad_chunks(int C, int O, int BD) {
   return (BD + rows - 1) / rows;
 }
 
-template <int CT, int BN>
-cudaError_t launch_wgrad_partial(const float* x, const float* g, float* partial, int D, int T,
-                                 int C, int O, long BD, int chunks, int rows_per_chunk,
-                                 cudaStream_t stream) {
-  const int tiles = ((C + CT - 1) / CT) * ((O + BN - 1) / BN);
-  conv3x3_wgrad_partial_kernel<CT, BN><<<dim3(tiles, chunks), 3 * (CT / 4) * (BN / 4), 0,
-                                         stream>>>(x, g, partial, D, T, C, O, BD,
-                                                   rows_per_chunk);
+template <bool VEC>
+cudaError_t launch_wgrad_mma(const float* x, const float* g, float* partial, int D, int T, int C,
+                             int O, long BD, int chunks, int rows_per_chunk,
+                             cudaStream_t stream) {
+  // Above 48 KB needs the opt-in, set on every call: a flag remembering it
+  // would be a static of this inline function, which the dynamic linker
+  // shares between K3w's and K5b's libraries (STB_GNU_UNIQUE) while each
+  // library holds its own copy of the kernel.
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_wgrad_mma_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((C + kWgCT - 1) / kWgCT) * ((O + kWgBN - 1) / kWgBN);
+  conv3x3_wgrad_mma_kernel<VEC><<<dim3(tiles, chunks), kWgThreads, kWgSmemBytes, stream>>>(
+      x, g, partial, D, T, C, O, BD, rows_per_chunk);
   return cudaGetLastError();
 }
 
@@ -329,7 +417,8 @@ cudaError_t launch_wgrad_narrow(const float* x, const float* g, float* partial, 
 }
 
 // dw [3, 3, C, O] of x [B, D, T, C] and g [B, D, T, O], through scratch of
-// chunks * 9 * C * O floats; chunks (the partials) from wgrad_chunks().
+// chunks * 9 * C * O floats; chunks (the partials) from wgrad_chunks(), the
+// route from wgrad_route().
 inline cudaError_t wgrad_run(const float* x, const float* g, float* dw, float* scratch, int B,
                              int D, int T, int C, int O, int chunks, cudaStream_t stream) {
   if (B < 1 || D < 1 || T < 1 || C < 1 || O < 1 || chunks < 1 || chunks > 65535)
@@ -337,24 +426,20 @@ inline cudaError_t wgrad_run(const float* x, const float* g, float* dw, float* s
   const long BD = (long)B * D;
   const int rows_per_chunk = (int)((BD + chunks - 1) / chunks);
   if ((long)(chunks - 1) * rows_per_chunk >= BD) return cudaErrorInvalidValue;
-  if (O <= 8) {
-    const cudaError_t err =
-        O <= 4 ? launch_wgrad_narrow<4>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
-                                        stream)
-               : launch_wgrad_narrow<8>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
-                                        stream);
-    if (err != cudaSuccess) return err;
-    return reduce_partials(scratch, dw, chunks, 9L * C * O, stream);
-  }
-  int ct, bn;
-  wgrad_tile_of(O, &ct, &bn);
   cudaError_t err;
-  if (bn == 32)
-    err = launch_wgrad_partial<32, 32>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
-                                       stream);
-  else
-    err = launch_wgrad_partial<32, 16>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
-                                       stream);
+  if (wgrad_route(C, O) == 0) {
+    err = O <= 4 ? launch_wgrad_narrow<4>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
+                                          stream)
+                 : launch_wgrad_narrow<8>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
+                                          stream);
+  } else {
+    const bool vec = C % 4 == 0 && O % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
+    err = vec ? launch_wgrad_mma<true>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
+                                       stream)
+              : launch_wgrad_mma<false>(x, g, scratch, D, T, C, O, BD, chunks, rows_per_chunk,
+                                        stream);
+  }
   if (err != cudaSuccess) return err;
   return reduce_partials(scratch, dw, chunks, 9L * C * O, stream);
 }

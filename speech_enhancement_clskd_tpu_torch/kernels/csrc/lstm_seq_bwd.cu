@@ -1,5 +1,6 @@
-// LSTM sequence backward for Hopper (sm_90a): the time-reversed recurrence in
-// one launch, then dW_hh in a deterministic two-pass reduction.
+// LSTM sequence backward for Hopper (sm_90a): the gates in a parallel pass,
+// the time-reversed recurrence of dh and dc in one launch, then dW_hh in a
+// deterministic two-pass reduction.
 //
 // Replaces speech_enhancement_clskd_tpu/ops/pallas/lstm.py::_bwd_kernel
 // (reached through _lstm_bwd, the custom VJP of lstm_seq).  Same function:
@@ -13,37 +14,37 @@
 // and writes dxw[t] = dgates_t and dW_hh = sum_t h_{t-1}^T dgates_t, where
 // h_{-1}, c_{-1} are h0, c0.  All arithmetic is f32.
 //
-// What bounds it on this card.  As in the forward, step t needs dgates from
-// step t+1, so the T steps are one serial chain of small matrix-vector
-// products: per row and step H x 4H multiply-adds to recompute the gates and
-// as many for dh.  At the training step's shape (T=483, N=64, H=32) the bytes
-// (~44 MB) take ~13 us at 3.35 TB/s and the ~0.8 GFLOP (the dW_hh product
-// included) ~12 us at 67 TFLOP/s; the chain of 483 dependent steps, each two
-// block barriers long, sets the time (0.71 ms measured on an H100).  dW_hh is
-// a [H, T*N] x [T*N, 4H] product with no serial dependency.
+// What bounds it on this card.  Step t needs dgates from step t+1, so the T
+// steps are one serial chain: per row and step an H x 4H matrix-vector
+// product for dh.  At the spkd step's shape (T=5283, N=32, H=32) the bytes
+// (~240 MB) take 0.07 ms at 3.35 TB/s and the operations less; the chain of
+// 5283 dependent steps sets the time.  The first design of this kernel (one
+// thread a gate column, the gate recompute h_{t-1} @ W_hh inside every step,
+// W_hh read from shared memory twice a step, two block barriers a step) took
+// 1.34 us a step there (7.10 ms on an H100, cuDNN's LSTM backward 5.17 ms).
 //
 // Design.
-//   1. lstm_seq_bwd_rec_kernel: K1f's grid.  Tiles of ROWS batch rows, each
-//      block walking all of T in reverse; rows are independent, so no sum
-//      crosses blocks.  4H threads.  Per step:
-//        phase A (all threads): thread j recomputes gate column j from
-//          h_{t-1} (shared memory) and W_hh[:, j], and, as thread (q, k) with
-//          j = q*H + k, the part of (dgates_{t+1} @ W_hh^T)[:, k] over the
-//          gate columns of quarter q.  The two products are independent, so
-//          they run in the same phase.  __syncthreads.
-//        phase B (threads 0 .. ROWS*H-1, one per (row, unit)): sums the four
-//          quarter parts into dh, forms dc and the four gate gradients, keeps
-//          dc*f in a register for step t-1, writes dgates to shared memory and
-//          to dxw, and puts h_{t-2} into shared memory.  __syncthreads.
-//      The global loads of step t-1 (xw, dy, c_{t-2}, h_{t-3}) are issued at
-//      the start of step t, so their latency is off the chain.
-//   2. W_hh sits in shared memory with a row stride of 4H+1 floats.  Phase A
-//      reads it by column (thread j, row k: W[k][j]) and by row (thread k,
-//      column j: W[k][j]); with the odd stride both patterns are free of bank
-//      conflicts, so one copy serves both.  The student's W_hh (16 KB) fits
-//      whole.  The teacher's (256 KB) does not fit the 227 KB a block may
-//      hold: as in the forward, the rows that fit go to shared memory (110 of
-//      128 at one row per block) and the rest are read through L2 with __ldg.
+//   1. lstm_bwd_gates_kernel: the gates do not depend on the chain (only on
+//      xw, y and h0), so a parallel pass over all T*N rows computes them
+//      first, into a scratch act [T, N, 4H] (i, f, g, o after sigmoid or
+//      tanh): a block of 4H threads takes 32 rows, thread j sums
+//      h_{t-1} . W_hh[:, j] in one fmaf chain over k from 0 and adds xw, the
+//      order the recurrence used to take.
+//   2. lstm_seq_bwd_rec_kernel: the chain alone.  As in K1f (lstm_seq_fwd.cu)
+//      the four lanes of a unit share a warp: lane (u, q) holds W_hh[u, qH ..
+//      qH + H - 1] in registers for all T (plans with H <= 64) and sums its
+//      quarter of dgates_{t+1} @ W_hh^T[:, u] in one fmaf chain; the four
+//      parts meet by __shfl_sync and are added to dy[t] in quarter order, as
+//      the first design added them, so dh and everything after it are the
+//      same bits as before.  Every lane of the unit then forms dc (the carry
+//      dc * f stays in a register) and lane q its gate gradient, which goes
+//      to dxw and to shared memory for step t-1.  dgates live in two buffers
+//      chosen by the parity of t, so one __syncthreads a step orders the
+//      writes of step t before the reads of step t-1.  The gates, dy, c_t
+//      and c_{t-1} of step t-1 are loaded during step t, off the chain.
+//      Shared memory carries only dgates: a quarter row padded to KS*WPT +
+//      4 KS floats, so the float4 reads of a warp's four quarters fall on
+//      distinct banks.
 //   3. dW_hh.  The TPU kernel accumulated it into one block over a grid that
 //      ran in order; CUDA blocks run at the same time, so the sum is a second
 //      pass over the dxw already in device memory: lstm_dw_partial_kernel
@@ -51,177 +52,221 @@
 //      (h_{t-1} is y shifted by N rows, or h0), and writes its partial sum to
 //      scratch; lstm_dw_reduce_kernel adds the chunks in a fixed order.  No
 //      atomics: the result is the same bit for bit on every run.
+// Plans (KS, WPT), by shape alone (plan_of): H <= 32: (1, 32), 128 threads;
+// H <= 64: (1, 64); H <= 256: (1, 0), where W_hh (256 KB at H = 128) fits
+// neither one block's registers nor its shared memory: the lanes read it
+// through L2 from a transposed copy (lstm_transpose_kernel), so a warp's
+// loads are four 32-byte sectors.  No main path trains at H > 64 (the
+// teacher is frozen).  KS > 1 splits each quarter's sum over KS lanes and a
+// shuffle tree; scripts/lstm_cluster_sweep.py builds KS = 2 at H = 32 beside
+// the kernel's plan and measures both its time and chip_smoke.py phase 7's
+// card-vs-CPU check with it (PERF.md).
+//
+// Tolerance.  The nonlinearities are CUDA's expf and tanhf and the sums run
+// in another order than the plain version's matmuls, so dxw and dW_hh differ
+// from it by f32 rounding carried through the chain; chip_smoke.py holds them
+// to KERNEL_ATOL = 1e-4 at T up to 5283.
 //
 // Interface: plain C, bound with ctypes.  Pointers and the stream are passed as
 // void*; the return value is the first cudaGetLastError() after a launch.  The
 // caller allocates dxw [T, N, 4H], dW_hh [H, 4H] and the scratch of
-// ceil(T*N / chunk_rows) x H x 4H floats.
+// lstm_seq_bwd_scratch_floats(T, N, H, chunk_rows) floats: act [T*N, 4H], the
+// dW_hh partials [ceil(T*N / chunk_rows), H, 4H] and W_hh^T [4H, H].
+// lstm_seq_bwd_plan_of(H, ...) names the plan a width takes.
 
 #include "common.cuh"
 
 namespace {
 
-using lstm_common::kMaxDevices;
 using lstm_common::kMaxThreads;
 using lstm_common::sigmoid_f32;
 
 constexpr int kTile = 32;         // dW_hh tile (units x gate columns) and rows per stage
 constexpr int kDwThreads = 256;   // 32 columns x 8 groups of 4 units
 constexpr int kReduceThreads = 256;
+constexpr int kGateRows = 32;     // rows of the T*N axis a block of the gate pass
 
-// h_{s-1} and c_{s-1} of step s for one (row, unit): the forward's outputs at
-// s-1, or the initial state (zeros when absent) at s = 0.
-__device__ __forceinline__ float prev_of(const float* __restrict__ seq,
-                                         const float* __restrict__ init, int s, int N,
-                                         int H, int row, int u) {
-  if (s >= 1) return __ldg(seq + ((size_t)(s - 1) * N + row) * H + u);
-  return init != nullptr ? __ldg(init + (size_t)row * H + u) : 0.0f;
+// act[m][j] = sigmoid or tanh of xw[m][j] + h_prev[m] . W_hh[:, j] for the
+// rows m = t*N + n, with h_prev[m] = y[m - N] for m >= N and h0[m] (or zeros)
+// below.  4H threads, kGateRows rows a block.
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_bwd_gates_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh,
+                      const float* __restrict__ y, const float* __restrict__ h0,
+                      float* __restrict__ act, long M, int N, int H) {
+  extern __shared__ float hs[];  // [kGateRows, H]: h_prev of the block's rows
+  const int G = 4 * H;
+  const int j = threadIdx.x;
+  const long m0 = (long)blockIdx.x * kGateRows;
+  for (int idx = j; idx < kGateRows * H; idx += blockDim.x) {
+    const int r = idx / H, k = idx - r * H;
+    const long m = m0 + r;
+    float v = 0.0f;
+    if (m < M)
+      v = m >= N ? __ldg(y + (m - N) * H + k) : (h0 != nullptr ? __ldg(h0 + m * H + k) : 0.0f);
+    hs[idx] = v;
+  }
+  __syncthreads();
+  float acc[kGateRows];
+#pragma unroll
+  for (int r = 0; r < kGateRows; ++r) acc[r] = 0.0f;
+  for (int k = 0; k < H; ++k) {
+    const float w = __ldg(w_hh + (size_t)k * G + j);
+#pragma unroll
+    for (int r = 0; r < kGateRows; ++r) acc[r] = fmaf(hs[r * H + k], w, acc[r]);
+  }
+  const bool tanh_col = j >= 2 * H && j < 3 * H;
+#pragma unroll
+  for (int r = 0; r < kGateRows; ++r) {
+    const long m = m0 + r;
+    if (m >= M) break;
+    const float v = __ldg(xw + m * G + j) + acc[r];
+    act[m * G + j] = tanh_col ? tanhf(v) : sigmoid_f32(v);
+  }
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_seq_bwd_rec_kernel(const float* __restrict__ xw, const float* __restrict__ w_hh,
-                        const float* __restrict__ y, const float* __restrict__ c,
-                        const float* __restrict__ dy, const float* __restrict__ h0,
-                        const float* __restrict__ c0, float* __restrict__ dxw, int T,
-                        int N, int H, int w_rows_smem) {
-  extern __shared__ float smem[];
+// wt[j][u] = W_hh[u][j], for the plan that reads W_hh through L2.
+__global__ void __launch_bounds__(256)
+lstm_transpose_kernel(const float* __restrict__ w_hh, float* __restrict__ wt, int H) {
   const int G = 4 * H;
-  const int ws = G + 1;                             // padded row stride of W_hh
-  float* w_s = smem;                                // [w_rows_smem, G + 1]
-  float* hp_s = w_s + (size_t)w_rows_smem * ws;     // [ROWS, H]  h_{t-1}
-  float* g_s = hp_s + ROWS * H;                     // [ROWS, G]  gates of step t
-  float* dg_s = g_s + ROWS * G;                     // [ROWS, G]  dgates of step t+1
-  float* p_s = dg_s + ROWS * G;                     // [4, ROWS, H] parts of dh
-  const int j = threadIdx.x;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= H * G) return;
+  const int j = idx / H, u = idx - j * H;
+  wt[idx] = w_hh[(size_t)u * G + j];
+}
+
+// A plan: KS lanes a quarter (gate), WPT weights a lane in registers (0: read
+// W_hh^T through L2).
+template <int KS, int WPT>
+struct BwdPlan {
+  static constexpr int kGL = 4 * KS;     // lanes of one unit
+  static constexpr int kUpw = 32 / kGL;  // units a warp
+  static_assert(kGL <= 32 && 32 % kGL == 0, "a unit's lanes share a warp");
+  static_assert(WPT % 4 == 0, "slices read dgates as float4s");
+  static_assert(WPT > 0 || KS == 1, "the L2 plan takes one lane a quarter");
+  // padded stride of one quarter row of dgates in shared memory (runtime H
+  // for the L2 plan)
+  static int qs(int H) { return WPT > 0 ? KS * WPT + 4 * KS : H + 4; }
+  static int threads(int H) { return ((H + kUpw - 1) / kUpw) * 32; }
+};
+
+// c_{s-1} of step s for one (row, unit): the forward's c at s-1, or c0 (zeros
+// when absent) at s = 0.
+__device__ __forceinline__ float c_prev(const float* __restrict__ c,
+                                        const float* __restrict__ c0, int s, int N, int H,
+                                        int row, int u) {
+  if (s >= 1) return __ldg(c + ((size_t)(s - 1) * N + row) * H + u);
+  return c0 != nullptr ? __ldg(c0 + (size_t)row * H + u) : 0.0f;
+}
+
+// Register plans have at most 4 KS^2 WPT threads (H <= KS WPT units of 4 KS
+// lanes), so their bound leaves room for the WPT weights a lane.
+template <int KS, int WPT, int ROWS>
+__global__ void __launch_bounds__(WPT > 0 ? 4 * KS * KS * WPT : kMaxThreads)
+lstm_seq_bwd_rec_kernel(const float* __restrict__ act, const float* __restrict__ w_hh,
+                        const float* __restrict__ wt, const float* __restrict__ c,
+                        const float* __restrict__ dy, const float* __restrict__ c0,
+                        float* __restrict__ dxw, int T, int N, int H, int QS) {
+  using PL = BwdPlan<KS, WPT>;
+  extern __shared__ float4 dg4[];  // [2][ROWS][4][QS]: dgates by parity of t
+  float* dgs = reinterpret_cast<float*>(dg4);
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int u = tid / PL::kGL;           // unit
+  const int q = (tid % PL::kGL) / KS;    // gate: i, f, g, o
+  const int kk = tid % KS;               // slice of the quarter
+  const int base = lane - lane % PL::kGL;  // lane of (gate i, slice 0) of the unit
+  const bool unit_ok = u < H;
+  const int G = 4 * H;
   const int row0 = blockIdx.x * ROWS;
+  const int buf = ROWS * 4 * QS;
 
-  for (int idx = j; idx < w_rows_smem * G; idx += blockDim.x) {
-    const int k = idx / G;
-    w_s[k * ws + (idx - k * G)] = w_hh[idx];
-  }
-  for (int idx = j; idx < ROWS * G; idx += blockDim.x) dg_s[idx] = 0.0f;
-
-  // phase A's second product: quarter q of the gate columns, unit kq
-  const int q = j / H;
-  const int kq = j - q * H;
-  const bool tanh_col = (j >= 2 * H) && (j < 3 * H);
-  // phase B: the (row, unit) pair this thread owns
-  const bool owner = j < ROWS * H;
-  const int ur = j / H;
-  const int uu = j - ur * H;
-  const int urow = row0 + ur;
-  const bool valid = owner && urow < N;
-
-  // owner registers: c_t, dc carried from step t+1, this step's dy and
-  // c_{t-1}, and h_{t-2} (written to shared memory at the end of step t)
-  float c_t = 0.0f, dc_carry = 0.0f, dy_cur = 0.0f, cp_cur = 0.0f, hp_cur = 0.0f;
-  if (valid) {
-    hp_s[j] = prev_of(y, h0, T - 1, N, H, urow, uu);
-    c_t = __ldg(c + ((size_t)(T - 1) * N + urow) * H + uu);
-    dy_cur = __ldg(dy + ((size_t)(T - 1) * N + urow) * H + uu);
-    cp_cur = prev_of(c, c0, T - 1, N, H, urow, uu);
-    if (T >= 2) hp_cur = prev_of(y, h0, T - 2, N, H, urow, uu);
-  } else if (owner) {
-    hp_s[j] = 0.0f;
-  }
-  float xn[ROWS];
+  // W_hh[u, qH + jj] for this lane's jj = 4 (kk + KS i) + e
+  float w[WPT > 0 ? WPT : 1];
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-    xn[r] = (row0 + r < N) ? __ldg(xw + ((size_t)(T - 1) * N + row0 + r) * G + j) : 0.0f;
+  for (int i = 0; i < WPT / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int jj = 4 * (kk + KS * i) + e;
+      w[4 * i + e] = (unit_ok && jj < H) ? __ldg(w_hh + (size_t)u * G + q * H + jj) : 0.0f;
+    }
+  for (int idx = tid; idx < 2 * buf; idx += blockDim.x) dgs[idx] = 0.0f;
+
+  bool ok[ROWS];
+  float a_n[ROWS], dy_n[ROWS], c_t[ROWS], cp_n[ROWS], carry[ROWS];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const int row = row0 + r;
+    ok[r] = unit_ok && row < N;
+    const size_t o = ((size_t)(T - 1) * N + row) * H + u;
+    a_n[r] = ok[r] ? __ldg(act + ((size_t)(T - 1) * N + row) * G + q * H + u) : 0.0f;
+    dy_n[r] = ok[r] ? __ldg(dy + o) : 0.0f;
+    c_t[r] = ok[r] ? __ldg(c + o) : 0.0f;
+    cp_n[r] = ok[r] ? c_prev(c, c0, T - 1, N, H, row, u) : 0.0f;
+    carry[r] = 0.0f;
+  }
   __syncthreads();
 
   for (int t = T - 1; t >= 0; --t) {
-    // ---- phase A
-    float xcur[ROWS], acc[ROWS], part[ROWS];
+    const float* dgp = dgs + ((t + 1) & 1) * buf;  // dgates of step t+1
+    float* dgc = dgs + (t & 1) * buf;              // dgates of step t
+    float a_c[ROWS], dy_c[ROWS], cp_c[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      xcur[r] = xn[r];
-      acc[r] = 0.0f;
-      part[r] = 0.0f;
-    }
-    float dy_nx = 0.0f, cp_nx = 0.0f, hp_nx = 0.0f;
-    if (t >= 1) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        xn[r] = (row0 + r < N) ? __ldg(xw + ((size_t)(t - 1) * N + row0 + r) * G + j) : 0.0f;
-      if (valid) {
-        dy_nx = __ldg(dy + ((size_t)(t - 1) * N + urow) * H + uu);
-        cp_nx = prev_of(c, c0, t - 1, N, H, urow, uu);
-        if (t >= 2) hp_nx = prev_of(y, h0, t - 2, N, H, urow, uu);
-      }
-    }
-    // gate column j of step t: h_{t-1} . W_hh[:, j]
-#pragma unroll 4
-    for (int k = 0; k < w_rows_smem; ++k) {
-      const float w = w_s[k * ws + j];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(hp_s[r * H + k], w, acc[r]);
-    }
-#pragma unroll 4
-    for (int k = w_rows_smem; k < H; ++k) {
-      const float w = __ldg(w_hh + (size_t)k * G + j);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) acc[r] = fmaf(hp_s[r * H + k], w, acc[r]);
-    }
-    // quarter q's part of dgates_{t+1} . W_hh[kq, :]
-    const int j0 = q * H;
-    if (kq < w_rows_smem) {
-      const float* wrow = w_s + kq * ws;
-#pragma unroll 4
-      for (int jj = j0; jj < j0 + H; ++jj) {
-        const float w = wrow[jj];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) part[r] = fmaf(dg_s[r * G + jj], w, part[r]);
-      }
-    } else {
-      const float* wrow = w_hh + (size_t)kq * G;
-#pragma unroll 4
-      for (int jj = j0; jj < j0 + H; ++jj) {
-        const float w = __ldg(wrow + jj);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) part[r] = fmaf(dg_s[r * G + jj], w, part[r]);
+      a_c[r] = a_n[r];
+      dy_c[r] = dy_n[r];
+      cp_c[r] = cp_n[r];
+      if (t >= 1 && ok[r]) {  // step t-1's inputs, off the chain
+        const int row = row0 + r;
+        a_n[r] = __ldg(act + ((size_t)(t - 1) * N + row) * G + q * H + u);
+        dy_n[r] = __ldg(dy + ((size_t)(t - 1) * N + row) * H + u);
+        cp_n[r] = c_prev(c, c0, t - 1, N, H, row, u);
       }
     }
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      const float v = xcur[r] + acc[r];
-      g_s[r * G + j] = tanh_col ? tanhf(v) : sigmoid_f32(v);
-      p_s[(q * ROWS + r) * H + kq] = part[r];
-    }
-    __syncthreads();
-
-    // ---- phase B
-    if (owner) {
-      const float* g = g_s + ur * G;
-      const float gi = g[uu], gf = g[H + uu], gg = g[2 * H + uu], go = g[3 * H + uu];
-      float dh = dy_cur;
+      // quarter q's part of dgates_{t+1} . W_hh[u, :]
+      const float* dq = dgp + (r * 4 + q) * QS;
+      float part = 0.0f;
+      if constexpr (WPT > 0) {
+        const float4* d4 = reinterpret_cast<const float4*>(dq);
 #pragma unroll
-      for (int qq = 0; qq < 4; ++qq) dh += p_s[(qq * ROWS + ur) * H + uu];
-      const float tc = tanhf(c_t);
+        for (int i = 0; i < WPT / 4; ++i) {
+          const float4 dv = d4[kk + KS * i];
+          part = fmaf(dv.x, w[4 * i + 0], part);
+          part = fmaf(dv.y, w[4 * i + 1], part);
+          part = fmaf(dv.z, w[4 * i + 2], part);
+          part = fmaf(dv.w, w[4 * i + 3], part);
+        }
+#pragma unroll
+        for (int off = KS / 2; off > 0; off /= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
+      } else {
+        const float* wq = wt + (size_t)q * H * H + (unit_ok ? u : 0);
+#pragma unroll 4
+        for (int jj = 0; jj < H; ++jj) part = fmaf(dq[jj], __ldg(wq + (size_t)jj * H), part);
+      }
+      // dh = dy + the four parts in quarter order, then the gate gradients
+      float dh = dy_c[r];
+      dh += __shfl_sync(0xffffffffu, part, base);
+      dh += __shfl_sync(0xffffffffu, part, base + KS);
+      dh += __shfl_sync(0xffffffffu, part, base + 2 * KS);
+      dh += __shfl_sync(0xffffffffu, part, base + 3 * KS);
+      const float gi = __shfl_sync(0xffffffffu, a_c[r], base);
+      const float gf = __shfl_sync(0xffffffffu, a_c[r], base + KS);
+      const float gg = __shfl_sync(0xffffffffu, a_c[r], base + 2 * KS);
+      const float go = __shfl_sync(0xffffffffu, a_c[r], base + 3 * KS);
+      const float tc = tanhf(c_t[r]);
       const float do_lin = dh * tc * go * (1.0f - go);
-      const float dc = dh * go * (1.0f - tc * tc) + dc_carry;
+      const float dc = dh * go * (1.0f - tc * tc) + carry[r];
       const float di_lin = dc * gg * gi * (1.0f - gi);
       const float dg_lin = dc * gi * (1.0f - gg * gg);
-      const float df_lin = dc * cp_cur * gf * (1.0f - gf);
-      dc_carry = dc * gf;
-      float* d = dg_s + ur * G;
-      d[uu] = di_lin;
-      d[H + uu] = df_lin;
-      d[2 * H + uu] = dg_lin;
-      d[3 * H + uu] = do_lin;
-      if (valid) {
-        float* o = dxw + ((size_t)t * N + urow) * G;
-        o[uu] = di_lin;
-        o[H + uu] = df_lin;
-        o[2 * H + uu] = dg_lin;
-        o[3 * H + uu] = do_lin;
+      const float df_lin = dc * cp_c[r] * gf * (1.0f - gf);
+      carry[r] = dc * gf;
+      c_t[r] = cp_c[r];
+      if (kk == 0 && unit_ok) {
+        const float v = q == 0 ? di_lin : q == 1 ? df_lin : q == 2 ? dg_lin : do_lin;
+        dgc[(r * 4 + q) * QS + u] = v;
+        if (ok[r]) dxw[((size_t)t * N + row0 + r) * G + q * H + u] = v;
       }
-      if (t >= 1) hp_s[j] = hp_cur;
-      c_t = cp_cur;
-      dy_cur = dy_nx;
-      cp_cur = cp_nx;
-      hp_cur = hp_nx;
     }
     __syncthreads();
   }
@@ -290,33 +335,93 @@ lstm_dw_reduce_kernel(const float* __restrict__ partial, float* __restrict__ dw,
   dw[idx] = s;
 }
 
-template <int ROWS>
-cudaError_t launch_rec(const float* xw, const float* w_hh, const float* y, const float* c,
-                       const float* dy, const float* h0, const float* c0, float* dxw, int T,
-                       int N, int H, int dev, int max_smem, cudaStream_t stream) {
-  static std::atomic<bool> smem_allowed[kMaxDevices];
-  if (!smem_allowed[dev]) {
-    cudaError_t err = cudaFuncSetAttribute(lstm_seq_bwd_rec_kernel<ROWS>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           max_smem);
-    if (err != cudaSuccess) return err;
-    smem_allowed[dev] = true;
-  }
-  // W_hh rows that fit beside h, the gates, dgates and the dh parts go to
-  // shared memory at the padded stride; the rest are read through L2.
-  const long G = 4L * H;
-  const long fixed = (long)ROWS * (H + 3 * G) * (long)sizeof(float);
-  long w_rows = (max_smem - fixed) / ((G + 1) * (long)sizeof(float));
-  if (w_rows < 0) w_rows = 0;
-  if (w_rows > H) w_rows = H;
-  const int smem_bytes = (int)(fixed + w_rows * (G + 1) * (long)sizeof(float));
-  const int blocks = (N + ROWS - 1) / ROWS;
-  lstm_seq_bwd_rec_kernel<ROWS><<<blocks, 4 * H, smem_bytes, stream>>>(
-      xw, w_hh, y, c, dy, h0, c0, dxw, T, N, H, (int)w_rows);
+template <int KS, int WPT, int ROWS>
+cudaError_t launch_rec(const float* act, const float* w_hh, const float* wt, const float* c,
+                       const float* dy, const float* c0, float* dxw, int T, int N, int H,
+                       cudaStream_t stream) {
+  using PL = BwdPlan<KS, WPT>;
+  if (H < 1 || (WPT > 0 && H > KS * WPT) || 4 * H > kMaxThreads) return cudaErrorInvalidValue;
+  const int qs = PL::qs(H);
+  const int smem = 2 * ROWS * 4 * qs * (int)sizeof(float);
+  lstm_seq_bwd_rec_kernel<KS, WPT, ROWS><<<(N + ROWS - 1) / ROWS, PL::threads(H), smem, stream>>>(
+      act, w_hh, wt, c, dy, c0, dxw, T, N, H, qs);
   return cudaGetLastError();
 }
 
+// The scratch's parts: act [M, 4H], the dW_hh partials [chunks, H, 4H] and
+// W_hh^T [4H, H].
+long scratch_floats(long M, int H, int chunks) {
+  const long HG = 4L * H * H;
+  return M * 4 * H + (long)chunks * HG + HG;
+}
+
+// The whole backward with plan (KS, WPT) at `rows` batch rows a block.
+template <int KS, int WPT>
+cudaError_t run_plan(int rows, const float* xw, const float* w_hh, const float* y,
+                     const float* c, const float* dy, const float* h0, const float* c0,
+                     float* dxw, float* dw, float* scratch, int T, int N, int H,
+                     int chunk_rows, cudaStream_t s) {
+  const long M = (long)T * N;
+  const int G = 4 * H;
+  const int chunks = (int)((M + chunk_rows - 1) / chunk_rows);
+  float* act = scratch;
+  float* part = act + M * G;
+  float* wt = part + (long)chunks * H * G;
+  lstm_bwd_gates_kernel<<<(unsigned)((M + kGateRows - 1) / kGateRows), G,
+                          kGateRows * H * (int)sizeof(float), s>>>(xw, w_hh, y, h0, act, M, N,
+                                                                   H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (WPT == 0) {
+    lstm_transpose_kernel<<<(H * G + 255) / 256, 256, 0, s>>>(w_hh, wt, H);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  switch (rows) {
+    case 1: err = launch_rec<KS, WPT, 1>(act, w_hh, wt, c, dy, c0, dxw, T, N, H, s); break;
+    case 2: err = launch_rec<KS, WPT, 2>(act, w_hh, wt, c, dy, c0, dxw, T, N, H, s); break;
+    case 4: err = launch_rec<KS, WPT, 4>(act, w_hh, wt, c, dy, c0, dxw, T, N, H, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  const int tiles = ((H + kTile - 1) / kTile) * ((G + kTile - 1) / kTile);
+  lstm_dw_partial_kernel<<<dim3(tiles, chunks), kDwThreads, 0, s>>>(y, h0, dxw, part, T, N, H,
+                                                                    chunk_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int HG = H * G;
+  lstm_dw_reduce_kernel<<<(HG + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
+      part, dw, chunks, HG);
+  return cudaGetLastError();
+}
+
+// The plans: (KS, WPT) by width (plan_of).
+struct PlanInfo {
+  int ks, wpt;
+};
+constexpr PlanInfo kPlans[] = {
+    {1, 32},  // 0: H <= 32
+    {1, 64},  // 1: H <= 64
+    {1, 0},   // 2: H <= 256, W_hh^T through L2
+};
+
+int plan_of(int H) { return H <= 32 ? 0 : H <= 64 ? 1 : 2; }
+
 }  // namespace
+
+extern "C" int lstm_seq_bwd_plan_of(int H, int* plan, int* ks, int* wpt) {
+  if (H < 1 || 4 * H > kMaxThreads) return (int)cudaErrorInvalidValue;
+  *plan = plan_of(H);
+  *ks = kPlans[*plan].ks;
+  *wpt = kPlans[*plan].wpt;
+  return 0;
+}
+
+extern "C" long lstm_seq_bwd_scratch_floats(int T, int N, int H, int chunk_rows) {
+  if (T < 1 || N < 1 || H < 1 || chunk_rows < 1) return 0;
+  const long M = (long)T * N;
+  return scratch_floats(M, H, (int)((M + chunk_rows - 1) / chunk_rows));
+}
 
 extern "C" int lstm_seq_bwd(const void* xw, const void* w_hh, const void* y, const void* c,
                             const void* dy, const void* h0, const void* c0, void* dxw,
@@ -336,25 +441,18 @@ extern "C" int lstm_seq_bwd(const void* xw, const void* w_hh, const void* y, con
   const float* ci = static_cast<const float*>(c0);
   float* dx = static_cast<float*>(dxw);
   float* dw = static_cast<float*>(dw_hh);
-  float* part = static_cast<float*>(scratch);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (lstm_common::rows_per_block(N, sms)) {
-    case 1: err = launch_rec<1>(a, w, yo, co, d, hi, ci, dx, T, N, H, dev, max_smem, s); break;
-    case 2: err = launch_rec<2>(a, w, yo, co, d, hi, ci, dx, T, N, H, dev, max_smem, s); break;
-    default: err = launch_rec<4>(a, w, yo, co, d, hi, ci, dx, T, N, H, dev, max_smem, s);
+  const int rows = lstm_common::rows_per_block(N, sms);
+  switch (plan_of(H)) {
+    case 0:
+      return (int)run_plan<1, 32>(rows, a, w, yo, co, d, hi, ci, dx, dw, sc, T, N, H, chunk_rows,
+                                  s);
+    case 1:
+      return (int)run_plan<1, 64>(rows, a, w, yo, co, d, hi, ci, dx, dw, sc, T, N, H, chunk_rows,
+                                  s);
+    default:
+      return (int)run_plan<1, 0>(rows, a, w, yo, co, d, hi, ci, dx, dw, sc, T, N, H, chunk_rows,
+                                 s);
   }
-  if (err != cudaSuccess) return (int)err;
-
-  const long M = (long)T * N;
-  const int chunks = (int)((M + chunk_rows - 1) / chunk_rows);
-  const int G = 4 * H;
-  const int tiles = ((H + kTile - 1) / kTile) * ((G + kTile - 1) / kTile);
-  lstm_dw_partial_kernel<<<dim3(tiles, chunks), kDwThreads, 0, s>>>(yo, hi, dx, part, T, N, H,
-                                                                    chunk_rows);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int HG = H * G;
-  lstm_dw_reduce_kernel<<<(HG + kReduceThreads - 1) / kReduceThreads, kReduceThreads, 0, s>>>(
-      part, dw, chunks, HG);
-  return (int)cudaGetLastError();
 }

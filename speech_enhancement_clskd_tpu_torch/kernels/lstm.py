@@ -16,7 +16,9 @@ without a state).
   or raise; nothing falls back.  The sources' head notes say what bounds each
   kernel on the H100 and how its design answers that.
 - On a CPU tensor they run ``lstm_seq_reference`` and
-  ``lstm_seq_bwd_reference``, plain time loops.
+  ``lstm_seq_bwd_reference``, plain time loops; the latter first computes the
+  gates of every step with ``lstm_bwd_gates_reference``, the plain version
+  of the backward kernel's gate pass.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from . import _build, check_tensors
 FWD_SOURCE = "lstm_seq_fwd.cu"
 BWD_SOURCE = "lstm_seq_bwd.cu"
 SOURCES = (FWD_SOURCE, BWD_SOURCE)
-MAX_GATES = 1024  # 4H: the forward's plans take H <= 256, the backward one thread a column
+MAX_GATES = 1024  # 4H: both kernels' plans take H <= 256
 # rows of the T*N axis per block of the backward's dW_hh pass; the scratch
 # holds one [H, 4H] partial per chunk (grid.y allows at most 65535 chunks)
 DW_CHUNK_ROWS = 512
@@ -63,6 +65,27 @@ def lstm_seq_reference(
 
 
 @torch.no_grad()
+def lstm_bwd_gates_reference(
+    xw: torch.Tensor,
+    w_hh: torch.Tensor,
+    y: torch.Tensor,
+    h0: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel's gate pass: the gates of
+    every step from the forward's inputs and outputs, ``[T, N, 4H]`` in order
+    (i, f, g, o) after their sigmoid or tanh: ``xw[t] + h_{t-1} @ W_hh`` with
+    ``h_{t-1} = y[t-1]`` (``h0``, or zeros, at t = 0).  None of it depends on
+    the backward's serial chain."""
+    H = xw.shape[-1] // 4
+    zeros = xw.new_zeros(1, xw.shape[1], H)
+    h_prev = torch.cat([zeros if h0 is None else h0[None], y[:-1]])
+    gates = xw + h_prev @ w_hh
+    i, f, g, o = gates.split(H, dim=-1)
+    return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)],
+                     dim=-1)
+
+
+@torch.no_grad()
 def lstm_seq_bwd_reference(
     xw: torch.Tensor,
     w_hh: torch.Tensor,
@@ -72,12 +95,14 @@ def lstm_seq_bwd_reference(
     h0: Optional[torch.Tensor] = None,
     c0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch reverse time loop computing what the backward kernel
-    computes, step by step as the Pallas ``_bwd_kernel`` does: recompute the
-    gates from h_{t-1}, c_{t-1}; dh = dy_t + dgates_{t+1} @ W_hh^T; dc carried
-    through f; dxw[t] = dgates_t; dW_hh += h_{t-1}^T @ dgates_t."""
+    """Plain PyTorch version of what the backward kernel computes: the gates
+    of every step first (``lstm_bwd_gates_reference``), then the reverse time
+    loop, as the Pallas ``_bwd_kernel`` does it step by step: dh = dy_t +
+    dgates_{t+1} @ W_hh^T; dc carried through f; dxw[t] = dgates_t; dW_hh +=
+    h_{t-1}^T @ dgates_t."""
     T, N, G = xw.shape
     H = G // 4
+    act = lstm_bwd_gates_reference(xw, w_hh, y, h0)
     zeros = xw.new_zeros(1, N, H)
     h_prev = torch.cat([zeros if h0 is None else h0[None], y[:-1]])
     c_prev = torch.cat([zeros if c0 is None else c0[None], c[:-1]])
@@ -86,11 +111,7 @@ def lstm_seq_bwd_reference(
     dw_hh = torch.zeros_like(w_hh)
     dxw = torch.empty_like(xw)
     for t in reversed(range(T)):
-        gates = xw[t] + h_prev[t] @ w_hh
-        i = torch.sigmoid(gates[:, :H])
-        f = torch.sigmoid(gates[:, H:2 * H])
-        g = torch.tanh(gates[:, 2 * H:3 * H])
-        o = torch.sigmoid(gates[:, 3 * H:])
+        i, f, g, o = act[t].split(H, dim=-1)
         tc = torch.tanh(c[t])
         dh = dy[t] + dh_next
         do_lin = dh * tc * o * (1 - o)
@@ -133,6 +154,10 @@ def _library(source: str) -> ctypes.CDLL:
     else:
         lib.lstm_seq_bwd.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
         lib.lstm_seq_bwd.restype = i32
+        lib.lstm_seq_bwd_scratch_floats.argtypes = [i32] * 4
+        lib.lstm_seq_bwd_scratch_floats.restype = ctypes.c_long
+        lib.lstm_seq_bwd_plan_of.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+        lib.lstm_seq_bwd_plan_of.restype = i32
     return lib
 
 
@@ -192,11 +217,12 @@ def lstm_seq_bwd(
         return lstm_seq_bwd_reference(xw, w_hh, y, c, dy, h0, c0)
     H = G // 4
     chunk_rows = max(DW_CHUNK_ROWS, -(-T * N // MAX_DW_CHUNKS))
-    chunks = -(-T * N // chunk_rows)
     lib = _library(BWD_SOURCE)
     dxw = torch.empty_like(xw)
     dw_hh = torch.empty_like(w_hh)
-    scratch = torch.empty(chunks, H, G, device=xw.device, dtype=torch.float32)
+    # the gates of every step, the dW_hh partials and W_hh^T
+    scratch = torch.empty(lib.lstm_seq_bwd_scratch_floats(T, N, H, chunk_rows),
+                          device=xw.device, dtype=torch.float32)
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
         err = lib.lstm_seq_bwd(_ptr(xw), _ptr(w_hh), _ptr(y), _ptr(c), _ptr(dy), _ptr(h0),
@@ -209,6 +235,17 @@ def lstm_seq_bwd(
 
 
 lstm_seq_bwd.launches = 0
+
+
+def lstm_seq_bwd_plan(H: int) -> dict:
+    """The plan K1b takes for width H, as its C entry chooses it: lanes a
+    gate quarter ``KS`` and W_hh weights a lane in registers ``WPT`` (0: read
+    through L2).  Asks the built library, so it needs the CUDA toolkit."""
+    out = [ctypes.c_int() for _ in range(3)]
+    err = _library(BWD_SOURCE).lstm_seq_bwd_plan_of(H, *(ctypes.byref(v) for v in out))
+    if err != 0:
+        raise RuntimeError(f"lstm_seq_bwd_plan_of failed: CUDA error {err}")
+    return dict(zip(("plan", "KS", "WPT"), (v.value for v in out)))
 
 
 class _LSTMSeq(torch.autograd.Function):

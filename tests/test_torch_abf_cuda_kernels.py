@@ -30,11 +30,13 @@ from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
     conv3x3_reference,
     conv3x3_wgrad,
     conv3x3_wgrad_reference,
+    conv3x3_wgrad_route,
 )
 
 pytestmark = pytest.mark.cuda
 
-# f32 FMA both sides, sums in another order.  Maps by max abs error; the
+# f32 both sides (the kernels' tensor-core routes in split TF32, within f32
+# rounding of an f32 sum), sums in another order.  Maps by max abs error; the
 # parameter gradients, sums over every row, by relative L2 error.
 ATOL = 1e-4
 REL_L2 = 1e-4
@@ -251,3 +253,41 @@ def test_block_kernel_rejects_too_wide(cuda):
     kw, _, _ = _block_inputs((True, 1, 2, 1, 3, 65, 8, 4), 0, cuda)
     with pytest.raises(ValueError, match="abf_block_dispatchable"):
         abf_block_fwd(**kw)
+
+
+# K3w by route (B, D, T, C, O, route): each distinct wgrad shape of the
+# kernel-config step at batch 32 (x has the mid C = 64 channels, g a teacher
+# tap's O), then ragged ones: D = 1, T = 1, C = 2 and 6 and O = 10 (4-byte
+# copies), O = 12 (16-byte copies, a ragged output tile), O = 9 (the least
+# O on route "mma") and O = 8, 7 on route "narrow"
+K3W_STEP_SHAPES = [(32, 4, 483, 64, 256, "mma"), (32, 8, 483, 64, 256, "mma"),
+                   (32, 16, 483, 64, 256, "mma"), (32, 32, 483, 64, 128, "mma"),
+                   (32, 64, 483, 64, 64, "mma"), (32, 128, 483, 64, 32, "mma"),
+                   (32, 256, 483, 64, 2, "narrow")]
+K3W_SHAPES = K3W_STEP_SHAPES + [
+    (1, 1, 483, 64, 64, "mma"), (2, 3, 1, 64, 32, "mma"), (2, 3, 9, 2, 64, "mma"),
+    (2, 3, 21, 6, 10, "mma"), (2, 5, 33, 64, 12, "mma"), (3, 2, 70, 40, 9, "mma"),
+    (2, 4, 37, 64, 8, "narrow"), (2, 3, 9, 64, 7, "narrow")]
+
+
+@pytest.mark.parametrize("shape", K3W_SHAPES, ids=str)
+def test_k3w_matches_plain_on_its_route(cuda, shape):
+    """Each shape takes the route its C entry states, matches the plain
+    version and gives the same bits on a second run."""
+    *dims, route = shape
+    x, _, gy = _conv_inputs(dims, sum(dims), cuda)
+    assert conv3x3_wgrad_route(dims[3], dims[4]) == route
+    before = conv3x3_wgrad.launches
+    dw = conv3x3_wgrad(x, gy)
+    again = conv3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert conv3x3_wgrad.launches == before + 2
+    assert _rel_l2(dw, conv3x3_wgrad_reference(x, gy)) <= REL_L2
+    assert torch.equal(dw, again)
+
+
+@pytest.mark.parametrize("C, O, route", [(64, 256, "mma"), (64, 9, "mma"), (2, 64, "mma"),
+                                         (64, 8, "narrow"), (64, 2, "narrow"),
+                                         (3, 1, "narrow")])
+def test_k3w_route_by_shape(cuda, C, O, route):
+    assert conv3x3_wgrad_route(C, O) == route

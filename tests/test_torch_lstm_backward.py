@@ -12,8 +12,10 @@ import jax.numpy as jnp
 import torch
 
 from speech_enhancement_clskd_tpu.ops import complex_lstm as jax_lstm
+from speech_enhancement_clskd_tpu.ops.pallas.lstm import _fwd_call, _lstm_bwd
 from speech_enhancement_clskd_tpu.ops.pallas.lstm import lstm_seq as jax_lstm_seq
 from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
+    lstm_bwd_gates_reference,
     lstm_seq,
     lstm_seq_bwd,
     lstm_seq_bwd_reference,
@@ -69,6 +71,38 @@ def test_backward_matches_pallas_interpret(rng, N):
     for got in (_plain_grads(xw, w_hh, dy), _function_grads(xw, w_hh, dy)):
         np.testing.assert_allclose(got[0], np.asarray(want[0]), atol=ATOL, rtol=RTOL)
         np.testing.assert_allclose(got[1], np.asarray(want[1]), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("T", [1, 2, 11])
+def test_backward_matches_pallas_bwd_interpret(rng, T):
+    """The plain backward, on the Pallas forward's own y and c, against the
+    Pallas backward ``_lstm_bwd`` called directly in interpret mode; T = 1
+    has no step before it."""
+    xw, w_hh, dy, _ = _inputs(rng, T=T, N=4, H=8)
+    y, c = _fwd_call(jnp.asarray(xw), jnp.asarray(w_hh), True)
+    want = _lstm_bwd(True, (jnp.asarray(xw), jnp.asarray(w_hh), y, c), jnp.asarray(dy))
+    got = lstm_seq_bwd_reference(_t(xw), _t(w_hh), _t(np.asarray(y)), _t(np.asarray(c)),
+                                 _t(dy))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_gates_reference_matches_jax(rng, with_state):
+    """The backward's gate pass (plain version): the activated gates of every
+    step from xw, y and h0, against the same gates in JAX from a lax.scan
+    forward, with and without an initial state."""
+    xw, w_hh, _, (h0, c0) = _inputs(rng, T=7, N=3, H=6, with_state=with_state)
+    zeros = np.zeros((3, 6), np.float32)
+    y = _jax_scan_y(jnp.asarray(xw), jnp.asarray(w_hh),
+                    jnp.asarray(zeros if h0 is None else h0),
+                    jnp.asarray(zeros if c0 is None else c0))
+    h_prev = jnp.concatenate([jnp.asarray(zeros if h0 is None else h0)[None], y[:-1]])
+    i, f, g, o = jnp.split(jnp.asarray(xw) + h_prev @ jnp.asarray(w_hh), 4, axis=-1)
+    want = jnp.concatenate([jax.nn.sigmoid(i), jax.nn.sigmoid(f), jnp.tanh(g),
+                            jax.nn.sigmoid(o)], axis=-1)
+    got = lstm_bwd_gates_reference(_t(xw), _t(w_hh), _t(np.asarray(y)), _t(h0))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=RTOL)
 
 
 def _jax_scan_y(xw, w_hh, h0, c0):

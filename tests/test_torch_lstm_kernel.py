@@ -12,6 +12,7 @@ import torch
 from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
     lstm_seq,
     lstm_seq_bwd,
+    lstm_seq_bwd_plan,
     lstm_seq_bwd_reference,
     lstm_seq_fwd_plan,
     lstm_seq_reference,
@@ -157,3 +158,34 @@ def test_backward_on_the_forward_kernels_outputs(cuda, H):
     rdxw, rdw = lstm_seq_bwd_reference(xw.detach(), w_hh.detach(), ry, rc, 2 * ry)
     assert (xw.grad - rdxw).abs().max().item() <= ATOL
     assert (w_hh.grad - rdw).abs().max().item() <= ATOL * max(1.0, rdw.abs().max().item())
+
+
+# K1b's plans (T, N, H, initial state): the spkd step's student LSTM on 33 s
+# clips at batch 16 and at its card-vs-CPU batch 2, N = 133 (two rows a block
+# on a 132-SM card, the last ragged), T = 1, H = 64 and the L2 plan's H = 128
+# and 256 (4H = 1024, the widest), and initial states through each plan
+K1B_SHAPES = [(5283, 32, 32, False), (5283, 4, 32, False), (40, 133, 32, False),
+              (1, 4, 32, False), (118, 5, 64, False), (483, 64, 128, False),
+              (20, 201, 128, False), (30, 5, 256, False), (57, 3, 32, True),
+              (40, 3, 128, True), (25, 2, 64, True)]
+
+
+@pytest.mark.parametrize("shape", K1B_SHAPES, ids=str)
+def test_backward_plans_match_plain(cuda, shape):
+    T, N, H, with_state = shape
+    plan = lstm_seq_bwd_plan(H)
+    assert plan["WPT"] == (32 if H <= 32 else 64 if H <= 64 else 0), plan
+    _backward_case(cuda, T, N, H, seed=5 * H + N + T, with_state=with_state)
+
+
+@pytest.mark.parametrize("H", [32, 128])
+def test_backward_kernel_repeats_bitwise(cuda, H):
+    """dxw and dW_hh (fixed-order partials) are the same bits on a second call."""
+    xw, w_hh, _ = _inputs(300, 40, H, seed=H + 1)
+    dy = torch.randn(300, 40, H, generator=torch.Generator().manual_seed(2)).to(cuda)
+    xw, w_hh = xw.to(cuda), w_hh.to(cuda)
+    y, c = lstm_seq_reference(xw, w_hh)
+    first = lstm_seq_bwd(xw, w_hh, y, c, dy)
+    again = lstm_seq_bwd(xw, w_hh, y, c, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])

@@ -1,5 +1,6 @@
-"""The split-TF32 ("3xTF32") arithmetic of the 3x3 conv kernel K3f's tensor-core
-route (``kernels/csrc/conv3x3_fwd.cu``), emulated in plain PyTorch on the CPU.
+"""The split-TF32 ("3xTF32") arithmetic of the 3x3 conv kernels' tensor-core
+routes (K3f, ``kernels/csrc/conv3x3_fwd.cu``, and K3w, the weight gradient in
+``kernels/csrc/conv3x3_tiles.cuh``), emulated in plain PyTorch on the CPU.
 
 The kernel splits each float32 operand a into hi = cvt.rna.tf32(a) and
 lo = cvt.rna.tf32(a - hi) and takes each product as lo_a*hi_b + hi_a*lo_b +
@@ -11,15 +12,23 @@ conv's width (C = 64, K = 9C = 576) against a float64 conv, the three-product
 scheme stays within the kernel's tolerance against its plain version
 (``KERNEL_ATOL`` of ``chip_smoke.py``) and a single TF32 pass does not: that
 is why the design takes three passes.
+
+The tensor cores add each k8 step's products into their f32 accumulator with
+truncation.  K3w's reduction runs over the pixels, thousands of them in a
+block and up to millions in a call: emulated with round-toward-zero adds over
+tens of thousands of pixels, one accumulator over the whole reduction drifts
+past the tolerance K3w is held to, and fresh accumulators per short run of
+pixels, added with round-to-nearest, meet it.  That is why K3w's design
+starts a fresh accumulator every stage of 64 pixels.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_reference
+from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import _shifted, conv3x3_reference
 
-KERNEL_ATOL = 1e-4  # chip_smoke.py: K3f against its plain version
+KERNEL_ATOL = 1e-4  # chip_smoke.py: K3f (max abs) and K3w (relative L2) against plain
 
 
 def tf32_rna(a: torch.Tensor) -> torch.Tensor:
@@ -93,3 +102,47 @@ def test_one_tf32_pass_misses_the_kernel_tolerance(conv_case):
     got = conv3x3_reference(tf32_rna(x), tf32_rna(w))
     err = (got.double() - exact).abs().max().item()
     assert err > KERNEL_ATOL, err
+
+
+def _rz_add(acc: torch.Tensor, inc: torch.Tensor) -> torch.Tensor:
+    """float32 ``acc`` plus float64 ``inc``, the exact sum rounded toward zero
+    to float32, as the tensor cores' accumulator adds."""
+    exact = acc.double() + inc
+    near = exact.float()
+    over = near.double().abs() > exact.abs()
+    return torch.where(over, torch.nextafter(near, torch.zeros_like(near)), near)
+
+
+def test_long_wgrad_reduction_needs_fresh_accumulators():
+    """K3w's product at a [576, 8] output (9 shifts x 64 channels, 8 output
+    channels) over 32,000 pixels, three TF32 products a k8 step of 8 pixels,
+    each step's products added exactly and then into the accumulator rounded
+    toward zero."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 8, 4000, 64)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((1, 8, 4000, 8)).astype(np.float32))
+    a = torch.cat([xs.reshape(-1, 64) for _, _, xs in _shifted(x)], dim=1)  # [pixels, 576]
+    b = g.reshape(-1, 8)
+    exact = a.double().T @ b.double()
+    (ah, al), (bh, bl) = split(a), split(b)
+    one = torch.zeros(576, 8)     # one accumulator over the whole reduction
+    fresh = torch.zeros(576, 8)   # K3w: a fresh one per 64 pixels, added to nearest
+    part = torch.zeros(576, 8)
+    for k0 in range(0, a.shape[0], 8):
+        step = slice(k0, k0 + 8)
+        for lhs, rhs in ((al, bh), (ah, bl), (ah, bh)):
+            inc = lhs[step].double().T @ rhs[step].double()
+            one = _rz_add(one, inc)
+            part = _rz_add(part, inc)
+        if (k0 + 8) % 64 == 0:
+            fresh = fresh + part
+            part = torch.zeros(576, 8)
+    fresh = fresh + part
+
+    def rel_l2(got):
+        return ((got.double() - exact).norm() / exact.norm()).item()
+
+    f32 = rel_l2(a.T @ b)
+    assert rel_l2(one) > KERNEL_ATOL, rel_l2(one)
+    assert rel_l2(fresh) <= KERNEL_ATOL, rel_l2(fresh)
+    assert rel_l2(fresh) <= 10 * f32, (rel_l2(fresh), f32)  # near a plain float32 sum

@@ -37,8 +37,6 @@ BN_ATOL, BN_RTOL = 1e-6, 1e-6
 ATOL, RTOL = 1e-5, 1e-5
 # gradients, compared as whole tensors
 GRAD_REL_L2 = 1e-4
-# an ill-conditioned gradient against its own rounding floor (chip_smoke.py's)
-ROUNDING_FACTOR = 2.0
 
 
 def _t(a):
@@ -164,28 +162,64 @@ def test_stft_magnitude_and_gradient_match_jax(rng):
     assert _rel_l2(xt.grad.numpy(), want_g) <= GRAD_REL_L2
 
 
-@pytest.mark.parametrize("resolutions", [((512,), (100,), (400,)),
-                                         ((1024, 256), (120, 50), (600, 240))])
-def test_multi_resolution_stft_loss_matches_jax(rng, resolutions):
-    x, y = _wavs(rng)
+STFT_RESOLUTIONS = [((512,), (100,), (400,)), ((1024, 256), (120, 50), (600, 240))]
+
+
+def _jax_stft_loss_and_grad(x, y, resolutions):
     ffts, hops, wins = resolutions
-    want = jspectral.multi_resolution_stft_loss(jnp.asarray(x), jnp.asarray(y), ffts, hops, wins)
-    want_g = jax.grad(lambda a: sum(jspectral.multi_resolution_stft_loss(
+    loss = jspectral.multi_resolution_stft_loss(jnp.asarray(x), jnp.asarray(y), ffts, hops, wins)
+    grad = jax.grad(lambda a: sum(jspectral.multi_resolution_stft_loss(
         a, jnp.asarray(y), ffts, hops, wins)))(jnp.asarray(x))
+    return [float(v) for v in loss], np.asarray(grad)
+
+
+def _port_stft_loss_and_grad(x, y, resolutions):
     xt = _t(x).requires_grad_(True)
-    got = pspectral.multi_resolution_stft_loss(xt, _t(y), ffts, hops, wins)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.item(), float(w), rtol=RTOL)
+    got = pspectral.multi_resolution_stft_loss(xt, _t(y), *resolutions)
     sum(got).backward()
-    # The log-magnitude L1's gradient flips sign where two bins meet, so a
-    # rounding of the input can move it by more than GRAD_REL_L2: the floor
-    # is the JAX gradient's own change when the input is rounded once more,
-    # and the port is held to ROUNDING_FACTOR times it where that is larger.
-    again = jax.grad(lambda a: sum(jspectral.multi_resolution_stft_loss(
-        a, jnp.asarray(y), ffts, hops, wins)))(jnp.asarray(x * np.float32(1 + 2 ** -23)))
-    floor = _rel_l2(again, want_g)
-    err = _rel_l2(xt.grad.numpy(), want_g)
-    assert err <= max(GRAD_REL_L2, ROUNDING_FACTOR * floor), (err, floor)
+    return [g.item() for g in got], xt.grad.numpy()
+
+
+@pytest.mark.parametrize("resolutions", STFT_RESOLUTIONS)
+def test_multi_resolution_stft_loss_formula_matches_jax_in_float64(rng, resolutions):
+    """The two losses are one formula: in float64 on both sides (JAX under
+    ``jax.enable_x64``) the losses agree to 1e-12 and the input gradients to
+    1e-10 relative L2."""
+    x, y = (a.astype(np.float64) for a in _wavs(rng))
+    with jax.enable_x64():
+        want, want_g = _jax_stft_loss_and_grad(x, y, resolutions)
+    assert want_g.dtype == np.float64
+    got, got_g = _port_stft_loss_and_grad(x, y, resolutions)
+    assert got_g.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    assert _rel_l2(got_g, want_g) <= 1e-10
+
+
+@pytest.mark.parametrize("resolutions", STFT_RESOLUTIONS)
+def test_multi_resolution_stft_loss_matches_jax(rng, resolutions):
+    """The float32 port against the truth, JAX's float64 gradient: no further
+    from it than JAX's own float32 gradient is, and never looser than
+    GRAD_REL_L2.  The log-magnitude L1's gradient flips sign where two bins
+    meet, so a float32 gradient of this loss can sit more than GRAD_REL_L2
+    from the truth, and how far depends on the summation order of the
+    float32 FFTs, which moves with the thread count: the case runs at one
+    torch thread and at the count found, and restores it."""
+    x, y = _wavs(rng)
+    with jax.enable_x64():
+        _, truth = _jax_stft_loss_and_grad(x.astype(np.float64), y.astype(np.float64),
+                                           resolutions)
+    want, want_g = _jax_stft_loss_and_grad(x, y, resolutions)
+    err_jax32 = _rel_l2(want_g, truth)
+    threads = torch.get_num_threads()
+    try:
+        for n in dict.fromkeys((1, threads)):
+            torch.set_num_threads(n)
+            got, got_g = _port_stft_loss_and_grad(x, y, resolutions)
+            np.testing.assert_allclose(got, want, rtol=RTOL)
+            err = _rel_l2(got_g, truth)
+            assert err <= max(GRAD_REL_L2, err_jax32), (n, err, err_jax32)
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("groups", [1, 2])
