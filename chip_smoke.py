@@ -11,8 +11,9 @@ card, then drives both paths through their entry points:
    (left alone: the float32 model and trainer turn TF32 off for their own
    calls);
 2. build: one ``nvcc`` per CUDA source, all started together, and the
-   tensor-core instructions in K3f's and K3w's mma kernels (``cuobjdump
-   -sass``, or the PTX where the toolkit has no cuobjdump);
+   tensor-core instructions in the mma kernels of K3f's, K3w's, K5f's and
+   K5b's libraries (``cuobjdump -sass``, or the PTX where the toolkit has no
+   cuobjdump);
 3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
    the shapes the serving and training paths give it, each with the plan
    K1f takes, with times, the bound and a one-call PyTorch yardstick
@@ -54,10 +55,12 @@ card, then drives both paths through their entry points:
     ``abf_block_bwd`` (K5b) against their plain versions at the training
     step's reference block, its decoder mask block, its deepest (no-fuse)
     block and small ragged ones (k = 1, 2, 4; T past the tiles; D of one
-    row); two runs of K5b must give the same bits; times, the bound, and the
-    time of the per-op kernels it replaces on the same block (the xhat
-    matmul, K4f and K3f; K3f's dx pass, K3w, K4b and the 1x1 conv's two
-    matmuls);
+    row), each labelled with its routes; two runs of each must give the same
+    bits; times, the bound, and the time of the per-op kernels it replaces
+    on the same block (the xhat matmul, K4f and K3f; K3f's dx pass, K3w, K4b
+    and the 1x1 conv's two matmuls); then K5f, K5b and the per-op path alone
+    at each distinct block shape of the block-config step, and their sums
+    weighted by each shape's blocks a step;
 11. training with the whole-block kernel: ``Trainer(TrainConfig(distill=
     DistillConfig(abf_block_pallas=True)))`` as phase 9 (launches per step:
     K5f 12, K5b 12, K1f 8, K1b 4, and no K3/K4) and its card-vs-CPU step;
@@ -155,8 +158,8 @@ ROUNDING_FACTOR = 2.0
 GRAM_TOL = 1e-6
 
 
-# Each kernel's design: K1f, K1b, K3f and K3w are in their second, the others
-# in their first (PERF.md section 6 keeps each design's times).
+# Each kernel's design: K1f, K1b, K3f, K3w, K5f and K5b are in their second,
+# the others in their first (PERF.md section 6 keeps each design's times).
 DESIGNS = {
     "lstm_seq_fwd": "register-cluster",
     "lstm_seq_bwd": "gate-prepass-register-chain",
@@ -164,8 +167,8 @@ DESIGNS = {
     "conv3x3_wgrad": "3xtf32-mma",
     "attfuse_fwd": "warp-row",
     "attfuse_bwd": "warp-row",
-    "abf_block_fwd": "fma-tile",
-    "abf_block_bwd": "persistent-rows",
+    "abf_block_fwd": "xf-pass-3xtf32-mma",
+    "abf_block_bwd": "mma-adjoint-pixel-pass",
     "gram_pair_fwd": "column-chunks",
 }
 
@@ -212,7 +215,9 @@ def phase_build():
                    if "registers" in ln or "spill" in ln] for src in sources}
     tensor_cores = {name: _tensor_core_check(paths[sources.index(source)], source)
                     for name, source in (("k3f", conv3x3.FWD_SOURCE),
-                                         ("k3w", conv3x3.WGRAD_SOURCE))}
+                                         ("k3w", conv3x3.WGRAD_SOURCE),
+                                         ("k5f", abf_block.FWD_SOURCE),
+                                         ("k5b", abf_block.BWD_SOURCE))}
     say("build", seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas,
         tensor_cores=tensor_cores)
@@ -223,7 +228,7 @@ def phase_build():
 
 def _tensor_core_check(library: Path, source: str) -> dict:
     """The tensor-core instructions in the mma kernels (``*mma_kernel*``) of
-    ``source``'s library (K3f's, K3w's): HMMA/HGMMA in
+    ``source``'s library (K3f's, K3w's, K5f's, K5b's): HMMA/HGMMA in
     ``cuobjdump -sass`` of the built library where the toolkit has
     cuobjdump, else mma/wgmma in the PTX that nvcc gives for the source."""
     import os
@@ -1086,24 +1091,107 @@ def phase_abf_kernels_vs_plain():
     return conv, fuse
 
 
-def _block_bounds(fuse, B, D, k, T, Cs, M, O) -> tuple:
+def _block_bounds(fuse, B, D, k, T, Cs, M, O) -> dict:
     """K5f's and K5b's bounds: each input read once and each output written
     once; the operations of the 1x1 conv (2 Cs M a pixel), the attention
     (4 Cs + 4 M logits, ~3 M blend and ~8 sigmoid a pixel) and the 3x3 conv
-    (18 M O a pixel) forward; backward the conv adjoint and dw2 (36 M O),
-    xhat again, g_tap and dw1a (6 Cs M) and the attention's ~4 Cs + 16 M."""
+    (18 M O a pixel) forward; backward the conv adjoint and dw2 (18 M O
+    each), xhat again, g_tap and dw1a (6 Cs M) and the attention's ~4 Cs +
+    16 M.  A 3x3 conv on a tensor-core route (K5f's conv and K5b's adjoint
+    on route "mma", dw2 on K3w's) counts three TF32 products a multiply-add
+    at their peak, the rest f32 at its peak ("the design's" bound, as K3f's);
+    the all-f32 bound beside it."""
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
+        abf_block_bwd_route,
+        abf_block_fwd_route,
+    )
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_wgrad_route
+
     rows, res_rows = B * D * T, (B * D * T // k if fuse else 0)
     small = Cs * M + 3 * M + 2 * Cs + 2 + 9 * M * O
-    fwd = _bound(4.0 * (rows * Cs + res_rows * M + small + rows * M + rows * O),
-                 rows * (18.0 * M * O + 2 * Cs * M + ((4 * Cs + 7 * M + 8) if fuse else M)))
-    bwd = _bound(4.0 * (2 * rows * Cs + 2 * res_rows * M + 2 * rows * M + rows * O + 2 * small),
-                 rows * (36.0 * M * O + 6 * Cs * M + ((4 * Cs + 16 * M) if fuse else M)))
+    conv = rows * 18.0 * M * O
+    fwd_rest = rows * (2.0 * Cs * M + ((4 * Cs + 7 * M + 8) if fuse else M))
+    bwd_rest = rows * (6.0 * Cs * M + ((4 * Cs + 16 * M) if fuse else M))
+    fwd_bytes = 4.0 * (rows * Cs + res_rows * M + small + rows * M + rows * O)
+    bwd_bytes = 4.0 * (2 * rows * Cs + 2 * res_rows * M + 2 * rows * M + rows * O + 2 * small)
+
+    def bound(nbytes, tf32_flops, f32_flops):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = (3 * tf32_flops / PEAK_TF32_FLOP_S + f32_flops / PEAK_F32_FLOP_S) * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    fwd_mma = abf_block_fwd_route(M, O) == "mma"
+    adj_mma = abf_block_bwd_route(M, O) == "mma"
+    dw2_mma = conv3x3_wgrad_route(M, O) == "mma"
+    fwd_tc = conv if fwd_mma else 0.0
+    bwd_tc = conv * (adj_mma + dw2_mma)
+    return {"fwd": bound(fwd_bytes, fwd_tc, conv + fwd_rest - fwd_tc),
+            "fwd_f32": _bound(fwd_bytes, conv + fwd_rest),
+            "bwd": bound(bwd_bytes, bwd_tc, 2 * conv + bwd_rest - bwd_tc),
+            "bwd_f32": _bound(bwd_bytes, 2 * conv + bwd_rest),
+            "fwd_route": "mma" if fwd_mma else "direct",
+            "bwd_route": "mma" if adj_mma else "direct"}
+
+
+def _block_inputs(fuse, B, D, k, T, Cs, M, O):
+    """Seeded inputs of one block on the card: ``(kwargs of abf_block, g_xf,
+    g_out)``, w1a at the scale bn1 gives it (xhat of unit variance)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + k + Cs + O)
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(*shape, device="cuda", generator=g)
+
+    kw = dict(tap=r(B, D, T, Cs), res=r(B, D // k, T, M) if fuse else None,
+              w1a=r(Cs, M, scale=Cs ** -0.5), bvec=r(M, scale=0.2), wxt=r(Cs, 2, scale=0.3),
+              wy=r(M, 2, scale=0.3), zoff=r(2, scale=0.1),
+              w2=r(3, 3, M, O, scale=1 / (3 * M ** 0.5)))
+    return kw, r(B, D, T, M), r(B, D, T, O)
+
+
+def _per_op(kw, xf, gxf, gout):
+    """The per-op kernel path on the same block, forward and backward: the
+    xhat matmul, K4f and K3f; K3f's dx pass (+ g_xf), K3w, K4b and the 1x1
+    conv's two matmuls (raw attention weights drawn here)."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
+        attention_fuse_bwd,
+        attention_fuse_fwd,
+    )
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_wgrad
+
+    fuse = kw["res"] is not None
+    Cs, M = kw["w1a"].shape
+    g = torch.Generator(device="cuda").manual_seed(M + Cs)
+    wx = 0.3 * torch.randn(M, 2, device="cuda", generator=g)
+    bias = 0.1 * torch.randn(2, device="cuda", generator=g)
+    wy = kw["wy"]
+    w2f = kw["w2"].flip(0, 1).transpose(2, 3).contiguous()
+    xhat = kw["tap"] @ kw["w1a"] + kw["bvec"]
+    z = attention_fuse_fwd(xhat, kw["res"], wx, wy, bias)[1] if fuse else None
+    tap2 = kw["tap"].reshape(-1, Cs)
+
+    def fwd():
+        xh = kw["tap"] @ kw["w1a"] + kw["bvec"]
+        xff = attention_fuse_fwd(xh, kw["res"], wx, wy, bias)[0] if fuse else xh
+        return conv3x3_fwd(xff, kw["w2"])
+
+    def bwd():
+        dxf = conv3x3_fwd(gout, w2f) + gxf
+        conv3x3_wgrad(xf, gout)
+        gx = attention_fuse_bwd(xhat, kw["res"], z, dxf, wx, wy)[0] if fuse else dxf
+        gx2 = gx.reshape(-1, M)
+        return gx2 @ kw["w1a"].T, tap2.T @ gx2
+
     return fwd, bwd
 
 
 def _block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
     """K5f and K5b against their plain versions at tap [B, D, T, Cs], the
-    residual [B, D/k, T, M] (or none), mid M and O output channels."""
+    residual [B, D/k, T, M] (or none), mid M and O output channels; two runs
+    of each give the same bits."""
     import torch
 
     from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
@@ -1112,30 +1200,18 @@ def _block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
         abf_block_fwd,
         abf_block_reference,
     )
-    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
-        attention_fuse_bwd,
-        attention_fuse_fwd,
-    )
-    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_wgrad
     from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
 
-    g = torch.Generator(device="cuda").manual_seed(B * D + k + Cs + O)
-
-    def r(*shape, scale=1.0):
-        return scale * torch.randn(*shape, device="cuda", generator=g)
-
-    # w1a at the scale bn1 gives it (xhat of unit variance)
-    kw = dict(tap=r(B, D, T, Cs), res=r(B, D // k, T, M) if fuse else None,
-              w1a=r(Cs, M, scale=Cs ** -0.5), bvec=r(M, scale=0.2), wxt=r(Cs, 2, scale=0.3),
-              wy=r(M, 2, scale=0.3), zoff=r(2, scale=0.1),
-              w2=r(3, 3, M, O, scale=1 / (3 * M ** 0.5)))
-    gxf, gout = r(B, D, T, M), r(B, D, T, O)
+    kw, gxf, gout = _block_inputs(fuse, B, D, k, T, Cs, M, O)
     before = (abf_block_fwd.launches, abf_block_bwd.launches)
     xf, out = abf_block_fwd(**kw)
+    xf_again, out_again = abf_block_fwd(**kw)
+    fwd_repeat = bool(torch.equal(xf, xf_again)) and bool(torch.equal(out, out_again))
+    del xf_again, out_again
     grads = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
     again = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
     torch.cuda.synchronize()
-    if (abf_block_fwd.launches, abf_block_bwd.launches) != (before[0] + 1, before[1] + 2):
+    if (abf_block_fwd.launches, abf_block_bwd.launches) != (before[0] + 2, before[1] + 2):
         raise RuntimeError("abf_block kernels did not count their launches")
     names = ("g_tap", "g_res", "dw1a", "dbvec", "dwxt", "dwy", "dzoff", "dw2")
     with float32_math():
@@ -1150,46 +1226,56 @@ def _block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
     bwd_abs = max((a - b).abs().max().item() for a, b in zip(grads[:2], want[:2])
                   if b is not None)
     del want
+    bounds = _block_bounds(fuse, B, D, k, T, Cs, M, O)
     rec = {"fuse": fuse, "B": B, "D": D, "k": k, "T": T, "Cs": Cs, "M": M, "O": O,
-           "fwd_max_abs_err": err_fwd, "fwd_max_rel_err": rel_fwd, "bwd_rel_l2": bwd_rel, "bwd_max_rel_l2":
-           max(bwd_rel.values()), "bwd_max_abs_err_g_tap_g_res": bwd_abs,
+           "fwd_route": bounds["fwd_route"], "bwd_route": bounds["bwd_route"],
+           "fwd_max_abs_err": err_fwd, "fwd_max_rel_err": rel_fwd,
+           "fwd_bitwise_repeat": fwd_repeat, "bwd_rel_l2": bwd_rel,
+           "bwd_max_rel_l2": max(bwd_rel.values()), "bwd_max_abs_err_g_tap_g_res": bwd_abs,
            "bwd_bitwise_repeat": all(a is None or bool(torch.equal(a, b))
                                      for a, b in zip(grads, again)),
            "fwd_tol": BLOCK_FWD_TOL, "bwd_tol": BLOCK_REL_L2}
     del grads, again
     if timed:
-        (fwd_bound, fwd_by), (bwd_bound, bwd_by) = _block_bounds(fuse, B, D, k, T, Cs, M, O)
-        # the per-op kernel path on the same block: raw attention weights
-        wx, wy, bias = r(M, 2, scale=0.3), kw["wy"], r(2, scale=0.1)
-        w2f = kw["w2"].flip(0, 1).transpose(2, 3).contiguous()
-        xhat = kw["tap"] @ kw["w1a"] + kw["bvec"]
-        z = attention_fuse_fwd(xhat, kw["res"], wx, wy, bias)[1] if fuse else None
-        tap2 = kw["tap"].reshape(-1, Cs)
-
-        def per_op_fwd():
-            xh = kw["tap"] @ kw["w1a"] + kw["bvec"]
-            xff = attention_fuse_fwd(xh, kw["res"], wx, wy, bias)[0] if fuse else xh
-            return conv3x3_fwd(xff, kw["w2"])
-
-        def per_op_bwd():
-            dxf = conv3x3_fwd(gout, w2f) + gxf
-            conv3x3_wgrad(xf, gout)
-            gx = attention_fuse_bwd(xhat, kw["res"], z, dxf, wx, wy)[0] if fuse else dxf
-            gx2 = gx.reshape(-1, M)
-            return gx2 @ kw["w1a"].T, tap2.T @ gx2
-
+        per_op_fwd, per_op_bwd = _per_op(kw, xf, gxf, gout)
         with float32_math():
             rec.update(
                 fwd_ms=_time_ms(lambda: abf_block_fwd(**kw), iters=5),
                 fwd_plain_ms=_time_ms(lambda: abf_block_reference(**kw), iters=2),
                 fwd_per_op_ms=_time_ms(per_op_fwd, iters=5),
-                fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+                fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+                fwd_bound_f32_ms=bounds["fwd_f32"][0],
                 bwd_ms=_time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout), iters=5),
                 bwd_plain_ms=_time_ms(lambda: abf_block_bwd_reference(
                     **kw, xf=xf, gxf=gxf, gout=gout), iters=2),
                 bwd_per_op_ms=_time_ms(per_op_bwd, iters=5),
-                bwd_bound_ms=bwd_bound, bwd_bound_by=bwd_by)
+                bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1],
+                bwd_bound_f32_ms=bounds["bwd_f32"][0])
     return rec
+
+
+def _step_block_case(fuse, D, Cs, O) -> dict:
+    """K5f, K5b and the per-op path alone at one of the block-config step's
+    block shapes (B=32, T=483, M=64, k=2 where it fuses): kernel times and
+    routes, no plain version."""
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    B, T, M, k = TEACHER_BATCH, 483, 64, (2 if fuse else 1)
+    kw, gxf, gout = _block_inputs(fuse, B, D, k, T, Cs, M, O)
+    xf, _ = abf_block_fwd(**kw)
+    per_op_fwd, per_op_bwd = _per_op(kw, xf, gxf, gout)
+    bounds = _block_bounds(fuse, B, D, k, T, Cs, M, O)
+    with float32_math():
+        return {"fuse": fuse, "B": B, "D": D, "k": k, "T": T, "Cs": Cs, "M": M, "O": O,
+                "fwd_route": bounds["fwd_route"], "bwd_route": bounds["bwd_route"],
+                "fwd_ms": _time_ms(lambda: abf_block_fwd(**kw), iters=5),
+                "fwd_per_op_ms": _time_ms(per_op_fwd, iters=5),
+                "fwd_bound_ms": bounds["fwd"][0],
+                "bwd_ms": _time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout),
+                                   iters=5),
+                "bwd_per_op_ms": _time_ms(per_op_bwd, iters=5),
+                "bwd_bound_ms": bounds["bwd"][0]}
 
 
 # phase 10's shapes (fuse, B, D, k, T, Cs, M, O, timed): the training step's
@@ -1203,6 +1289,15 @@ BLOCK_CASES = [(True, 32, 64, 2, 483, 16, 64, 64, True),
                (True, 3, 5, 1, 37, 16, 64, 32, False), (True, 2, 16, 4, 29, 8, 64, 16, False),
                (True, 2, 2, 2, 70, 4, 64, 5, False), (False, 2, 1, 1, 11, 3, 8, 7, False)]
 BLOCK_REF = (True, 32, 64, 2, 483, 16, 64, 64)
+# The 12 ABF blocks of the block-config step at 32 x 3 s (fuse, D, Cs, O):
+# the student tap's Cs to each teacher tap's O through mid 64, the encoder
+# chain's blocks deepest first (D 4 .. 128) and the decoder chain's (D 8 ..
+# 256, its last the mask block); k = 2 wherever a block fuses.  The same
+# blocks as STEP_CONV_FWD.
+STEP_BLOCKS = [(False, 4, 64, 256), (True, 8, 64, 256), (True, 16, 64, 256),
+               (True, 32, 32, 128), (True, 64, 16, 64), (True, 128, 8, 32),
+               (False, 8, 64, 256), (True, 16, 64, 256), (True, 32, 32, 128),
+               (True, 64, 16, 64), (True, 128, 8, 32), (True, 256, 2, 2)]
 
 
 def phase_abf_block_vs_plain():
@@ -1215,9 +1310,19 @@ def phase_abf_block_vs_plain():
         cases.append(rec)
         torch.cuda.empty_cache()
         if not (rec["fwd_max_rel_err"] <= BLOCK_FWD_TOL and rec["bwd_max_rel_l2"] <= BLOCK_REL_L2
-                and rec["bwd_bitwise_repeat"]):
+                and rec["fwd_bitwise_repeat"] and rec["bwd_bitwise_repeat"]):
             raise RuntimeError(f"abf_block kernels disagree with their plain versions: {rec}")
-    return cases
+    steps = []
+    for shape in dict.fromkeys(STEP_BLOCKS):  # the distinct step shapes, in order
+        rec = _step_block_case(*shape)
+        rec["count"] = STEP_BLOCKS.count(shape)
+        say("abf_block_vs_plain", step_shape=True, **rec)
+        steps.append(rec)
+        torch.cuda.empty_cache()
+    per_step = {key: sum(r["count"] * r[key] for r in steps)
+                for key in ("fwd_ms", "bwd_ms", "fwd_per_op_ms", "bwd_per_op_ms")}
+    say("abf_block_vs_plain", step_sums_ms=per_step, blocks_a_step=len(STEP_BLOCKS))
+    return cases, steps, per_step
 
 
 def _gram_case(B: int, ds: int, dt: int, timed: bool) -> dict:
@@ -1334,7 +1439,7 @@ def main() -> None:
     training = phase_training()
     conv_shapes, fuse_shapes = phase_abf_kernels_vs_plain()
     kernel_training = phase_training_kernels()
-    block_shapes = phase_abf_block_vs_plain()
+    block_shapes, block_steps, block_step_sums = phase_abf_block_vs_plain()
     block_training = phase_training_block()
     gram_shapes = phase_gram_vs_plain()
     spkd_training = phase_training_spkd()
@@ -1429,10 +1534,16 @@ def main() -> None:
             "plain_ms": block[f"{key}_plain_ms"],
             "bound_ms": block[f"{key}_bound_ms"],
             "bound_by": block[f"{key}_bound_by"],
+            "bound_f32_ms": block[f"{key}_bound_f32_ms"],
             "library_ms": None,
             "per_op_ms": block[f"{key}_per_op_ms"],
+            "step_ms": block_step_sums[f"{key}_ms"],
+            "step_per_op_ms": block_step_sums[f"{key}_per_op_ms"],
+            "routes": {r: sum(c["count"] for c in block_steps if c[f"{key}_route"] == r)
+                       for r in ("mma", "direct")},
             "shape": block_shape,
             "per_shape": block_shapes,
+            "per_step_shape": block_steps,
         })
     spkd_batch = spkd_training["batch"]
     gram_ref = next(r for r in gram_shapes

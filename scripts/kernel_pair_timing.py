@@ -14,10 +14,15 @@ prints one JSON line per shape, then writes them all to ``--out``:
   teacher's width (T=483, N=64, H=128; no main path trains it), beside the
   backward of cuDNN's ``torch.nn.LSTM`` (f32, TF32 off), and a hash of its
   outputs' bits (the forward's y and c come from the tree's own K1f);
+- K3f (``conv3x3_fwd``) at phase 8's reference conv (x [32, 64, 483, 64]
+  -> 64) and the deepest blocks' (x [32, 4, 483, 64] -> 256);
 - K3w (``conv3x3_wgrad``) at each distinct weight-gradient shape of the
   kernel-config step (x [32, D, 483, 64], g [32, D, 483, O]), beside
   ``torch.nn.grad.conv2d_weight`` (TF32 off);
-- K5b (``abf_block_bwd``) at phase 10's reference, mask and deepest blocks.
+- K5f (``abf_block_fwd``) and K5b (``abf_block_bwd``) at each distinct block
+  shape of the block-config step (``chip_smoke.STEP_BLOCKS``: B=32, T=483,
+  M=64), each with a hash of its outputs' bits (K5b's xf from the tree's
+  own K5f).
 
 Each time is CUDA events over repeated launches after a warm-up; inputs come
 from seeded generators, so both trees see the same data.  Needs CUDA.
@@ -38,9 +43,12 @@ K1B_SHAPES = [(5283, 32, 32), (483, 64, 32), (483, 64, 128)]
 # (D, C, O) of the kernel-config step's weight gradients, at batch 32, T=483
 K3W_SHAPES = [(4, 64, 256), (8, 64, 256), (16, 64, 256), (32, 64, 128), (64, 64, 64),
               (128, 64, 32), (256, 64, 2)]
-# (fuse, B, D, k, T, Cs, M, O): chip_smoke.py phase 10's timed blocks
-K5B_SHAPES = [(True, 32, 64, 2, 483, 16, 64, 64), (True, 32, 256, 2, 483, 2, 64, 2),
-              (False, 32, 4, 1, 483, 64, 64, 256)]
+# (D, C, O) of K3f at batch 32, T=483
+K3F_SHAPES = [(64, 64, 64), (4, 64, 256)]
+# (fuse, D, Cs, O) of the block-config step's distinct blocks (B=32, T=483,
+# M=64, k=2 where a block fuses), as chip_smoke.STEP_BLOCKS
+K5_SHAPES = [(False, 4, 64, 256), (True, 8, 64, 256), (True, 16, 64, 256), (True, 32, 32, 128),
+             (True, 64, 16, 64), (True, 128, 8, 32), (False, 8, 64, 256), (True, 256, 2, 2)]
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -108,12 +116,36 @@ def k3w(emit) -> None:
         torch.cuda.empty_cache()
 
 
-def k5b(emit) -> None:
+def k3f(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_fwd
+
+    for D, C, O in K3F_SHAPES:
+        g = torch.Generator(device="cuda").manual_seed(D + C + O)
+        x = torch.randn(32, D, 483, C, device="cuda", generator=g)
+        w = torch.randn(3, 3, C, O, device="cuda", generator=g) / (3 * C ** 0.5)
+        ms = _time_ms(lambda: conv3x3_fwd(x, w), 10)
+        emit(kernel="conv3x3_fwd", B=32, D=D, T=483, C=C, O=O, ms=ms,
+             sha256_out=_bits(conv3x3_fwd(x, w)))
+        del x
+        torch.cuda.empty_cache()
+
+
+def _bits(*tensors) -> str:
+    """A hash of the tensors' bits (``None`` skipped)."""
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors
+                                   if t is not None)).hexdigest()[:16]
+
+
+def k5(emit) -> None:
     import torch
 
     from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
 
-    for fuse, B, D, k, T, Cs, M, O in K5B_SHAPES:
+    B, T, M = 32, 483, 64
+    for fuse, D, Cs, O in K5_SHAPES:
+        k = 2 if fuse else 1
         g = torch.Generator(device="cuda").manual_seed(B * D + k + Cs + O)
 
         def r(*shape, scale=1.0):
@@ -124,9 +156,14 @@ def k5b(emit) -> None:
                   wy=r(M, 2, scale=0.3), zoff=r(2, scale=0.1),
                   w2=r(3, 3, M, O, scale=1 / (3 * M ** 0.5)))
         gxf, gout = r(B, D, T, M), r(B, D, T, O)
-        xf, _ = abf_block_fwd(**kw)
+        shape = dict(fuse=fuse, B=B, D=D, k=k, T=T, Cs=Cs, M=M, O=O)
+        ms = _time_ms(lambda: abf_block_fwd(**kw), 5)
+        xf, out = abf_block_fwd(**kw)
+        emit(kernel="abf_block_fwd", **shape, ms=ms, sha256_xf_out=_bits(xf, out))
+        del out
         ms = _time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout), 5)
-        emit(kernel="abf_block_bwd", fuse=fuse, B=B, D=D, k=k, T=T, Cs=Cs, M=M, O=O, ms=ms)
+        emit(kernel="abf_block_bwd", **shape, ms=ms,
+             sha256_grads=_bits(*abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)))
         del kw, gxf, gout, xf
         torch.cuda.empty_cache()
 
@@ -153,8 +190,9 @@ def main() -> None:
         records.append(rec)
 
     k1b(emit)
+    k3f(emit)
     k3w(emit)
-    k5b(emit)
+    k5(emit)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(records, indent=1))

@@ -87,10 +87,12 @@ def breakdown(label: str, step, iters: int, trace_dir: str | None) -> dict:
     per_name = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     top = sorted(per_name, key=_self_device_us, reverse=True)[:12]
     # the port's hand-written kernels (kernels/csrc/*.cu, each named after its
-    # source), summed over template instances
+    # source), summed over template instances; a name may carry namespaces,
+    # and its parameter list types of an anonymous namespace
     port = {}
     for e in per_name:
-        name = e.key.split("::")[-1].split("<")[0].split("(")[0]
+        name = (e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+                .split("::")[-1].split()[-1])
         if name.startswith(PORT_KERNEL_PREFIXES):
             ms, calls = port.get(name, (0.0, 0.0))
             port[name] = (ms + _self_device_us(e) / 1e3 / iters, calls + e.count / iters)

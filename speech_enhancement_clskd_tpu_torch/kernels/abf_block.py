@@ -24,11 +24,19 @@ residual (``y[:, d] = res[:, d // k]``, ``k = D / Dp``):
   CUDA tensor they launch the kernels of ``csrc/abf_block_fwd.cu`` and
   ``csrc/abf_block_bwd.cu`` (built at first use) or raise; nothing falls
   back.  On a CPU tensor they run ``abf_block_reference`` and
-  ``abf_block_bwd_reference``.  Their ``launches`` counters count kernel
-  launches only (K5b's main pass, its reduction and its dw2 passes count as
-  one).
+  ``abf_block_bwd_reference``.  Their ``launches`` counters count calls that
+  launched the kernels (K5f's xf pass and conv, K5b's adjoint, pixel pass,
+  reduction and dw2 passes count as one).
 
-Everything is float32; the kernels use f32 FMA, not TF32.
+Everything is float32.  Each kernel takes one of two routes by shape
+(``abf_block_fwd_route``, ``abf_block_bwd_route``).  ``"mma"``: the 3x3 conv
+(K5f's over xf; K5b's adjoint over g_out, into a scratch ``dxf``) on K3f's
+tensor-core tile, f32 operands split into two TF32 parts each and three
+products a pair ("3xTF32", within f32 rounding of an f32 sum).  ``"direct"``
+(K5f: O < 8 or M < 4, the decoder's mask block; K5b: O < 4 or M < 8): the
+conv in f32 FMA inside the kernel's own pass.  The 1x1 conv, the attention
+and their gradients are f32 FMA; K5b's dw2 is K3w's split-TF32 reduction
+(f32 FMA for O <= 8).
 """
 
 from __future__ import annotations
@@ -46,8 +54,8 @@ from .conv3x3 import conv3x3_reference, conv3x3_wgrad_reference
 FWD_SOURCE = "abf_block_fwd.cu"
 BWD_SOURCE = "abf_block_bwd.cu"
 SOURCES = (FWD_SOURCE, BWD_SOURCE)
-# the kernels stage a chunk of w1a for every tap channel, and K5b holds all
-# mid channels of a pixel in one block
+# the kernels stage all of w1a in shared memory, and K5b holds all mid
+# channels of a pixel in one block
 MAX_TAP_CHANNELS = 64
 MAX_MID_CHANNELS = 64
 
@@ -148,15 +156,23 @@ def _library(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
-        lib.abf_block_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
+        lib.abf_block_fwd.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
         lib.abf_block_fwd.restype = i32
+        lib.abf_block_fwd_route.argtypes = [i32] * 2
+        lib.abf_block_fwd_route.restype = i32
+        lib.abf_block_fwd_scratch_floats.argtypes = [i32] * 2
+        lib.abf_block_fwd_scratch_floats.restype = ctypes.c_long
     else:
         lib.abf_block_bwd_blocks.argtypes = [i32] * 3
         lib.abf_block_bwd_blocks.restype = i32
         lib.abf_block_bwd_wgrad_chunks.argtypes = [i32] * 3
         lib.abf_block_bwd_wgrad_chunks.restype = i32
-        lib.abf_block_bwd.argtypes = [ptr] * 17 + [i32] * 9 + [ptr]
+        lib.abf_block_bwd.argtypes = [ptr] * 19 + [i32] * 9 + [ptr]
         lib.abf_block_bwd.restype = i32
+        lib.abf_block_bwd_route.argtypes = [i32] * 2
+        lib.abf_block_bwd_route.restype = i32
+        lib.abf_block_bwd_split_floats.argtypes = [i32] * 2
+        lib.abf_block_bwd_split_floats.restype = ctypes.c_long
     return lib
 
 
@@ -165,9 +181,9 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``t``, or a copy of it that starts on 16 bytes (K5f reads tap, res
-    and wy as float4s where the widths allow; a view into a larger tensor
-    may start anywhere)."""
+    """``t``, or a copy of it that starts on 16 bytes (the kernels read the
+    maps as float4s where the widths allow; a view into a larger tensor may
+    start anywhere)."""
     return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -180,15 +196,18 @@ def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor,
         return abf_block_reference(tap, res, w1a, bvec, wxt, wy, zoff, w2)
     if res is None:
         wxt = wy = zoff = None
-    tap, res, wy = _aligned(tap), _aligned(res), _aligned(wy)
+    tap, res = _aligned(tap), _aligned(res)
     B, D, T, _ = tap.shape
     lib = _library(FWD_SOURCE)
     xf = torch.empty(B, D, T, M, device=tap.device, dtype=torch.float32)
     out = torch.empty(B, D, T, O, device=tap.device, dtype=torch.float32)
+    # route "mma": w2 split into TF32 parts, in the tensor-core tile's layout
+    n_split = lib.abf_block_fwd_scratch_floats(M, O)
+    split = torch.empty(n_split, device=tap.device, dtype=torch.float32) if n_split else None
     with torch.cuda.device(tap.device):
         err = lib.abf_block_fwd(
             tap.data_ptr(), _ptr(res), w1a.data_ptr(), bvec.data_ptr(), _ptr(wxt), _ptr(wy),
-            _ptr(zoff), w2.data_ptr(), xf.data_ptr(), out.data_ptr(), B, D,
+            _ptr(zoff), w2.data_ptr(), _ptr(split), xf.data_ptr(), out.data_ptr(), B, D,
             D if res is None else res.shape[1], T, Cs, M, O,
             torch.cuda.current_stream(tap.device).cuda_stream)
     if err != 0:
@@ -198,6 +217,24 @@ def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor,
 
 
 abf_block_fwd.launches = 0
+
+ROUTES = ("direct", "mma")
+
+
+def abf_block_fwd_route(M: int, O: int) -> str:
+    """The route K5f takes for M mid and O output channels, as its C entry
+    chooses it: ``"mma"`` (xf pass, then the conv on K3f's tensor-core tile)
+    or ``"direct"`` (xf and the conv in one f32 FMA pass).  Asks the built
+    library, so it needs the CUDA toolkit."""
+    return ROUTES[_library(FWD_SOURCE).abf_block_fwd_route(M, O)]
+
+
+def abf_block_bwd_route(M: int, O: int) -> str:
+    """The route of K5b's conv adjoint for M mid and O output channels, as its
+    C entry chooses it: ``"mma"`` (K3f's tensor-core tile into a scratch dxf)
+    or ``"direct"`` (formed in the pixel pass, f32 FMA).  Asks the built
+    library, so it needs the CUDA toolkit."""
+    return ROUTES[_library(BWD_SOURCE).abf_block_bwd_route(M, O)]
 
 
 def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
@@ -220,11 +257,17 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
     fuse = res is not None
     if not fuse:
         wxt = wy = zoff = None
+    tap, res, xf, gxf, gout = (_aligned(t) for t in (tap, res, xf, gxf, gout))
     Dp = res.shape[1] if fuse else D
     lib = _library(BWD_SOURCE)
     blocks = lib.abf_block_bwd_blocks(B, Dp, T)
     chunks = lib.abf_block_bwd_wgrad_chunks(M, O, B * D)
     dev = tap.device
+    # route "mma": the adjoint (with g_xf added) goes through a scratch dxf,
+    # and w2f split into TF32 parts
+    n_split = lib.abf_block_bwd_split_floats(M, O)
+    split = torch.empty(n_split, device=dev, dtype=torch.float32) if n_split else None
+    dxf = torch.empty(B, D, T, M, device=dev, dtype=torch.float32) if n_split else None
     n = Cs * M + 3 * M + 2 * Cs + 2
     gtap = torch.empty_like(tap)
     gres = torch.empty_like(res) if fuse else None
@@ -238,7 +281,7 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
             tap.data_ptr(), _ptr(res), w1a.data_ptr(), bvec.data_ptr(), _ptr(wxt), _ptr(wy),
             _ptr(zoff), w2f.data_ptr(), xf.data_ptr(), gxf.data_ptr(), gout.data_ptr(),
             gtap.data_ptr(), _ptr(gres), grads.data_ptr(), partial.data_ptr(), dw2.data_ptr(),
-            wscratch.data_ptr(), B, D, Dp, T, Cs, M, O, blocks, chunks,
+            wscratch.data_ptr(), _ptr(dxf), _ptr(split), B, D, Dp, T, Cs, M, O, blocks, chunks,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"abf_block_bwd launch failed: CUDA error {err}")

@@ -1,6 +1,6 @@
-// The whole ABF block, backward, for Hopper (sm_90a): every gradient of the
-// block in one main pass over the maps, the conv weight gradient in a split
-// reduction, and the small gradients' partials added in a fixed order.
+// The whole ABF block, backward, for Hopper (sm_90a): the conv adjoint, one
+// pass over the pixels for every other gradient of the block, the small
+// gradients' partials added in a fixed order, and the conv weight gradient.
 //
 // Replaces speech_enhancement_clskd_tpu/ops/pallas/abf_block.py::_bwd_kernel
 // (reached through _bwd_raw).  Same function: given the forward's inputs (see
@@ -15,342 +15,567 @@
 //     dw1a = sum tap^T g_xhat, dbvec = sum g_xhat, dwxt = sum tap^T dp,
 //     dwy = sum y^T dp, dzoff = sum dp, dw2 = the conv weight gradient of
 //     (xf, g_out)
-// with xhat and z recomputed from tap and res.  All arithmetic is f32 FMA.
+// with xhat and z recomputed from tap and res.
 //
 // What bounds it on this card.  Two 3x3 convs' worth of operations (the
-// adjoint and dw2, 2 * B*D*T * 9M * O each) plus 4 * Cs * M a pixel for the
-// 1x1 conv's two products, against reading tap, res, xf, g_xf and g_out and
-// writing g_tap and g_res once: the f32 FMA rate at every block but the mask
-// block (O = 2), where the bytes do.
+// adjoint and dw2, 2 * B*D*T * 9M * O each, as three TF32 tensor-core
+// products each where O > 8) plus 6 * Cs * M a pixel for the 1x1 conv's
+// products, against reading tap, res, xf, g_xf and g_out and writing g_tap
+// and g_res once: the operations at every block but the mask block (O = 2),
+// where the bytes do.
 //
-// Design.
-//   1. abf_block_bwd_kernel.  A work item is one residual row (b, r) and
-//      kBM time steps; a fixed number of blocks (kBlocks, fewer for small
-//      maps) each take a fixed contiguous range of items and walk them in
-//      order.  Per item the block keeps the residual tile y and the sum of
-//      g_y in shared memory and walks the k freq rows d that read it:
-//        a. the conv adjoint for the row's tile, in K3f's tile
-//           (conv3x3_tiles.cuh) over a 1-row halo of g_out: kBM time steps x
-//           all M <= 64 mid channels, one 4 x 4 register tile a thread; plus
-//           g_xf, into dxf in shared memory (never device memory), zero past
-//           T, so the pad columns add nothing to dbvec/dzoff;
-//        b. the tap tile into shared memory (over the conv's staging);
-//        c. each warp 8 pixels: xhat, the logits, dz and dp, the 32 lane
-//           sums reduced together (xor butterfly);
-//        d. g_y added into the tile's sum, g_xhat over dxf in place;
-//        e. g_tap, 4 pixels x 4 channels a thread, written; and the
-//           parameter sums: dw1a 4 x 4 a thread in registers, dbvec, dwxt,
-//           dwy and dzoff in registers of the first n_small threads.
+// Design.  The adjoint takes one of two routes by shape alone
+// (abf_block_bwd_route: K3f's test with O input and M output channels, O >= 4
+// and M >= 8 take "mma"):
+//   1. route "mma": the adjoint on K3f's split-TF32 tensor-core tile
+//      (conv3x3_mma.cuh, weights split once a call, a fresh accumulator per
+//      8-channel chunk against the tensor cores' truncating adds), with g_xf
+//      added in its epilogue, writes dxf once to a scratch [B, D, T, M]: a
+//      map's worth of bytes each way, where the first design ran the adjoint
+//      in the f32 FMA tile inside the pass at 3-7x the tile's time.
+//   2. abf_block_bwd_pass_kernel: a work item is one residual row (b, r) and
+//      kBM time steps; a fixed number of blocks (kBlocks, two an SM, fewer
+//      for small maps) each take a fixed contiguous range of items and walk
+//      them in order.  Thread (hi, lo) of 256 owns pixels hi + 16 i and mid
+//      channels 4 lo + j (i, j < 4) of the item's tile; its y and its sum of
+//      g_y over the k rows stay in shared memory it alone touches.  Per freq
+//      row d, three barriers:
+//        a. the tap tile into shared memory (one contiguous run, float4s,
+//           zeros past T and up to a whole quad of channels), and the
+//           thread's dxf from the scratch; on route "direct" (the mask
+//           block, O = 2, or M < 8) dxf is formed here instead from the g_out
+//           halo of 3 rows x (kBM + 2) steps x kOCh channels and w2f's slices
+//           staged, 9 x O FMAs a dxf element, plus g_xf;
+//        b. xhat (4 x 4 a thread: float4s of the tap tile against float4s of
+//           w1a; none without a residual), the thread's parts of dxf . xhat,
+//           dxf . y and the two logits, added over the 16 lanes of a pixel by
+//           xor shuffles; z (the SFU's exp and reciprocal), dp; g_xhat into
+//           shared memory, g_y into the thread's sum, and the small sums
+//           (dbvec, dwxt, dwy, dzoff) in registers;
+//        c. g_tap on 4 pixels x 4 tap channels a thread over a part of the
+//           mid channels: below 64 tap channels the mid channels are split
+//           16 / (tap quads) ways so that every thread works, the parts added
+//           by xor shuffles; written;
+//        d. dw1a on 4 tap channels x 4 mid channels a thread over a part of
+//           the tile's pixels (split the same way), added to the thread's
+//           float4s in shared memory (registers only while it adds).
 //      After its k rows the item writes g_res once: no two blocks write the
-//      same g_res, nothing is added atomically.  At the end each block writes
+//      same g_res, nothing is added atomically.  At the end each block adds
+//      its dw1a parts and its threads' small sums in a fixed order and writes
 //      one partial [dw1a | dbvec | dwxt | dwy | dzoff].
-//   2. reduce_partials_kernel adds the blocks' partials in block order.
-//   3. dw2: K3w's split reduction (conv3x3_tiles.cuh::wgrad_run, on K3w's
+//   3. reduce_partials_kernel adds the blocks' partials in block order.
+//   4. dw2: K3w's split reduction (conv3x3_tiles.cuh::wgrad_run, on K3w's
 //      route by shape: split TF32 on the tensor cores for O > 8) over xf and
 //      g_out, not K3w's wrapper, so K3w's launch count stays at 0 on this path.
-// Every split depends only on the shape, so every run gives the same bits.
-// Offsets are 64-bit.
+// The 1x1 conv's products and the blend are f32 FMA.  Every split depends
+// only on the shape, so every run gives the same bits.  Offsets are 64-bit.
 //
 // Interface: plain C, bound with ctypes.  res == NULL means no fuse (wxt, wy,
 // zoff, g_res are then not touched, and the dwxt/dwy/dzoff slots come out 0).
-// abf_block_bwd_blocks(B, Dp, T) gives the main pass's block count (pass
-// Dp = D without a residual) and abf_block_bwd_wgrad_chunks(M, O, B*D) the
-// dw2 pass's chunks; the caller allocates g_tap, g_res, grads [Cs*M + 3M +
-// 2Cs + 2], dw2 [3, 3, M, O], the partials (blocks x the grads' length) and
-// the dw2 scratch (chunks * 9 * M * O).  The return value is
-// cudaGetLastError() after each launch.
+// abf_block_bwd_blocks(B, Dp, T) gives the pass's block count (pass Dp = D
+// without a residual), abf_block_bwd_wgrad_chunks(M, O, B*D) the dw2 pass's
+// chunks, abf_block_bwd_route(M, O) the adjoint's route (0 direct, 1 mma) and
+// abf_block_bwd_split_floats(M, O) its split weights' floats; the caller
+// allocates g_tap, g_res, grads [Cs*M + 3M + 2Cs + 2], dw2 [3, 3, M, O], the
+// partials (blocks x the grads' length), the dw2 scratch (chunks * 9 * M * O)
+// and, on route "mma", dxf [B, D, T, M] and the split weights (16-byte
+// aligned).  The return value is cudaGetLastError() after each launch.
 
 #include <cuda_runtime.h>
 
+#include "conv3x3_mma.cuh"
 #include "conv3x3_tiles.cuh"
 
 namespace {
 
-using namespace conv3x3_tiles;
-
 constexpr int kBM = 64;        // time steps of a work item
-constexpr int kBN = 64;        // mid channels of the adjoint's tile: all of M
 constexpr int kMaxCs = 64;
-constexpr int kMaxM = kBN;
+constexpr int kMaxM = 64;
 constexpr int kLd = 68;        // row stride of the [kBM][64] tiles (float4-aligned)
-constexpr int kThreads = fwd_threads<kBM, kBN>();  // 256
-constexpr int kWarps = kThreads / 32;
-constexpr int kPixPerWarp = kBM / kWarps;  // 8
+constexpr int kThreads = 256;  // 16 (pixels) x 16 (channel quads)
 constexpr int kBlocks = 264;   // two a streaming multiprocessor on an H100
-// shared memory, in floats: the conv staging (g_out halo + weights), which
-// the tap tile later reuses; dxf, y, the g_y sum, w1a; z and dp a pixel
-constexpr int kGs = 3 * (kBM + 2) * kXs;          // 1782
-constexpr int kGsPad = (kGs + 3) / 4 * 4;         // 1784
-constexpr int kConv = kGsPad + 9 * kKC * kBN;     // + 4608
-constexpr int kTile = kBM * kLd;                  // 4352
-constexpr int kUnion = kConv > kTile ? kConv : kTile;
-constexpr int kSmemFloats = kUnion + 4 * kTile + 4 * kBM;
-constexpr int kSmemBytes = kSmemFloats * 4;       // 96,224
+constexpr int kOCh = 2;        // g_out channels a stage of the direct adjoint (the mask block's O)
+// shared memory, in floats
+constexpr int kTile = kBM * kLd;             // 4352
+constexpr int kW1 = 0;                       // w1a [kMaxCs][kLd], zeros past Cs, M
+constexpr int kTaps = kW1 + kMaxCs * kLd;    // tap tile [kBM][kLd]
+constexpr int kGx = kTaps + kTile;           // g_xhat tile
+constexpr int kYs = kGx + kTile;             // y tile (thread-owned)
+constexpr int kGys = kYs + kTile;            // the g_y sum (thread-owned)
+constexpr int kBv = kGys + kTile;            // bvec [kMaxM]
+constexpr int kWx = kBv + kMaxM;             // wxt [kMaxCs][2]
+constexpr int kWy = kWx + 2 * kMaxCs;        // wy [kMaxM][2]
+constexpr int kZdp = kWy + 2 * kMaxM;        // dp [kBM][2]
+constexpr int kAw = kZdp + 2 * kBM;          // dw1a sums [4][kThreads] float4s (thread-owned)
+constexpr int kGs = kAw + 16 * kThreads;     // direct: g_out halo [3][kBM + 2][kOCh]
+constexpr int kWs = kGs + 3 * (kBM + 2) * kOCh;  // direct: w2f [9][kOCh][kMaxM]
+constexpr int kSmemDirect = (kWs + 9 * kOCh * kMaxM) * 4;  // 111,408
+constexpr int kSmemMma = kGs * 4;                          // 105,216
 
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
+// the logistic through the SFU's exp2 and reciprocal (a few ulp; every lane
+// of a pixel row computes its 4 pixels' gates, so this sits on the pass's path)
+__device__ __forceinline__ float sigmoid_f32(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 
-__global__ void __launch_bounds__(kThreads, 2)
-abf_block_bwd_kernel(const float* __restrict__ tap, const float* __restrict__ res,
-                     const float* __restrict__ w1a, const float* __restrict__ bvec,
-                     const float* __restrict__ wxt, const float* __restrict__ wy,
-                     const float* __restrict__ zoff, const float* __restrict__ w2f,
-                     const float* __restrict__ gxf, const float* __restrict__ gout,
-                     float* __restrict__ gtap, float* __restrict__ gres,
-                     float* __restrict__ partial, long items, long items_per_block, int D,
-                     int k, int T, int Cs, int M, int O) {
+// p[m0 .. m0 + 3], zeros at and past M (VEC: one float4; p + m0 16-byte aligned)
+__device__ __forceinline__ float4 load4(const float* p, int m0, int M, bool vec) {
+  if (m0 >= M) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (vec) return __ldg(reinterpret_cast<const float4*>(p + m0));
+  return make_float4(__ldg(p + m0), m0 + 1 < M ? __ldg(p + m0 + 1) : 0.0f,
+                     m0 + 2 < M ? __ldg(p + m0 + 2) : 0.0f, m0 + 3 < M ? __ldg(p + m0 + 3) : 0.0f);
+}
+
+__device__ __forceinline__ void store4(float* p, int m0, int M, bool vec, float4 v) {
+  if (m0 >= M) return;
+  if (vec) {
+    *reinterpret_cast<float4*>(p + m0) = v;
+    return;
+  }
+  p[m0] = v.x;
+  if (m0 + 1 < M) p[m0 + 1] = v.y;
+  if (m0 + 2 < M) p[m0 + 2] = v.z;
+  if (m0 + 3 < M) p[m0 + 3] = v.w;
+}
+
+struct Args {
+  const float* tap;
+  const float* res;
+  const float* w1a;
+  const float* bvec;
+  const float* wxt;
+  const float* wy;
+  const float* zoff;
+  const float* w2f;
+  const float* gxf;
+  const float* gout;
+  const float* dxf;  // route "mma": the adjoint with g_xf added
+  float* gtap;
+  float* gres;
+  float* partial;
+  long items, items_per_block;
+  int D, k, T, Cs, M, O;
+};
+
+// ws[k][o][m] = w2f[k, o0 + o, m] (zeros past O and M)
+__device__ __forceinline__ void stage_w2f(float* ws, const Args& a, int o0) {
+  for (int e = threadIdx.x; e < 9 * kOCh * kMaxM; e += kThreads) {
+    const int m = e % kMaxM, o = (e / kMaxM) % kOCh, kk = e / (kMaxM * kOCh);
+    ws[e] = (o0 + o < a.O && m < a.M) ? __ldg(a.w2f + ((long)kk * a.O + o0 + o) * a.M + m) : 0.0f;
+  }
+}
+
+template <bool DIRECT>
+__global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
-  auto gs = reinterpret_cast<float (*)[kBM + 2][kXs]>(smem);
-  auto ws = reinterpret_cast<float (*)[kKC][kBN]>(smem + kGsPad);
-  float* taps = smem;  // [kBM][kLd], over the conv staging
-  float* dxs = smem + kUnion;
-  float* ys = dxs + kTile;
-  float* gys = ys + kTile;
-  float* w1s = gys + kTile;  // w1s[c * kLd + m] = w1a[c, m]
-  float* zdp = w1s + kTile;  // [kBM][4]: z0, z1, dp0, dp1
+  float* w1s = smem + kW1;
+  float* taps = smem + kTaps;
+  float* gxs = smem + kGx;
+  float* ys = smem + kYs;
+  float* gys = smem + kGys;
+  const float* bvs = smem + kBv;
+  const float* wxs = smem + kWx;
+  const float* wys = smem + kWy;
+  float* zdp = smem + kZdp;
+  float* gs = smem + kGs;
+  float* ws = smem + kWs;
 
-  const bool fuse = res != nullptr;
+  const bool fuse = a.res != nullptr;
+  const int D = a.D, k = a.k, T = a.T, Cs = a.Cs, M = a.M, O = a.O;
   const int Dp = D / k;
   const int t_tiles = (T + kBM - 1) / kBM;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid / 32;
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);  // the adjoint's tile
-  const int lo = tid % 16, hi = tid / 16;                     // 16 x 16 thread grid
-  const int n_small = 3 * M + 2 * Cs + 2;
+  const int lo = tid % 16, hi = tid / 16;
+  const int m0 = 4 * lo;
+  const bool vec_m = M % 4 == 0, vec_c = Cs % 4 == 0;
+  const int mq4 = (M + 3) / 4;   // quads of mid channels
+  const int cq4 = (Cs + 3) / 4;  // quads of tap channels (the tap tile is zero past Cs)
+  // The 1x1 conv's products on 4 x 4 register tiles with float4 operands.
+  // ncq: cq4 rounded up to a power of two; nsp = 16 / ncq ways to split the
+  // rest of the work, so that every thread works at any tap width:
+  //   g_tap: thread (pixel quad pq, channel quad cq, part sp) over mid quads
+  //          sp, sp + nsp, ...; the nsp parts added by xor shuffles;
+  //   dw1a:  thread (pixel part sp, channel quad cq, mid quad lo) over pixels
+  //          sp, sp + nsp, ...; the parts added in order at the end.
+  int ncq = 1;
+  while (ncq < cq4) ncq *= 2;
+  const int nsp = 16 / ncq;
+  const int sp_g = tid % nsp, cq_g = (tid / nsp) % ncq, pq_g = tid / 16;
+  const int cq_w = hi % ncq, sp_w = hi / ncq;
 
-  for (int e = tid; e < kTile; e += kThreads) {
+  for (int e = tid; e < kMaxCs * kLd; e += kThreads) {
     const int c = e / kLd, m = e % kLd;
-    w1s[e] = (c < Cs && m < M) ? __ldg(w1a + (long)c * M + m) : 0.0f;
+    w1s[e] = (c < Cs && m < M) ? __ldg(a.w1a + (long)c * M + m) : 0.0f;
   }
-  float aw[4][4];  // dw1a[c = hi + 16 i, m = 4 lo + j]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) aw[i][j] = 0.0f;
-  float as[2] = {0.0f, 0.0f};  // small gradient slots tid and tid + kThreads
+  for (int e = tid; e < kMaxM; e += kThreads) smem[kBv + e] = e < M ? __ldg(a.bvec + e) : 0.0f;
+  for (int e = tid; e < 2 * kMaxCs; e += kThreads)
+    smem[kWx + e] = (fuse && e < 2 * Cs) ? __ldg(a.wxt + e) : 0.0f;
+  for (int e = tid; e < 2 * kMaxM; e += kThreads)
+    smem[kWy + e] = (fuse && e < 2 * M) ? __ldg(a.wy + e) : 0.0f;
+  if (DIRECT && O <= kOCh) stage_w2f(ws, a, 0);  // one stage holds all of w2f
+  __syncthreads();
+  const float zo0 = fuse ? __ldg(a.zoff) : 0.0f, zo1 = fuse ? __ldg(a.zoff + 1) : 0.0f;
 
-  const long begin = (long)blockIdx.x * items_per_block;
-  const long end = begin + items_per_block < items ? begin + items_per_block : items;
+  // dw1a[4 cq_w + e][m0 + j] over pixels sp_w (mod nsp): the thread's own
+  // float4s of shared memory, in registers only while step d adds to them
+  float4* aws = reinterpret_cast<float4*>(smem + kAw) + tid;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) aws[e * kThreads] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float sb[4];     // dbvec[m0 + j]
+  float sy[4][2];  // dwy[m0 + j][jj]
+  float sx[4][2];  // dwxt[lo + 16 cc][jj]
+  float sz[2];     // dzoff[jj] (the same in every lane of a pixel row)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    sb[i] = 0.0f;
+    sy[i][0] = sy[i][1] = sx[i][0] = sx[i][1] = 0.0f;
+  }
+  sz[0] = sz[1] = 0.0f;
+
+  const long begin = (long)blockIdx.x * a.items_per_block;
+  const long end = begin + a.items_per_block < a.items ? begin + a.items_per_block : a.items;
   for (long item = begin; item < end; ++item) {
     const long br = item / t_tiles;  // b * Dp + r
     const int t0 = (int)(item - br * t_tiles) * kBM;
     const long b = br / Dp;
     const int r = (int)(br - b * Dp);
-    // the residual tile and the g_y sum
-    for (int e = tid; e < kTile; e += kThreads) {
-      const int p = e / kLd, m = e % kLd, t = t0 + p;
-      ys[e] = (fuse && t < T && m < M) ? __ldg(res + (br * T + t) * (long)M + m) : 0.0f;
-      gys[e] = 0.0f;
+    // the thread's y and g_y sum
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = hi + 16 * i, t = t0 + p;
+      const float4 y = (fuse && t < T) ? load4(a.res + (br * T + t) * (long)M, m0, M, vec_m)
+                                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(ys + p * kLd + m0) = y;
+      *reinterpret_cast<float4*>(gys + p * kLd + m0) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
     for (int kk = 0; kk < k; ++kk) {
       const int d = r * k + kk;
       const long bd = b * D + d;
-      // a. conv adjoint: acc[i][j] = dxf at (t0 + 4 ty + i, 4 tx + j) less g_xf
-      float acc[kTM][kTN];
-      zero_tile(acc);
-      for (int c0 = 0; c0 < O; c0 += kKC) {
-        for (int e = tid; e < 3 * (kBM + 2) * kKC; e += kThreads) {
-          const int c = e % kKC;
-          const int j = (e / kKC) % (kBM + 2);
-          const int rr = e / (kKC * (kBM + 2));
-          const int dr = d + rr - 1, t = t0 + j - 1, cc = c0 + c;
-          float v = 0.0f;
-          if (dr >= 0 && dr < D && t >= 0 && t < T && cc < O)
-            v = __ldg(gout + ((bd + rr - 1) * T + t) * (long)O + cc);
-          gs[rr][j][c] = v;
-        }
-        stage_weights<kBM, kBN>(ws, w2f, c0, 0, O, M);
-        __syncthreads();
-        fma_chunk<kBM, kBN>(gs, ws, acc, tx, ty);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const int p = ty * kTM + i, t = t0 + p;
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const int m = tx * kTN + j;
-          dxs[p * kLd + m] =
-              (t < T && m < M) ? acc[i][j] + __ldg(gxf + (bd * T + t) * (long)M + m) : 0.0f;
-        }
-      }
-      // b. the tap tile (the conv staging is free after the last sync)
-      for (int e = tid; e < kTile; e += kThreads) {
-        const int p = e / kLd, c = e % kLd, t = t0 + p;
-        taps[e] = (t < T && c < Cs) ? __ldg(tap + (bd * T + t) * (long)Cs + c) : 0.0f;
-      }
-      __syncthreads();
-      // c. z and dp: warp w takes pixels w, w + 8, ...; per pixel the lane
-      //    sums (dxf . xhat, dxf . y, logit 0, logit 1), all reduced together
-      if (fuse) {
-        float part[kPixPerWarp][4];
-#pragma unroll
-        for (int i = 0; i < kPixPerWarp; ++i) {
-          const int p = warp + i * kWarps;
-          const float* tp = taps + p * kLd;
-          const float* dp_ = dxs + p * kLd;
-          const float* yp = ys + p * kLd;
-          float s0 = 0.0f, s1 = 0.0f, l0 = 0.0f, l1 = 0.0f;
-          for (int m = lane; m < M; m += 32) {
-            float xh = __ldg(bvec + m);
-            for (int c = 0; c < Cs; ++c) xh = fmaf(tp[c], w1s[c * kLd + m], xh);
-            const float dx = dp_[m], y = yp[m];
-            s0 = fmaf(dx, xh, s0);
-            s1 = fmaf(dx, y, s1);
-            l0 = fmaf(y, __ldg(wy + 2 * m), l0);
-            l1 = fmaf(y, __ldg(wy + 2 * m + 1), l1);
+      // a. the tap tile, one contiguous run (zeros past T and past Cs up to a
+      //    whole quad), and the thread's dxf
+      {
+        const long tbase = (bd * T + t0) * (long)Cs;
+        const int n = (T - t0 < kBM ? T - t0 : kBM) * Cs;  // floats in the map
+        if (vec_c) {
+          for (int e = tid; e < kBM * Cs / 4; e += kThreads) {
+            const int p = 4 * e / Cs, c = 4 * e - p * Cs;
+            *reinterpret_cast<float4*>(taps + p * kLd + c) =
+                4 * e < n ? __ldg(reinterpret_cast<const float4*>(a.tap + tbase) + e)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           }
-          for (int c = lane; c < Cs; c += 32) {
-            l0 = fmaf(tp[c], __ldg(wxt + 2 * c), l0);
-            l1 = fmaf(tp[c], __ldg(wxt + 2 * c + 1), l1);
+        } else {
+          for (int e = tid; e < kBM * 4 * cq4; e += kThreads) {
+            const int p = e / (4 * cq4), c = e - p * 4 * cq4, f = p * Cs + c;
+            taps[p * kLd + c] = (c < Cs && f < n) ? __ldg(a.tap + tbase + f) : 0.0f;
           }
-          part[i][0] = s0;
-          part[i][1] = s1;
-          part[i][2] = l0;
-          part[i][3] = l1;
+        }
+      }
+      float dx[4][4];  // the thread's dxf
+      if constexpr (DIRECT) {
+        // dxf = g_xf + conv3x3(g_out, w2f) for the thread's pixels and channels
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dx[i][j] = 0.0f;
+        for (int o0 = 0; o0 < O; o0 += kOCh) {
+          if (o0 > 0) __syncthreads();  // the previous stage is read
+          for (int e = tid; e < 3 * (kBM + 2) * kOCh; e += kThreads) {
+            const int o = e % kOCh, j = (e / kOCh) % (kBM + 2), rr = e / (kOCh * (kBM + 2));
+            const int dr = d + rr - 1, t = t0 + j - 1, oc = o0 + o;
+            gs[e] = (dr >= 0 && dr < D && t >= 0 && t < T && oc < O)
+                        ? __ldg(a.gout + ((bd + rr - 1) * T + t) * (long)O + oc)
+                        : 0.0f;
+          }
+          if (O > kOCh) stage_w2f(ws, a, o0);
+          __syncthreads();
+          const int on = O - o0 < kOCh ? O - o0 : kOCh;
+          for (int rs = 0; rs < 9; ++rs) {
+            const int rr = rs / 3, s = rs - 3 * rr;
+            const float* gr = gs + (rr * (kBM + 2) + hi + s) * kOCh;
+            for (int o = 0; o < on; ++o) {
+              const float4 w = *reinterpret_cast<const float4*>(ws + (rs * kOCh + o) * kMaxM + m0);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const float g = gr[16 * i * kOCh + o];
+                dx[i][0] = fmaf(g, w.x, dx[i][0]);
+                dx[i][1] = fmaf(g, w.y, dx[i][1]);
+                dx[i][2] = fmaf(g, w.z, dx[i][2]);
+                dx[i][3] = fmaf(g, w.w, dx[i][3]);
+              }
+            }
+          }
         }
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
+        for (int i = 0; i < 4; ++i) {
+          const int t = t0 + hi + 16 * i;
+          const float4 g = t < T ? load4(a.gxf + (bd * T + t) * (long)M, m0, M, vec_m)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          const bool in = t < T;
+          dx[i][0] = in && m0 < M ? g.x + dx[i][0] : 0.0f;
+          dx[i][1] = in && m0 + 1 < M ? g.y + dx[i][1] : 0.0f;
+          dx[i][2] = in && m0 + 2 < M ? g.z + dx[i][2] : 0.0f;
+          dx[i][3] = in && m0 + 3 < M ? g.w + dx[i][3] : 0.0f;
+        }
+      } else {
 #pragma unroll
-          for (int i = 0; i < kPixPerWarp; ++i)
+        for (int i = 0; i < 4; ++i) {
+          const int t = t0 + hi + 16 * i;
+          const float4 g = t < T ? load4(a.dxf + (bd * T + t) * (long)M, m0, M, vec_m)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          dx[i][0] = g.x, dx[i][1] = g.y, dx[i][2] = g.z, dx[i][3] = g.w;
+        }
+      }
+      __syncthreads();  // the tap tile
+      // b. xhat (4 pixels x 4 mid channels, tap quads against w1a quads), the
+      //    per-pixel sums, z and dp; g_xhat, g_y and the small sums
+      float dp0[4], dp1[4];
+      {
+        float xh[4][4];
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-              part[i][q] += __shfl_xor_sync(0xffffffffu, part[i][q], off);
-        if (lane < kPixPerWarp) {  // lane i writes pixel warp + 8 i
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) xh[i][j] = bvs[m0 + j];
+        for (int cq = 0; fuse && cq < cq4; ++cq) {
+          float4 tq[4], wq[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            tq[i] = *reinterpret_cast<const float4*>(taps + (hi + 16 * i) * kLd + 4 * cq);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            wq[e] = *reinterpret_cast<const float4*>(w1s + (4 * cq + e) * kLd + m0);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float tv[4] = {tq[i].x, tq[i].y, tq[i].z, tq[i].w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              xh[i][0] = fmaf(tv[e], wq[e].x, xh[i][0]);
+              xh[i][1] = fmaf(tv[e], wq[e].y, xh[i][1]);
+              xh[i][2] = fmaf(tv[e], wq[e].z, xh[i][2]);
+              xh[i][3] = fmaf(tv[e], wq[e].w, xh[i][3]);
+            }
+          }
+        }
+        float part[4][4];  // [pixel i][dxf . xhat, dxf . y, logit 0, logit 1]
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = hi + 16 * i;
+          if (!fuse) break;  // no residual: z and dp stay (1, 0) and (0, 0)
+          const float4 y4 = *reinterpret_cast<const float4*>(ys + p * kLd + m0);
+          const float y[4] = {y4.x, y4.y, y4.z, y4.w};
           float s0 = 0.0f, s1 = 0.0f, l0 = 0.0f, l1 = 0.0f;
 #pragma unroll
-          for (int i = 0; i < kPixPerWarp; ++i)
-            if (lane == i) s0 = part[i][0], s1 = part[i][1], l0 = part[i][2], l1 = part[i][3];
-          const float z0 = sigmoid_f32(l0 + __ldg(zoff)), z1 = sigmoid_f32(l1 + __ldg(zoff + 1));
-          float* q = zdp + 4 * (warp + lane * kWarps);
-          q[0] = z0;
-          q[1] = z1;
-          q[2] = z0 * (1.0f - z0) * s0;
-          q[3] = z1 * (1.0f - z1) * s1;
+          for (int j = 0; j < 4; ++j) {
+            s0 = fmaf(dx[i][j], xh[i][j], s0);
+            s1 = fmaf(dx[i][j], y[j], s1);
+            l0 = fmaf(y[j], wys[2 * (m0 + j)], l0);
+            l1 = fmaf(y[j], wys[2 * (m0 + j) + 1], l1);
+          }
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const int c = lo + 16 * cc;
+            if (c < Cs) {
+              const float x = taps[p * kLd + c];
+              l0 = fmaf(x, wxs[2 * c], l0);
+              l1 = fmaf(x, wxs[2 * c + 1], l1);
+            }
+          }
+          part[i][0] = s0, part[i][1] = s1, part[i][2] = l0, part[i][3] = l1;
         }
-      } else if (lane < kPixPerWarp) {
-        float* q = zdp + 4 * (warp + lane * kWarps);
-        q[0] = 1.0f;
-        q[1] = q[2] = q[3] = 0.0f;
+        if (fuse) {  // over the 16 lanes of a pixel
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int v = 0; v < 4; ++v)
+                part[i][v] += __shfl_xor_sync(0xffffffffu, part[i][v], off);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int p = hi + 16 * i;
+          float z0 = 1.0f, z1 = 0.0f;
+          dp0[i] = dp1[i] = 0.0f;
+          if (fuse) {
+            z0 = sigmoid_f32(part[i][2] + zo0);
+            z1 = sigmoid_f32(part[i][3] + zo1);
+            dp0[i] = z0 * (1.0f - z0) * part[i][0];
+            dp1[i] = z1 * (1.0f - z1) * part[i][1];
+          }
+          if (lo == 0) zdp[2 * p] = dp0[i], zdp[2 * p + 1] = dp1[i];
+          const float4 y4 = *reinterpret_cast<const float4*>(ys + p * kLd + m0);
+          const float y[4] = {y4.x, y4.y, y4.z, y4.w};
+          float gx[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            gx[j] = dx[i][j] * z0;
+            sb[j] += gx[j];
+          }
+          *reinterpret_cast<float4*>(gxs + p * kLd + m0) = make_float4(gx[0], gx[1], gx[2], gx[3]);
+          if (fuse) {
+            const float4 gy4 = *reinterpret_cast<const float4*>(gys + p * kLd + m0);
+            float gy[4] = {gy4.x, gy4.y, gy4.z, gy4.w};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              gy[j] += fmaf(dp1[i], wys[2 * (m0 + j) + 1], fmaf(dp0[i], wys[2 * (m0 + j)], dx[i][j] * z1));
+              sy[j][0] = fmaf(y[j], dp0[i], sy[j][0]);
+              sy[j][1] = fmaf(y[j], dp1[i], sy[j][1]);
+            }
+            *reinterpret_cast<float4*>(gys + p * kLd + m0) = make_float4(gy[0], gy[1], gy[2], gy[3]);
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+              const int c = lo + 16 * cc;
+              const float x = c < Cs ? taps[p * kLd + c] : 0.0f;
+              sx[cc][0] = fmaf(x, dp0[i], sx[cc][0]);
+              sx[cc][1] = fmaf(x, dp1[i], sx[cc][1]);
+            }
+            sz[0] += dp0[i];
+            sz[1] += dp1[i];
+          }
+        }
       }
-      __syncthreads();
-      // d. g_y into its sum, g_xhat over dxf
-      for (int e = tid; e < kTile; e += kThreads) {
-        const int p = e / kLd, m = e % kLd;
-        if (m >= M) continue;  // dxs stays 0 there
-        const float* q = zdp + 4 * p;
-        const float dx = dxs[e];
-        if (fuse)
-          gys[e] += fmaf(q[3], __ldg(wy + 2 * m + 1), fmaf(q[2], __ldg(wy + 2 * m), dx * q[1]));
-        dxs[e] = dx * q[0];
-      }
-      __syncthreads();
-      // e. g_tap[p = hi + 16 i, c = lo + 16 j]
+      __syncthreads();  // g_xhat and dp
+      // c. g_tap[4 pq_g + i][4 cq_g + e]: this part's mid quads, then the nsp
+      //    parts added by xor shuffles (adjacent lanes; every lane shuffles, a
+      //    quad past the tap's channels with nothing to add)
       {
         float ga[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) ga[i][j] = 0.0f;
-        for (int m = 0; m < M; m += 4) {
+          for (int e = 0; e < 4; ++e) ga[i][e] = 0.0f;
+        for (int mq = sp_g; cq_g < cq4 && mq < mq4; mq += nsp) {
           float4 gx[4], wv[4];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
-            gx[i] = *reinterpret_cast<const float4*>(dxs + (hi + 16 * i) * kLd + m);
+            gx[i] = *reinterpret_cast<const float4*>(gxs + (4 * pq_g + i) * kLd + 4 * mq);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            wv[j] = *reinterpret_cast<const float4*>(w1s + (lo + 16 * j) * kLd + m);
+          for (int e = 0; e < 4; ++e)
+            wv[e] = *reinterpret_cast<const float4*>(w1s + (4 * cq_g + e) * kLd + 4 * mq);
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              ga[i][j] = fmaf(gx[i].x, wv[j].x, ga[i][j]);
-              ga[i][j] = fmaf(gx[i].y, wv[j].y, ga[i][j]);
-              ga[i][j] = fmaf(gx[i].z, wv[j].z, ga[i][j]);
-              ga[i][j] = fmaf(gx[i].w, wv[j].w, ga[i][j]);
+            for (int e = 0; e < 4; ++e) {
+              ga[i][e] = fmaf(gx[i].x, wv[e].x, ga[i][e]);
+              ga[i][e] = fmaf(gx[i].y, wv[e].y, ga[i][e]);
+              ga[i][e] = fmaf(gx[i].z, wv[e].z, ga[i][e]);
+              ga[i][e] = fmaf(gx[i].w, wv[e].w, ga[i][e]);
             }
         }
+        for (int off = 1; off < nsp; off <<= 1)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) ga[i][e] += __shfl_xor_sync(0xffffffffu, ga[i][e], off);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const int p = hi + 16 * i, t = t0 + p;
-          if (t >= T) continue;
-          const float dp0 = zdp[4 * p + 2], dp1 = zdp[4 * p + 3];
+          const int p = 4 * pq_g + i, t = t0 + p;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = lo + 16 * j;
-            if (c >= Cs) continue;
-            float v = ga[i][j];
-            if (fuse) v = fmaf(dp1, __ldg(wxt + 2 * c + 1), fmaf(dp0, __ldg(wxt + 2 * c), v));
-            gtap[(bd * T + t) * (long)Cs + c] = v;
+          for (int e = 0; e < 4; ++e) {
+            const int c = 4 * cq_g + e;
+            if ((4 * i + e) % nsp != sp_g || t >= T || c >= Cs) continue;
+            float v = ga[i][e];
+            if (fuse) v = fmaf(zdp[2 * p + 1], wxs[2 * c + 1], fmaf(zdp[2 * p], wxs[2 * c], v));
+            a.gtap[(bd * T + t) * (long)Cs + c] = v;
           }
         }
       }
-      // dw1a[c, m] += tap[p, c] g_xhat[p, m] over the tile's pixels
-      for (int p = 0; p < kBM; ++p) {
-        const float4 g4 = *reinterpret_cast<const float4*>(dxs + p * kLd + 4 * lo);
+      // d. dw1a[4 cq_w + e][m0 + j] over pixels sp_w, sp_w + nsp, ...
+      if (cq_w < cq4) {
+        float aw[4][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = taps[p * kLd + hi + 16 * i];
-          aw[i][0] = fmaf(a, g4.x, aw[i][0]);
-          aw[i][1] = fmaf(a, g4.y, aw[i][1]);
-          aw[i][2] = fmaf(a, g4.z, aw[i][2]);
-          aw[i][3] = fmaf(a, g4.w, aw[i][3]);
+        for (int e = 0; e < 4; ++e) {
+          const float4 v = aws[e * kThreads];
+          aw[e][0] = v.x, aw[e][1] = v.y, aw[e][2] = v.z, aw[e][3] = v.w;
         }
-      }
-      // the small gradients: [dbvec M | dwxt 2Cs | dwy 2M | dzoff 2]
+        for (int p = sp_w; p < kBM; p += nsp) {
+          const float4 g4 = *reinterpret_cast<const float4*>(gxs + p * kLd + m0);
+          const float4 t4 = *reinterpret_cast<const float4*>(taps + p * kLd + 4 * cq_w);
+          const float tv[4] = {t4.x, t4.y, t4.z, t4.w};
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        const int e = tid + s * kThreads;
-        if (e >= n_small) continue;
-        float v = as[s];
-        if (e < M) {
-#pragma unroll 8
-          for (int p = 0; p < kBM; ++p) v += dxs[p * kLd + e];
-        } else if (e < M + 2 * Cs) {
-          const int c = (e - M) >> 1, jj = (e - M) & 1;
-#pragma unroll 8
-          for (int p = 0; p < kBM; ++p) v = fmaf(taps[p * kLd + c], zdp[4 * p + 2 + jj], v);
-        } else if (e < 3 * M + 2 * Cs) {
-          const int m = (e - M - 2 * Cs) >> 1, jj = (e - M - 2 * Cs) & 1;
-#pragma unroll 8
-          for (int p = 0; p < kBM; ++p) v = fmaf(ys[p * kLd + m], zdp[4 * p + 2 + jj], v);
-        } else {
-          const int jj = e - 3 * M - 2 * Cs;
-#pragma unroll 8
-          for (int p = 0; p < kBM; ++p) v += zdp[4 * p + 2 + jj];
+          for (int e = 0; e < 4; ++e) {
+            aw[e][0] = fmaf(tv[e], g4.x, aw[e][0]);
+            aw[e][1] = fmaf(tv[e], g4.y, aw[e][1]);
+            aw[e][2] = fmaf(tv[e], g4.z, aw[e][2]);
+            aw[e][3] = fmaf(tv[e], g4.w, aw[e][3]);
+          }
         }
-        as[s] = v;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) aws[e * kThreads] = make_float4(aw[e][0], aw[e][1], aw[e][2], aw[e][3]);
       }
-      __syncthreads();  // taps, dxs and zdp are rewritten by the next row
+      __syncthreads();  // the next row restages taps, g_xhat and dp
     }
     if (fuse) {
-      for (int e = tid; e < kTile; e += kThreads) {
-        const int p = e / kLd, m = e % kLd, t = t0 + p;
-        if (t < T && m < M) gres[(br * T + t) * (long)M + m] = gys[e];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int p = hi + 16 * i, t = t0 + p;
+        if (t < T)
+          store4(a.gres + (br * T + t) * (long)M, m0, M, vec_m,
+                 *reinterpret_cast<const float4*>(gys + p * kLd + m0));
       }
     }
-    __syncthreads();  // ys and gys are rewritten by the next item
   }
 
+  // the block's partial: dw1a added over the nsp pixel parts in order, and
+  // the small sums over the 16 pixel rows hi in order, through shared memory
+  // (the tiles are free)
+  const int n_small = 3 * M + 2 * Cs + 2;
   const int n = Cs * M + n_small;
-  float* dst = partial + (size_t)blockIdx.x * n;
+  float* dst = a.partial + (size_t)blockIdx.x * n;
+  float* red = smem + kTaps;  // over the tap and g_xhat tiles
+  // [nsp][4 ncq][kMaxM] floats: 16 / ncq * 4 ncq * 64 = 4096
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = hi + 16 * i;
-    if (c >= Cs) continue;
+  for (int e = 0; e < 4; ++e)
+    *reinterpret_cast<float4*>(red + ((sp_w * ncq + cq_w) * 4 + e) * kMaxM + m0) = aws[e * kThreads];
+  __syncthreads();
+  for (int e = tid; e < Cs * M; e += kThreads) {
+    const int c = e / M, m = e - c * M;
+    float v = 0.0f;
+    for (int h = 0; h < nsp; ++h) v += red[(h * 4 * ncq + c) * kMaxM + m];
+    dst[e] = v;
+  }
+  __syncthreads();
+  float* mine = red + hi * n_small;  // [16][n_small]
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = 4 * lo + j;
-      if (m < M) dst[c * M + m] = aw[i][j];
-    }
+  for (int j = 0; j < 4; ++j) {
+    const int m = m0 + j;
+    if (m >= M) continue;
+    mine[m] = sb[j];
+    mine[M + 2 * Cs + 2 * m] = sy[j][0];
+    mine[M + 2 * Cs + 2 * m + 1] = sy[j][1];
   }
 #pragma unroll
-  for (int s = 0; s < 2; ++s) {
-    const int e = tid + s * kThreads;
-    if (e < n_small) dst[Cs * M + e] = as[s];
+  for (int cc = 0; cc < 4; ++cc) {
+    const int c = lo + 16 * cc;
+    if (c >= Cs) continue;
+    mine[M + 2 * c] = sx[cc][0];
+    mine[M + 2 * c + 1] = sx[cc][1];
+  }
+  if (lo == 0) {
+    mine[3 * M + 2 * Cs] = sz[0];
+    mine[3 * M + 2 * Cs + 1] = sz[1];
+  }
+  __syncthreads();
+  for (int e = tid; e < n_small; e += kThreads) {
+    float v = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 16; ++h) v += red[h * n_small + e];
+    dst[Cs * M + e] = v;
   }
 }
 
 long work_items(int B, int Dp, int T) { return (long)B * Dp * ((T + kBM - 1) / kBM); }
+
+template <bool DIRECT>
+cudaError_t launch_pass(const Args& a, int blocks, cudaStream_t stream) {
+  constexpr int kSmem = DIRECT ? kSmemDirect : kSmemMma;
+  // above 48 KB needs the opt-in: set on every call
+  const cudaError_t err = cudaFuncSetAttribute(abf_block_bwd_pass_kernel<DIRECT>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  abf_block_bwd_pass_kernel<DIRECT><<<blocks, kThreads, kSmem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the adjoint's route: K3f's test with O input and M output channels
+int route_of(int M, int O) { return conv3x3_mma::fwd_route(O, M); }
 
 }  // namespace
 
@@ -360,40 +585,53 @@ extern "C" int abf_block_bwd_blocks(int B, int Dp, int T) {
   return (int)(items < kBlocks ? items : kBlocks);
 }
 
-extern "C" int abf_block_bwd_wgrad_chunks(int M, int O, int BD) { return wgrad_chunks(M, O, BD); }
+extern "C" int abf_block_bwd_wgrad_chunks(int M, int O, int BD) {
+  return conv3x3_tiles::wgrad_chunks(M, O, BD);
+}
+
+extern "C" int abf_block_bwd_route(int M, int O) { return route_of(M, O); }
+
+extern "C" long abf_block_bwd_split_floats(int M, int O) {
+  return conv3x3_mma::fwd_scratch_floats(O, M);
+}
 
 extern "C" int abf_block_bwd(const void* tap, const void* res, const void* w1a, const void* bvec,
                              const void* wxt, const void* wy, const void* zoff, const void* w2f,
                              const void* xf, const void* gxf, const void* gout, void* gtap,
                              void* gres, void* grads, void* partial, void* dw2, void* wscratch,
-                             int B, int D, int Dp, int T, int Cs, int M, int O, int blocks,
-                             int chunks, void* stream) {
+                             void* dxf, void* wsplit, int B, int D, int Dp, int T, int Cs, int M,
+                             int O, int blocks, int chunks, void* stream) {
   const bool fuse = res != nullptr;
+  const bool mma = route_of(M, O) == 1;
   if (B < 1 || D < 1 || Dp < 1 || D % Dp || (!fuse && Dp != D) || T < 1 || Cs < 1 ||
       Cs > kMaxCs || M < 1 || M > kMaxM || O < 1 || blocks < 1 ||
-      (fuse && (!wxt || !wy || !zoff || !gres)))
+      (fuse && (!wxt || !wy || !zoff || !gres)) || (mma && (!dxf || !wsplit)))
     return (int)cudaErrorInvalidValue;
   const long items = work_items(B, Dp, T);
   if (blocks > items) return (int)cudaErrorInvalidValue;
-  const long per_block = (items + blocks - 1) / blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(abf_block_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  Args a{static_cast<const float*>(tap), static_cast<const float*>(res),
+         static_cast<const float*>(w1a), static_cast<const float*>(bvec),
+         static_cast<const float*>(wxt), static_cast<const float*>(wy),
+         static_cast<const float*>(zoff), static_cast<const float*>(w2f),
+         static_cast<const float*>(gxf), static_cast<const float*>(gout),
+         static_cast<const float*>(dxf), static_cast<float*>(gtap), static_cast<float*>(gres),
+         static_cast<float*>(partial), items, (items + blocks - 1) / blocks, D, D / Dp, T, Cs,
+         M, O};
+  cudaError_t err;
+  if (mma) {
+    err = conv3x3_mma::fwd_mma_run<true>(a.gout, a.w2f, static_cast<float4*>(wsplit), a.gxf,
+                                         static_cast<float*>(dxf), B, D, T, O, M, s);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_pass<false>(a, blocks, s);
+  } else {
+    err = launch_pass<true>(a, blocks, s);
+  }
   if (err != cudaSuccess) return (int)err;
-  abf_block_bwd_kernel<<<blocks, kThreads, kSmemBytes, s>>>(
-      static_cast<const float*>(tap), static_cast<const float*>(res),
-      static_cast<const float*>(w1a), static_cast<const float*>(bvec),
-      static_cast<const float*>(wxt), static_cast<const float*>(wy),
-      static_cast<const float*>(zoff), static_cast<const float*>(w2f),
-      static_cast<const float*>(gxf), static_cast<const float*>(gout), static_cast<float*>(gtap),
-      static_cast<float*>(gres), static_cast<float*>(partial), items, per_block, D, D / Dp, T,
-      Cs, M, O);
-  err = cudaGetLastError();
+  err = conv3x3_tiles::reduce_partials(a.partial, static_cast<float*>(grads), blocks,
+                                       (long)Cs * M + 3 * M + 2 * Cs + 2, s);
   if (err != cudaSuccess) return (int)err;
-  err = reduce_partials(static_cast<const float*>(partial), static_cast<float*>(grads), blocks,
-                        (long)Cs * M + 3 * M + 2 * Cs + 2, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)wgrad_run(static_cast<const float*>(xf), static_cast<const float*>(gout),
-                        static_cast<float*>(dw2), static_cast<float*>(wscratch), B, D, T, M, O,
-                        chunks, s);
+  return (int)conv3x3_tiles::wgrad_run(static_cast<const float*>(xf), a.gout,
+                                       static_cast<float*>(dw2), static_cast<float*>(wscratch),
+                                       B, D, T, M, O, chunks, s);
 }

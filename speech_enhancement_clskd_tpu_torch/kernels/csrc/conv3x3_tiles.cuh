@@ -1,15 +1,15 @@
 // Tile code of the bias-free 3x3 SAME convolution over channels-last maps,
-// shared by conv3x3_fwd.cu (K3f), conv3x3_wgrad.cu (K3w) and the whole-ABF-
-// block kernels abf_block_fwd.cu (K5f) and abf_block_bwd.cu (K5b).  Each
-// source includes this header and is built into its own library;
-// kernels/_build.py hashes the headers with the source, so an edit here
-// rebuilds all four.
+// shared by conv3x3_fwd.cu (K3f's route "fma"), conv3x3_wgrad.cu (K3w) and
+// abf_block_bwd.cu (K5b's dw2 and its partials' sum).  Each source includes
+// this header and is built into its own library; kernels/_build.py hashes the
+// headers with the source, so an edit here rebuilds all of them.
 //
-// Forward tile (K3f's design, see conv3x3_fwd.cu).  A block owns one freq row,
-// BM time steps and BN output channels; per chunk of kKC input channels the
-// caller stages the input halo xs[3][BM + 2][kKC + 1] (zeros outside the map)
-// and stage_weights() the nine weight slices; fma_chunk() adds the chunk into
-// each thread's 4 (time) x 4 (channel) register tile; store_tile() writes it.
+// Forward FMA tile (K3f's route "fma", see conv3x3_fwd.cu).  A block owns one
+// freq row, BM time steps and BN output channels; per chunk of kKC input
+// channels the caller stages the input halo xs[3][BM + 2][kKC + 1] (zeros
+// outside the map) and stage_weights() the nine weight slices; fma_chunk()
+// adds the chunk into each thread's 4 (time) x 4 (channel) register tile;
+// store_tile() writes it.
 //
 // Weight gradient (K3w's design, see conv3x3_wgrad.cu; K5b's dw2 runs it
 // too): per-block partial sums over chunks of freq rows, on route "mma"

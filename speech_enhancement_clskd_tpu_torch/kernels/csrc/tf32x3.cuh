@@ -1,8 +1,9 @@
-// Split-TF32 ("3xTF32") tensor-core helpers shared by the 3x3 conv kernels
-// K3f (conv3x3_fwd.cu, route "mma") and K3w (conv3x3_tiles.cuh, wgrad route
-// "mma", which K5b's dw2 also runs).  Each source includes this header and
-// is built into its own library; kernels/_build.py hashes the headers with
-// the source, so an edit here rebuilds every library.
+// Split-TF32 ("3xTF32") tensor-core helpers shared by the 3x3 conv tiles:
+// conv3x3_mma.cuh (K3f's route "mma", K5f's conv and K5b's adjoint) and
+// conv3x3_tiles.cuh (K3w's wgrad route "mma", which K5b's dw2 also runs).
+// Each source includes this header and is built into its own library;
+// kernels/_build.py hashes the headers with the source, so an edit here
+// rebuilds every library.
 //
 // Each f32 operand a is split into hi = cvt.rna.tf32(a) and lo =
 // cvt.rna.tf32(a - hi), and each product is taken as lo_a*hi_b + hi_a*lo_b +

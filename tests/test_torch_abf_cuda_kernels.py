@@ -13,7 +13,9 @@ from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
     abf_block,
     abf_block_bwd,
     abf_block_bwd_reference,
+    abf_block_bwd_route,
     abf_block_fwd,
+    abf_block_fwd_route,
     abf_block_reference,
 )
 from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
@@ -50,11 +52,21 @@ CONV_SHAPES = [(2, 4, 483, 64, 256), (3, 5, 37, 64, 64), (2, 8, 70, 64, 32),
 FUSE_SHAPES = [(2, 8, 4, 483, 64), (3, 5, 5, 37, 64), (2, 16, 4, 11, 32),
                (1, 4, 2, 9, 200), (2, 2, 1, 7, 6)]
 # (fuse, B, D, k, T, Cs, M, O): every K5f tile (O >= 64, 32, 16, < 16), k = 1,
-# 2, 4, T ragged past K5b's 64-step items, D of one row, Cs and M from 2 to 64
+# 2, 4, T ragged past K5b's 64-step items, D of one row, Cs and M from 2 to 64;
+# then each route of both kernels: the mask block's direct paths (O = 2,
+# Cs = 2) over two chunks of K5f's rows, M = 8 (the least M on K5b's mma
+# route) with T one past an item, a direct forward beside an mma adjoint
+# (O = 4), M < 4 with O > 8 (the direct forward's output tiles, the direct
+# adjoint's channel stages; widths off the float4 loads), M = 6 on the mma
+# forward beside a direct adjoint, and k = 4, Cs = 12 (a tap quad past the
+# power of two) with T ragged over two items
 BLOCK_SHAPES = [(True, 2, 8, 2, 483, 16, 64, 64), (True, 2, 16, 2, 70, 64, 64, 256),
                 (True, 1, 8, 4, 37, 8, 64, 32), (True, 3, 5, 1, 19, 2, 64, 16),
                 (True, 2, 32, 2, 100, 2, 64, 2), (True, 2, 2, 2, 9, 4, 6, 5),
-                (False, 2, 4, 1, 483, 64, 64, 256), (False, 1, 1, 1, 5, 3, 7, 7)]
+                (False, 2, 4, 1, 483, 64, 64, 256), (False, 1, 1, 1, 5, 3, 7, 7),
+                (True, 2, 64, 2, 37, 2, 64, 2), (True, 3, 5, 1, 65, 16, 8, 16),
+                (True, 2, 6, 2, 19, 4, 8, 4), (True, 1, 3, 1, 21, 5, 3, 20),
+                (True, 2, 4, 2, 30, 5, 6, 16), (True, 2, 40, 4, 130, 12, 64, 32)]
 BLOCK_GRADS = ("g_tap", "g_res", "dw1a", "dbvec", "dwxt", "dwy", "dzoff", "dw2")
 
 
@@ -213,6 +225,8 @@ def test_block_kernels_match_plain(cuda, shape):
     grads = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
     torch.cuda.synchronize()
     assert (abf_block_fwd.launches, abf_block_bwd.launches) == (before[0] + 1, before[1] + 1)
+    xf_again, out_again = abf_block_fwd(**kw)
+    assert torch.equal(xf, xf_again) and torch.equal(out, out_again)  # the same bits
     rxf, rout = abf_block_reference(**kw)
     assert (xf - rxf).abs().max().item() <= ATOL
     assert (out - rout).abs().max().item() <= ATOL
@@ -247,6 +261,14 @@ def test_block_autograd_launches_only_its_kernels(cuda):
      ).backward()
     for n in kw:
         assert _rel_l2(ins[n].grad, refs[n].grad) <= REL_L2, n
+
+
+@pytest.mark.parametrize("M, O, fwd_route, bwd_route",
+                         [(64, 256, "mma", "mma"), (64, 8, "mma", "mma"), (64, 4, "direct", "mma"),
+                          (64, 2, "direct", "direct"), (8, 16, "mma", "mma"),
+                          (7, 16, "mma", "direct"), (3, 20, "direct", "direct")])
+def test_block_route_by_shape(cuda, M, O, fwd_route, bwd_route):
+    assert (abf_block_fwd_route(M, O), abf_block_bwd_route(M, O)) == (fwd_route, bwd_route)
 
 
 def test_block_kernel_rejects_too_wide(cuda):

@@ -146,3 +146,42 @@ def test_long_wgrad_reduction_needs_fresh_accumulators():
     assert rel_l2(one) > KERNEL_ATOL, rel_l2(one)
     assert rel_l2(fresh) <= KERNEL_ATOL, rel_l2(fresh)
     assert rel_l2(fresh) <= 10 * f32, (rel_l2(fresh), f32)  # near a plain float32 sum
+
+
+BLOCK_REL_L2 = 1e-5  # chip_smoke.py: every K5b output against its plain version
+
+
+def test_block_adjoint_needs_a_fresh_accumulator_per_chunk():
+    """K5b's conv adjoint at the deepest blocks' width: g_out with O = 256
+    input channels, so K = 9 x 256 = 2304, through K3f's tensor-core tile
+    (csrc/conv3x3_mma.cuh).  Per 8-channel chunk and shift, each of the three
+    TF32 products is one k8 step, added exactly and then into the
+    accumulator rounded toward zero.  One accumulator over all 32 chunks
+    drifts past the tolerance K5b is held to; a fresh one per chunk (27
+    products), added to the running sum with round-to-nearest, meets it."""
+    rng = np.random.default_rng(2)
+    O, M = 256, 16
+    g = torch.from_numpy(rng.standard_normal((1, 3, 24, O)).astype(np.float32))
+    w2f = torch.from_numpy((rng.standard_normal((3, 3, O, M)) / (3 * M ** 0.5))
+                           .astype(np.float32))
+    shifted = [xs.reshape(-1, O) for _, _, xs in _shifted(g)]  # 9 x [pixels, O]
+    exact = conv3x3_reference(g.double(), w2f.double()).reshape(-1, M)
+    one = torch.zeros(exact.shape)    # one accumulator over all of K
+    fresh = torch.zeros(exact.shape)  # the kernel: a fresh one per chunk
+    for c0 in range(0, O, 8):
+        part = torch.zeros(exact.shape)
+        for k, xs in enumerate(shifted):
+            (ah, al), (bh, bl) = split(xs[:, c0:c0 + 8]), split(w2f[k // 3, k % 3, c0:c0 + 8])
+            for lhs, rhs in ((al, bh), (ah, bl), (ah, bh)):
+                inc = lhs.double() @ rhs.double()
+                one = _rz_add(one, inc)
+                part = _rz_add(part, inc)
+        fresh = fresh + part
+
+    def rel_l2(got):
+        return ((got.double() - exact).norm() / exact.norm()).item()
+
+    f32 = rel_l2(conv3x3_reference(g, w2f).reshape(-1, M))
+    assert rel_l2(one) > BLOCK_REL_L2, rel_l2(one)
+    assert rel_l2(fresh) <= BLOCK_REL_L2, rel_l2(fresh)
+    assert rel_l2(fresh) <= 10 * f32, (rel_l2(fresh), f32)  # near a plain float32 sum
