@@ -66,12 +66,15 @@ card, then drives both paths through their entry points:
     K5f 12, K5b 12, K1f 8, K1b 4, and no K3/K4) and its card-vs-CPU step;
 12. the fused Gram pair vs plain: ``gram_pair_fwd`` (K2) against
     ``gram_pair_reference`` on the ``spkd`` strategy's 33 s waveforms
-    (528,000 samples) at every batch phase 13 may settle on, the 3 s
-    waveforms at batch 32 (forced; the JAX gate's TPU crossover read on this
-    card), a ragged tail (2^19 + 1), Ds != Dt and B = 2; each held to 1e-6
-    of its largest element, two runs giving the same bits and the output
-    exactly symmetric; times, the bound and two ``torch.mm(Z, Z.T)`` calls
-    (TF32 off) as the yardstick;
+    (528,000 samples) at every batch phase 13 may settle on and at the
+    gate's largest (64), the 3 s waveforms at batch 32 (forced; the JAX
+    gate's TPU crossover read on this card), a ragged tail (2^19 + 1),
+    Ds != Dt and B = 2; each held to 1e-6 of its largest element, two runs
+    giving the same bits and the output exactly symmetric; times (the
+    profiler's device time of both passes and of each, CUDA events, host
+    time a call; L2 flushed between launches where the inputs fit in it),
+    the bound (bytes, or f32 FMA over the upper triangles) and two
+    ``torch.mm(Z, Z.T)`` calls (TF32 off) as the yardstick;
 13. the ``spkd`` strategy: ``Trainer(TrainConfig(distill=DistillConfig(
     strategy="spkd")))`` on 33 s clips, where the JAX auto gate sends the
     waveforms' SPKD loss to K2, as phase 7 (one warm-up and 5 timed steps,
@@ -158,8 +161,8 @@ ROUNDING_FACTOR = 2.0
 GRAM_TOL = 1e-6
 
 
-# Each kernel's design: K1f, K1b, K3f, K3w, K5f and K5b are in their second,
-# the others in their first (PERF.md section 6 keeps each design's times).
+# Each kernel's design: K1f, K1b, K2, K3f, K3w, K5f and K5b are in their
+# second, K4f and K4b in their first (PERF.md section 6 keeps each design's times).
 DESIGNS = {
     "lstm_seq_fwd": "register-cluster",
     "lstm_seq_bwd": "gate-prepass-register-chain",
@@ -169,7 +172,7 @@ DESIGNS = {
     "attfuse_bwd": "warp-row",
     "abf_block_fwd": "xf-pass-3xtf32-mma",
     "abf_block_bwd": "mma-adjoint-pixel-pass",
-    "gram_pair_fwd": "column-chunks",
+    "gram_pair_fwd": "bulk-copy-ring-fma-tiles",
 }
 
 
@@ -1325,6 +1328,106 @@ def phase_abf_block_vs_plain():
     return cases, steps, per_step
 
 
+# K2's timing (phase 12, scripts/kernel_pair_timing.py): where both inputs
+# together are smaller than the card's 50 MB L2, a write over FLUSH_BYTES,
+# read back, evicts them between launches and leaves no dirty line to write
+# back during the kernel (in the step they arrive from the iSTFT)
+L2_BYTES = 50 * 2 ** 20
+FLUSH_BYTES = 128 * 2 ** 20
+# cycles of a device-side wait that holds the profiled loop's launches back
+# until all are queued, so host gaps do not count as device time (~5 ms)
+QUEUE_CYCLES = 10_000_000
+
+
+def _flusher(nbytes: int):
+    """A function that writes over ``FLUSH_BYTES`` of the card and reads it
+    back where ``nbytes`` of inputs would stay in L2 between launches, else
+    None."""
+    import torch
+
+    if nbytes >= L2_BYTES:
+        return None
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+
+    def flush():
+        scratch.zero_()
+        scratch.max()
+
+    return flush
+
+
+def _event_ms(fn, iters: int, flush=None) -> float:
+    """CUDA-event ms a call of ``fn``: back to back, or, with ``flush``, each
+    call alone after a flush (events around the call only)."""
+    import torch
+
+    if flush is None:
+        return _time_ms(fn, iters)
+    fn()
+    pairs = []
+    for _ in range(iters):
+        flush()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def gram_times(fn, nbytes: int, iters: int = 20) -> dict:
+    """K2's times for ``fn`` (one ``gram_pair_fwd`` call on ``nbytes`` of
+    inputs), L2 flushed between launches where the inputs fit in it:
+
+    - ``ms``: device time a call, from the profiler's device events: the
+      first pass's start to the second pass's end (``gram_*`` kernels, two
+      a call; the calls queued behind a device-side wait, so that none waits
+      for the host), with ``pass1_ms`` and ``pass2_ms`` (the second pass
+      from where the first ends, as it may start earlier and wait);
+    - ``event_ms``: CUDA events (back to back without a flush, so a
+      host-bound loop shows here and not in ``ms``);
+    - ``host_ms``: host time to enqueue one call."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = _flusher(nbytes)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(QUEUE_CYCLES)
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and "gram_" in e.name), key=lambda e: e.time_range.start)
+    if len(events) != 2 * iters:
+        raise RuntimeError(f"the profiler saw {len(events)} gram_* kernels for {iters} calls: "
+                           f"{sorted({e.name for e in events})}")
+    firsts, seconds = events[0::2], events[1::2]
+    us = 1e3 * iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return {
+        "ms": sum(b.time_range.end - a.time_range.start for a, b in zip(firsts, seconds)) / us,
+        "pass1_ms": sum(a.time_range.end - a.time_range.start for a in firsts) / us,
+        "pass2_ms": sum(b.time_range.end - max(b.time_range.start, a.time_range.end)
+                        for a, b in zip(firsts, seconds)) / us,
+        "kernels": sorted({re.search(r"gram_\w+", e.name).group(0) for e in events}),
+        "event_ms": _event_ms(fn, iters),
+        "host_ms": host_ms,
+        "l2_flushed": flush is not None,
+    }
+
+
 def _gram_case(B: int, ds: int, dt: int, timed: bool) -> dict:
     """K2 against its plain version on s [B, ds] and t [B, dt] (waveform-like
     values in [-1, 1])."""
@@ -1344,29 +1447,43 @@ def _gram_case(B: int, ds: int, dt: int, timed: bool) -> dict:
         raise RuntimeError("gram_pair_fwd did not count its launches")
     with float32_math():
         want = gram_pair_reference(s, t)
+        exact = [(z.double() @ z.double().T) for z in (s, t)]
+
+    def rel(pair, truth):
+        return max(((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+                   for a, b in zip(pair, truth))
+
     abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
-    rel_err = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(got, want))
+    rel_err = rel(got, want)
+    # beside the tolerance: the kernel's and the plain version's own errors
+    # against the float64 Gram
     rec = {"B": B, "Ds": ds, "Dt": dt, "max_abs_err": abs_err, "max_rel_err": rel_err,
+           "rel_err_f64": rel(got, exact), "plain_rel_err_f64": rel(want, exact),
            "tol": GRAM_TOL, "bitwise_repeat": all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
            "symmetric": all(bool(torch.equal(a, a.T)) for a in got)}
     if timed:
-        bound_ms, bound_by = _bound(4.0 * B * (ds + dt), 2.0 * B * B * (ds + dt))
+        nbytes = 4 * B * (ds + dt)
+        # f32 FMA over the upper triangles: B (B + 1) / 2 multiply-adds a column
+        bound_ms, bound_by = _bound(nbytes, 1.0 * B * (B + 1) * (ds + dt))
+        flush = _flusher(nbytes)
         with float32_math():  # the yardstick in full float32, as the port's matmuls
-            plain_ms = _time_ms(lambda: gram_pair_reference(s, t), iters=3)
-            library_ms = _time_ms(lambda: (torch.mm(s, s.T), torch.mm(t, t.T)), iters=20)
-        rec.update(ms=_time_ms(lambda: gram_pair_fwd(s, t), iters=20), plain_ms=plain_ms,
+            plain_ms = _event_ms(lambda: gram_pair_reference(s, t), 3, flush)
+            library_ms = _event_ms(lambda: (torch.mm(s, s.T), torch.mm(t, t.T)), 20, flush)
+        rec.update(gram_times(lambda: gram_pair_fwd(s, t), nbytes), plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        del flush
     return rec
 
 
 # phase 12's shapes (B, Ds, Dt, timed): the spkd step's 33 s waveforms at each
-# batch phase 13 may settle on (32, 16, 8) and at its card-vs-CPU batch 2; the
-# 3 s waveforms at batch 32 (below the gate: forced); a ragged tail; Ds != Dt
-# with lengths that rule out float4 loads
+# batch phase 13 may settle on (32, 16, 8), at the largest batch the gate
+# admits (64) and at its card-vs-CPU batch 2; the 3 s waveforms at batch 32
+# (below the gate: forced); a ragged tail; Ds != Dt with lengths that rule
+# out the bulk copies on one side
 GRAM_CASES = [(32, SPKD_SAMPLES, SPKD_SAMPLES, True), (16, SPKD_SAMPLES, SPKD_SAMPLES, True),
-              (8, SPKD_SAMPLES, SPKD_SAMPLES, True), (32, 48000, 48000, True),
-              (4, (1 << 19) + 1, (1 << 19) + 1, False), (8, SPKD_SAMPLES, 100003, False),
-              (SPKD_CHECK_BATCH, SPKD_SAMPLES, SPKD_SAMPLES, True)]
+              (8, SPKD_SAMPLES, SPKD_SAMPLES, True), (64, SPKD_SAMPLES, SPKD_SAMPLES, True),
+              (32, 48000, 48000, True), (4, (1 << 19) + 1, (1 << 19) + 1, False),
+              (8, SPKD_SAMPLES, 100003, False), (SPKD_CHECK_BATCH, SPKD_SAMPLES, SPKD_SAMPLES, True)]
 
 
 def phase_gram_vs_plain():
@@ -1561,6 +1678,8 @@ def main() -> None:
         "bound_ms": gram_ref["bound_ms"],
         "bound_by": gram_ref["bound_by"],
         "library_ms": gram_ref["library_ms"],
+        "times": {k: gram_ref[k] for k in ("pass1_ms", "pass2_ms", "event_ms", "host_ms",
+                                           "l2_flushed")},
         "shape": {"B": spkd_batch, "Ds": SPKD_SAMPLES, "Dt": SPKD_SAMPLES},
         "per_shape": gram_shapes,
     })

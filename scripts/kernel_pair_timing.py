@@ -22,16 +22,25 @@ prints one JSON line per shape, then writes them all to ``--out``:
 - K5f (``abf_block_fwd``) and K5b (``abf_block_bwd``) at each distinct block
   shape of the block-config step (``chip_smoke.STEP_BLOCKS``: B=32, T=483,
   M=64), each with a hash of its outputs' bits (K5b's xf from the tree's
-  own K5f).
+  own K5f);
+- K2 (``gram_pair_fwd``) at B in {8, 16, 32, 64} x 528,000 columns (the
+  spkd step's 33 s waveforms), with ``gram_times`` of this script's own
+  tree's ``chip_smoke.py`` (loaded by path, so both trees are timed with the
+  same code): the profiler's device time of both passes and of each, CUDA
+  events and host time a call, L2 flushed between launches where the inputs
+  fit in it (B = 8), beside two ``torch.mm(Z, Z.T)`` (TF32 off), with a hash
+  of the output's bits.
 
-Each time is CUDA events over repeated launches after a warm-up; inputs come
-from seeded generators, so both trees see the same data.  Needs CUDA.
+Except K2's device times, each time is CUDA events over repeated launches
+after a warm-up; inputs come from seeded generators, so both trees see the
+same data.  Needs CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -49,6 +58,9 @@ K3F_SHAPES = [(64, 64, 64), (4, 64, 256)]
 # M=64, k=2 where a block fuses), as chip_smoke.STEP_BLOCKS
 K5_SHAPES = [(False, 4, 64, 256), (True, 8, 64, 256), (True, 16, 64, 256), (True, 32, 32, 128),
              (True, 64, 16, 64), (True, 128, 8, 32), (False, 8, 64, 256), (True, 256, 2, 2)]
+# K2's batches on the spkd step's 33 s waveforms
+K2_BATCHES = [8, 16, 32, 64]
+K2_COLUMNS = 528000
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -168,6 +180,31 @@ def k5(emit) -> None:
         torch.cuda.empty_cache()
 
 
+def k2(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair_fwd
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    spec = importlib.util.spec_from_file_location("pair_timing_chip_smoke", HERE / "chip_smoke.py")
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+
+    for B in K2_BATCHES:
+        g = torch.Generator(device="cuda").manual_seed(B)
+        s = (0.3 * torch.randn(B, K2_COLUMNS, device="cuda", generator=g)).clamp(-1, 1)
+        t = (0.3 * torch.randn(B, K2_COLUMNS, device="cuda", generator=g)).clamp(-1, 1)
+        nbytes = 4 * B * 2 * K2_COLUMNS
+        times = timing.gram_times(lambda: gram_pair_fwd(s, t), nbytes)
+        with float32_math():
+            library_ms = timing._event_ms(lambda: (torch.mm(s, s.T), torch.mm(t, t.T)), 20,
+                                          timing._flusher(nbytes))
+        emit(kernel="gram_pair_fwd", B=B, Ds=K2_COLUMNS, Dt=K2_COLUMNS, **times,
+             library_ms=library_ms, sha256_gs_gt=_bits(*gram_pair_fwd(s, t)))
+        del s, t
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE), help="the source tree to time")
@@ -193,6 +230,7 @@ def main() -> None:
     k3f(emit)
     k3w(emit)
     k5(emit)
+    k2(emit)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(records, indent=1))

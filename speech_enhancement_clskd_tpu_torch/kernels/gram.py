@@ -14,7 +14,8 @@ Replaces ``speech_enhancement_clskd_tpu/ops/pallas/gram.py``:
   launches the kernel of ``csrc/gram_pair_fwd.cu`` (built at first use) or
   raises; nothing falls back.  On CPU tensors it runs
   ``gram_pair_reference``.  Its ``launches`` counter counts kernel launches
-  only.
+  only.  One allocation a call holds ``gs``, ``gt`` (returned as views) and
+  the kernel's partials.
 - ``gram_pair_reference`` sums the Grams of the same ``CHUNK``-column chunks
   the kernel splits D into, in the same order, one matrix product per chunk,
   so the card and the CPU agree to ~1e-7 of the largest element at the
@@ -40,10 +41,10 @@ from . import _build, check_tensors
 
 SOURCE = "gram_pair_fwd.cu"
 SOURCES = (SOURCE,)
-# columns of each chunk the kernel's first pass gives one block (the Pallas
-# kernel's D tile); the number of chunks depends only on D
+# columns of each chunk whose partial the kernel's first pass writes (the
+# Pallas kernel's D tile); the number of chunks depends only on D
 CHUNK = 2048
-# rows the kernel takes: 4-row tiles of the upper triangle, one thread each
+# rows the kernel takes (the JAX gate's batches, and eight row blocks of 8)
 MAX_BATCH = 64
 
 
@@ -93,7 +94,7 @@ def _check(s2: torch.Tensor, t2: torch.Tensor) -> None:
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gram_pair_fwd.argtypes = [ptr] * 5 + [i32, i64, i64, ptr]
+    lib.gram_pair_fwd.argtypes = [ptr] * 3 + [i32, i64, i64, ptr]
     lib.gram_pair_fwd.restype = i32
     for name in ("gram_pair_chunk_cols", "gram_pair_max_batch"):
         getattr(lib, name).argtypes = []
@@ -116,18 +117,16 @@ def gram_pair_fwd(s2: torch.Tensor, t2: torch.Tensor) -> Tuple[torch.Tensor, tor
     B, ds = s2.shape
     dt = t2.shape[1]
     lib = _library()
-    gs = torch.empty(B, B, device=s2.device, dtype=torch.float32)
-    gt = torch.empty_like(gs)
-    chunks = -(-ds // CHUNK) + -(-dt // CHUNK)
-    partial = torch.empty(chunks, B * (B + 1) // 2, device=s2.device, dtype=torch.float32)
+    # gs, gt, then each chunk's packed upper triangle, in one allocation
+    partial = (-(-ds // CHUNK) + -(-dt // CHUNK)) * (B * (B + 1) // 2)
+    out = torch.empty(2 + -(-partial // (B * B)), B, B, device=s2.device, dtype=torch.float32)
     with torch.cuda.device(s2.device):
-        stream = torch.cuda.current_stream(s2.device).cuda_stream
-        err = lib.gram_pair_fwd(s2.data_ptr(), t2.data_ptr(), gs.data_ptr(), gt.data_ptr(),
-                                partial.data_ptr(), B, ds, dt, stream)
+        err = lib.gram_pair_fwd(s2.data_ptr(), t2.data_ptr(), out.data_ptr(), B, ds, dt,
+                                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gram_pair_fwd launch failed: CUDA error {err}")
     gram_pair_fwd.launches += 1
-    return gs, gt
+    return out[0], out[1]
 
 
 gram_pair_fwd.launches = 0

@@ -19,11 +19,18 @@ GRAM_RTOL = 1e-6
 # the backward is torch.matmul on both sides; gradients by relative L2 error
 GRAD_REL_L2 = 1e-5
 
-# (B, Ds, Dt): the spkd step's 33 s waveforms at batch 16, the 3 s waveforms
-# at batch 32, a ragged tail (2^19 + 1), Ds != Dt with lengths that rule out
-# float4 loads, B = 2, B not a multiple of 4, and the largest batch
-SHAPES = [(16, 528000, 528000), (32, 48000, 48000), (4, (1 << 19) + 1, (1 << 19) + 1),
-          (8, 100003, 64000), (2, 528000, 528000), (7, 5000, 2049), (gram.MAX_BATCH, 20000, 3)]
+# (B, Ds, Dt): the spkd step's 33 s waveforms at batch 16 and at the largest
+# batch, the 3 s waveforms at batch 32, a ragged tail (2^19 + 1), Ds != Dt
+# with one side on the bulk copies (D % 4 == 0) and the other not, B = 2, B
+# not a multiple of 4 or 8 (3, 5, 7), the largest batch on 3 columns, and D
+# one column past and one short of a stage's width (512 columns to B = 32,
+# 256 above), 4 columns past on the bulk copies, and more chunks than the
+# second pass stages at a time (320 chunks, 655,360 columns) on both sides
+SHAPES = [(16, 528000, 528000), (gram.MAX_BATCH, 528000, 528000), (32, 48000, 48000),
+          (4, (1 << 19) + 1, (1 << 19) + 1), (8, 100003, 64000), (3, 528000, 48001),
+          (2, 528000, 528000), (7, 5000, 2049), (gram.MAX_BATCH, 20000, 3),
+          (5, 513, 511), (24, 513, 511), (40, 257, 255), (24, 516, 508),
+          (6, 1400000, 655361)]
 
 
 @pytest.fixture
@@ -54,9 +61,25 @@ def test_kernel_matches_plain(cuda, shape):
         assert err <= GRAM_RTOL * want.abs().max().item(), (err, want.abs().max().item())
 
 
+def test_every_chunk_has_its_own_slot(cuda):
+    """Each chunk's columns scaled by its own factor, so every chunk's partial
+    differs; run twice on two such inputs, a chunk that wrote another's slot
+    or none would leave a stale or lost partial in the second result."""
+    D = 528000
+    for seed, base in ((1, 1.0), (2, 3.0)):
+        s, t = _inputs(32, D, D, cuda, seed=seed)
+        scale = (base + torch.arange(D, device=cuda) // gram.CHUNK % 7).float() / 8
+        gs, gt = gram.gram_pair_fwd(s * scale, t * scale.flip(0))
+        want = gram.gram_pair_reference(s * scale, t * scale.flip(0))
+        for got, ref in zip((gs, gt), want):
+            err = (got - ref).abs().max().item()
+            assert err <= GRAM_RTOL * ref.abs().max().item(), (seed, err)
+        del gs, gt  # the second call may take the first one's memory
+
+
 def test_unaligned_view(cuda):
     """A row-contiguous view that starts off a 16-byte boundary takes the
-    scalar loads."""
+    4-byte cp.async copies instead of the bulk copies."""
     s, t = _inputs(5, 4097, 4096, cuda)
     s_view = s.reshape(-1)[1:1 + 5 * 4096].reshape(5, 4096)
     got = gram.gram_pair_fwd(s_view, t)

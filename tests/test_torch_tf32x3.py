@@ -20,6 +20,15 @@ tens of thousands of pixels, one accumulator over the whole reduction drifts
 past the tolerance K3w is held to, and fresh accumulators per short run of
 pixels, added with round-to-nearest, meet it.  That is why K3w's design
 starts a fresh accumulator every stage of 64 pixels.
+
+The same three products for the Gram pair ``Z Z^T`` over D ~ 528,000
+columns (a split-TF32 tensor-core design of K2, measured on the card against
+its f32 FMA tiles and not kept: PERF.md) must stay within 1e-6 of the
+largest |G| element (``GRAM_TOL`` of ``chip_smoke.py``), a hundred times
+tighter than the conv kernels.  Emulated on waveform-like rows, a fresh
+accumulator every k8 step meets it, and one accumulator over a whole
+2048-column chunk, or one TF32 pass, does not: such a design has to add each
+k8 step's three products into its float32 sums at once.
 """
 
 import numpy as np
@@ -185,3 +194,72 @@ def test_block_adjoint_needs_a_fresh_accumulator_per_chunk():
     assert rel_l2(one) > BLOCK_REL_L2, rel_l2(one)
     assert rel_l2(fresh) <= BLOCK_REL_L2, rel_l2(fresh)
     assert rel_l2(fresh) <= 10 * f32, (rel_l2(fresh), f32)  # near a plain float32 sum
+
+
+GRAM_TOL = 1e-6  # chip_smoke.py: K2 against its plain version, of the largest |G| element
+GRAM_CHUNK = 2048  # kernels/gram.py CHUNK: the columns of one partial
+
+
+def _emulated_gram(z: torch.Tensor, steps_per_acc: int) -> torch.Tensor:
+    """``z z^T`` as a split-TF32 tensor-core Gram sums it: each k8 step's
+    three TF32 products (lo*hi, hi*lo, hi*hi, each added exactly and then
+    into the accumulator rounded toward zero), a fresh accumulator every
+    ``steps_per_acc`` steps added in order into float32 sums to nearest, one
+    partial per ``GRAM_CHUNK`` columns, and the partials added in chunk
+    order."""
+    B, D = z.shape
+    steps = GRAM_CHUNK // 8
+    total = torch.zeros(B, B)
+    for c0 in range(0, D, GRAM_CHUNK):
+        zc = torch.zeros(B, GRAM_CHUNK)  # columns past D count as zero
+        zc[:, :min(GRAM_CHUNK, D - c0)] = z[:, c0:c0 + GRAM_CHUNK]
+        hi, lo = (h.double().view(B, steps, 8) for h in split(zc))
+        incs = [torch.einsum("bsk,csk->sbc", lhs, rhs) for lhs, rhs in ((lo, hi), (hi, lo), (hi, hi))]
+        stretches = steps // steps_per_acc
+        acc = torch.zeros(stretches, B, B)
+        for j in range(steps_per_acc):
+            for inc in incs:
+                acc = _rz_add(acc, inc.view(stretches, steps_per_acc, B, B)[:, j])
+        part = torch.zeros(B, B)
+        for a in acc:
+            part = part + a
+        total = total + part
+    return total
+
+
+def _waveforms(B: int, D: int) -> torch.Tensor:
+    """Rows like the spkd step's waveforms: values in [-1, 1]."""
+    rng = np.random.default_rng(B)
+    return torch.from_numpy(np.clip(0.3 * rng.standard_normal((B, D)), -1, 1).astype(np.float32))
+
+
+def _gram_error(got: torch.Tensor, z: torch.Tensor) -> float:
+    exact = z.double() @ z.double().T
+    return ((got.double() - exact).abs().max() / exact.abs().max()).item()
+
+
+# (B, D): a small batch over 32 chunks and the spkd step's batch over 16
+GRAM_SHAPES = [(8, 65536), (32, 32768)]
+
+
+@pytest.mark.parametrize("B,D", GRAM_SHAPES)
+def test_gram_fresh_accumulator_every_k_step_meets_the_tolerance(B, D):
+    z = _waveforms(B, D)
+    err = _gram_error(_emulated_gram(z, 1), z)
+    f32 = _gram_error(z @ z.T, z)
+    assert err <= GRAM_TOL / 2, err  # room for the plain version's own rounding
+    assert err <= 10 * f32, (err, f32)  # near a plain float32 sum
+
+
+@pytest.mark.parametrize("B,D", GRAM_SHAPES)
+def test_gram_one_accumulator_over_a_chunk_misses_the_tolerance(B, D):
+    z = _waveforms(B, D)
+    err = _gram_error(_emulated_gram(z, GRAM_CHUNK // 8), z)
+    assert err > GRAM_TOL, err
+
+
+def test_gram_one_tf32_pass_misses_the_tolerance():
+    z = _waveforms(32, 32768)
+    zr = tf32_rna(z).double()
+    err = _gram_error(zr @ zr.T, z)
+    assert err > GRAM_TOL, err
