@@ -81,7 +81,18 @@ card, then drives both paths through their entry points:
     batch halved from 32 while it does not fit; launches per step: K2 1,
     K1f 8, K1b 4) and its card-vs-CPU step at 2 x 33 s, the least batch
     SPKD takes; then one step each of the ``mse`` and ``stft`` strategies
-    at 32 x 3 s (K1f 8, K1b 4, no K2).
+    at 32 x 3 s (K1f 8, K1b 4, no K2);
+14. the fit loop: ``Trainer(TrainConfig()).fit`` on the card at full width
+    (32 x 3 s synthetic, an epoch of 2 steps, 2 epochs, ``keep_top_k=1``,
+    checkpoints in a temporary directory), then ``cli.bundle_best`` as the
+    ``distill`` subcommand runs it: the final state's ``validate`` (SI-SDR
+    and STOI on the card) against the same weights' on the CPU; the one
+    checkpoint kept is the step with the best ``stoi`` of the two epochs; a
+    restore gives the saved state bit for bit; the bundle, read by
+    ``load_bundle`` into a fresh student, serves the restored student's bits;
+    K1f and K1b launches across the fit (8 and 4 a step, 4 K1f a validation
+    batch); the fit's audio-seconds per second beside phase 7's, and where
+    the loop's time beyond the steps goes (the loader alone, validation).
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -159,6 +170,12 @@ ROUNDING_FACTOR = 2.0
 # K2 vs plain: the same chunks of 2048 columns added in the same order, each
 # chunk's product summed in another order; of the largest |G| element
 GRAM_TOL = 1e-6
+# the fit of phase 14: epochs of this many steps of TEACHER_BATCH clips
+FIT_EPOCHS, FIT_STEPS_PER_EPOCH = 2, 2
+# its validation on the card against the CPU on the same weights: STOI
+# (absolute) and SI-SDR (dB)
+FIT_STOI_ATOL = 2e-4
+FIT_SI_SDR_ATOL = 1e-3
 
 
 # Each kernel's design: K1f, K1b, K2, K3f, K3w, K5f and K5b are in their
@@ -1542,6 +1559,212 @@ def phase_training_spkd():
     return rec
 
 
+def _cpu_copy(tree):
+    """A copy of a checkpoint's tree (``utils.serialization.trainer_state``)
+    with every tensor cloned to the CPU."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _cpu_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu_copy(v) for v in tree)
+    return tree.detach().to("cpu", copy=True) if isinstance(tree, torch.Tensor) else tree
+
+
+def _bit_diffs(got, want, path="") -> list:
+    """The paths where two checkpoint trees differ in any bit."""
+    import torch
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{path}: keys {sorted(map(str, got))} != {sorted(map(str, want))}"]
+        return [d for k in want for d in _bit_diffs(got[k], want[k], f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{path}: length"]
+        return [d for i, (g, w) in enumerate(zip(got, want)) for d in _bit_diffs(g, w, f"{path}/{i}")]
+    if isinstance(want, torch.Tensor):
+        g = got.detach().cpu()
+        same = (g.dtype == want.dtype and g.shape == want.shape and torch.equal(
+            g.reshape(-1).contiguous().view(torch.uint8),
+            want.reshape(-1).contiguous().view(torch.uint8)))
+        return [] if same else [path]
+    return [] if got == want else [f"{path}: {got!r} != {want!r}"]
+
+
+def fit_config(directory: str, **fields):
+    """``TrainConfig()`` on synthetic clips, an epoch of FIT_STEPS_PER_EPOCH
+    steps, FIT_EPOCHS epochs, one checkpoint kept, a log line an epoch;
+    ``fields`` override (the CPU rehearsal shrinks the models)."""
+    import dataclasses
+
+    from speech_enhancement_clskd_tpu_torch.config import TrainConfig
+
+    cfg = dataclasses.replace(TrainConfig(), max_epochs=FIT_EPOCHS, keep_top_k=1,
+                              log_every=FIT_STEPS_PER_EPOCH, ckpt_dir=directory)
+    data = dataclasses.replace(cfg.data, synthetic=True, batch_size=TEACHER_BATCH,
+                               segment=TRAIN_SECONDS,
+                               synthetic_size=TEACHER_BATCH * FIT_STEPS_PER_EPOCH)
+    return dataclasses.replace(cfg, data=data, **fields)
+
+
+def fit_checks(cfg, device: str, counters: dict) -> dict:
+    """``Trainer(cfg).fit`` on ``device`` with top-k checkpoints in
+    ``cfg.ckpt_dir``, then the CLI's ``bundle_best``, and every check of
+    phase 14 but the launch counts, which it reads (``counters``, set to 0
+    just before the fit and read just after): the record, with
+    ``failures`` listing what did not hold.  tests/test_torch_fit.py
+    rehearses it at tiny widths on the CPU."""
+    import json as json_
+
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.cli import bundle_best
+    from speech_enhancement_clskd_tpu_torch.data.loader import make_loader
+    from speech_enhancement_clskd_tpu_torch.models.dccrn import DCCRN
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
+    from speech_enhancement_clskd_tpu_torch.utils.observability import MetricWriter
+    from speech_enhancement_clskd_tpu_torch.utils.serialization import (
+        CheckpointManager,
+        load_bundle,
+        trainer_state,
+    )
+
+    class RecordingManager(CheckpointManager):
+        """Keeps a CPU copy of every state it keeps, to hold restores to."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.saved = {}
+
+        def save(self, trainer, metrics):
+            kept = super().save(trainer, metrics)
+            if kept:
+                self.saved[trainer.step] = _cpu_copy(trainer_state(trainer))
+            return kept
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    out, failures = cfg.ckpt_dir, []
+    trainer = Trainer(cfg, device=device).init_state(0)
+    mgr = RecordingManager(out, monitor=cfg.monitor, keep_top_k=cfg.keep_top_k)
+    writer = MetricWriter(f"{out}/metrics.jsonl")
+    lines = []
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    history = trainer.fit(log_fn=lines.append, checkpoint_manager=mgr, metric_writer=writer)
+    sync()
+    fit_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    writer.close()
+    records = MetricWriter.read(f"{out}/metrics.jsonl")
+    val = [r for r in records if r["scope"] == "val"]
+    steps, epochs = trainer.step, trainer.epoch
+
+    # the loader alone over one epoch, and validation alone, on this host
+    train_ds, val_ds = trainer.make_datasets()
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in make_loader(train_ds, cfg.data.batch_size, seed=cfg.seed))
+    loader_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    final = trainer.validate(val_ds)
+    validate_s = time.perf_counter() - t0
+
+    # validation: the final state on the CPU
+    cpu = Trainer(cfg, device="cpu").init_state(0)
+    cpu.student.load_state_dict(trainer.student.state_dict())
+    t0 = time.perf_counter()
+    on_cpu = cpu.validate(val_ds)
+    cpu_validate_s = time.perf_counter() - t0
+    stoi_err = max(abs(final[k] - on_cpu[k]) for k in final if "stoi" in k)
+    si_sdr_err = max(abs(final[k] - on_cpu[k]) for k in final if "si_sdr" in k)
+    if not (stoi_err <= FIT_STOI_ATOL and si_sdr_err <= FIT_SI_SDR_ATOL):
+        failures.append("validation on the card disagrees with the CPU")
+
+    # top-k: the one kept checkpoint is the best stoi of the epochs (the
+    # first of equal scores, as the manager keeps it)
+    with open(f"{out}/index.json") as f:
+        index = json_.load(f)
+    best = max(val, key=lambda r: r["stoi"])["step"]
+    kept = [int(s) for s in index["scores"]]
+    if kept != [best] or index["monitor"] != "stoi":
+        failures.append(f"index.json keeps {kept}, the best stoi was step {best}")
+
+    # restore: a fresh trainer (other seed) takes the saved bits
+    restored = Trainer(cfg, device=device).init_state(1)
+    mgr.restore(restored)
+    restore_diffs = _bit_diffs(_cpu_copy(trainer_state(restored)), mgr.saved[best])
+    if restore_diffs:
+        failures.append(f"restored state differs from the saved one at {restore_diffs[:5]}")
+
+    # the CLI's bundling: restores the best into the trainer, then writes
+    bundle = bundle_best(trainer, mgr, history, out, log_fn=lines.append)
+    if _bit_diffs(_cpu_copy(trainer_state(trainer)), mgr.saved[best]):
+        failures.append("bundle_best did not restore the best state")
+    bcfg, variables, meta = load_bundle(bundle)
+    served = DCCRN(bcfg).to(device).eval()
+    served.load_state_dict(torch_state_from_flax(variables), strict=True)
+    mix, _ = next(iter(make_loader(val_ds, len(val_ds), shuffle=False)))
+    wav = torch.from_numpy(mix).to(device)
+    # cuDNN's default forward algorithms do not repeat their bits: one module
+    # run twice on the card differs by ~3e-8.  Its deterministic ones do.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            served_wav = served(wav).wav
+            restored_wav = restored.student(wav, training=False).wav
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same_bits = torch.equal(served_wav, restored_wav)
+    bundle_diff = (served_wav - restored_wav).abs().max().item()
+    if bcfg != cfg.student or not same_bits:
+        failures.append("the bundle's student does not serve the restored student's bits")
+    sync()
+
+    epoch_s = [r["epoch_time_s"] for r in val]
+    return dict(
+        config=f"TrainConfig(), data.synthetic, {cfg.data.batch_size} x {cfg.data.segment} s, "
+               f"{FIT_STEPS_PER_EPOCH} steps an epoch, {cfg.max_epochs} epochs, keep_top_k 1",
+        steps=steps, epochs=epochs, fit_s=fit_s, launches=launches,
+        epoch_time_s=epoch_s, audio_s_per_s=[r["audio_s_per_s"] for r in val],
+        loader_epoch_s=loader_s, loader_batches=n_batches,
+        validate_s=validate_s, cpu_validate_s=cpu_validate_s,
+        val_stoi=[r["stoi"] for r in val], val_si_sdr=[r["si_sdr"] for r in val],
+        final=final, cpu_final=on_cpu, stoi_abs_err=stoi_err, stoi_tol=FIT_STOI_ATOL,
+        si_sdr_abs_err_db=si_sdr_err, si_sdr_tol_db=FIT_SI_SDR_ATOL,
+        kept=kept, best_step=best, restore_bit_equal=not restore_diffs,
+        bundle_serves_restored_bits=same_bits, bundle_max_abs_diff=bundle_diff,
+        bundle_software=meta["infos"]["software_versions"], log=lines, failures=failures)
+
+
+def phase_fit(step_ms_median: float, step_audio_s_per_s: float) -> dict:
+    """Phase 14 on the card: ``fit_checks`` at full width, its K1f and K1b
+    launches held (8 and 4 a step, 4 K1f a validation batch of 8 clips, one
+    an epoch), and the loop's time a step over phase 7's median step."""
+    import tempfile
+
+    counters = _kernel_counters()
+    with tempfile.TemporaryDirectory() as directory:
+        rec = fit_checks(fit_config(directory), "cuda", counters)
+    expected = {"lstm_seq_fwd": 8 * rec["steps"] + 4 * rec["epochs"],
+                "lstm_seq_bwd": 4 * rec["steps"]}
+    want = {name: expected.get(name, 0) for name in counters}
+    per_step_ms = [t * 1e3 / FIT_STEPS_PER_EPOCH for t in rec["epoch_time_s"]]
+    rec.update(step_ms_phase7=step_ms_median, audio_s_per_s_phase7=step_audio_s_per_s,
+               epoch_step_ms=per_step_ms,
+               loop_overhead=[t / step_ms_median - 1 for t in per_step_ms])
+    say("fit", **rec)
+    if rec["launches"] != want:
+        raise RuntimeError(f"kernel launches in the fit {rec['launches']}, expected {want}")
+    if rec["steps"] != FIT_EPOCHS * FIT_STEPS_PER_EPOCH or rec["failures"]:
+        raise RuntimeError(f"the fit phase failed: {rec['failures']}")
+    return rec
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1560,6 +1783,7 @@ def main() -> None:
     block_training = phase_training_block()
     gram_shapes = phase_gram_vs_plain()
     spkd_training = phase_training_spkd()
+    fit = phase_fit(training["step_ms_median"], training["audio_s_per_s"])
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
     conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
@@ -1586,7 +1810,8 @@ def main() -> None:
                              "training": training["launches"]["lstm_seq_fwd"],
                              "training_kernels": kernel_training["launches"]["lstm_seq_fwd"],
                              "training_block": block_training["launches"]["lstm_seq_fwd"],
-                             "training_spkd": spkd_training["launches"]["lstm_seq_fwd"]},
+                             "training_spkd": spkd_training["launches"]["lstm_seq_fwd"],
+                             "fit": fit["launches"]["lstm_seq_fwd"]},
         "per_shape": fwd_shapes,
     }, {
         "name": "lstm_seq_bwd",
@@ -1605,7 +1830,8 @@ def main() -> None:
         "launches_by_path": {"training": training["launches"]["lstm_seq_bwd"],
                              "training_kernels": kernel_training["launches"]["lstm_seq_bwd"],
                              "training_block": block_training["launches"]["lstm_seq_bwd"],
-                             "training_spkd": spkd_training["launches"]["lstm_seq_bwd"]},
+                             "training_spkd": spkd_training["launches"]["lstm_seq_bwd"],
+                             "fit": fit["launches"]["lstm_seq_bwd"]},
         "per_shape": bwd_shapes,
     }]
     conv_shape = dict(zip(("B", "D", "T", "C", "O"), CONV_REF))

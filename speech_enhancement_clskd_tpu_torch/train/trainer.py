@@ -28,20 +28,35 @@ Port of ``speech_enhancement_clskd_tpu/train/trainer.py``, the step of the
 6. Adam on the student and, with fusion, both ABF chains (optax ``adam`` and
    torch ``Adam`` apply the same update, ``m_hat / (sqrt(v_hat) + 1e-8)``).
 
-The whole step runs in full float32 (``utils.device.float32_math``).  The
-fit loop, validation and checkpoints are ROADMAP queue 1 item 3; every option
-this step does not port, the ``reviewkd`` strategy among them, raises
+The whole step runs in full float32 (``utils.device.float32_math``).  Every
+option this step does not port, the ``reviewkd`` strategy among them, raises
 ``NotImplementedError`` naming its item.
+
+Around the step, the fit loop of the JAX trainer (``fit``, ``validate``,
+``eval_step``, ``make_datasets``): epochs over the seeded loader
+(``data.loader.make_loader``), logs every ``log_every`` steps, validation
+with SI-SDR and STOI computed on the device (PIT-reordered where the model
+has ``n_src`` outputs) and read to the host once an epoch, top-k
+checkpoints (``utils.serialization.CheckpointManager``) and JSONL metrics
+(``utils.observability.MetricWriter``).  The trainer counts its completed
+epochs (``epoch``), which a checkpoint keeps: a resumed ``fit`` starts at
+that epoch, with that epoch's shuffle.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple, Union
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import DCCRNConfig, TrainConfig
+from ..data.dns import DNSDataset
+from ..data.librimix import LibriMixDataset
+from ..data.loader import make_loader
+from ..data.synthetic import SyntheticEnhancementDataset
 from ..distill.abf import ReviewKD
 from ..distill.strategies import (
     STRATEGIES,
@@ -50,7 +65,11 @@ from ..distill.strategies import (
     needs_fusion,
     needs_teacher_taps,
 )
+from ..losses.pit import pit_reorder
+from ..losses.signal import si_sdr
+from ..metrics.stoi import stoi_batch
 from ..models.dccrn import DCCRN
+from ..utils.bridge import torch_state_from_flax
 from ..utils.device import float32_math, resolve_device
 
 
@@ -86,7 +105,6 @@ def _check_supported(cfg: TrainConfig) -> None:
          f"optim.optimizer={o.optimizer!r}, weight_decay={o.weight_decay}: {item4}"),
         (o.grad_clip is not None, f"optim.grad_clip: {item4}"),
         (o.lr_schedule != "constant", f"optim.lr_schedule={o.lr_schedule!r}: {item4}"),
-        (cfg.scan_steps > 1, "scan_steps > 1: ROADMAP queue 1 item 3 (the fit loop)"),
     ]
     for bad, what in unported:
         if bad:
@@ -105,10 +123,12 @@ class Trainer:
     caller asks for the CPU; ``device="cuda"`` with no GPU raises).
 
     ``init_state(seed)`` draws seeded weights and makes the optimizer;
-    ``train_step(mix, clean)`` runs one step and returns its logs.  The
+    ``train_step(mix, clean)`` runs one step and returns its logs;
+    ``fit()`` trains, validates and checkpoints epoch by epoch.  The
     modules are ``student``, ``teacher``, ``abf_enc`` and ``abf_dec``, the
     last two ``None`` for a strategy without fusion
     (``utils.bridge.load_train_state`` loads a JAX ``TrainState`` into them).
+    ``step`` counts optimizer steps and ``epoch`` completed epochs.
     """
 
     def __init__(self, cfg: TrainConfig = TrainConfig(),
@@ -132,6 +152,7 @@ class Trainer:
             self.abf_dec = ReviewKD(s_dec, t_dec, d.abf_mid_channels, reverse=False, **kernels)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
+        self.epoch = 0
 
     def trainable(self) -> Dict[str, nn.Module]:
         """The modules Adam trains: the student, and the ABF chains with fusion."""
@@ -140,21 +161,28 @@ class Trainer:
             parts.update(abf_enc=self.abf_enc, abf_dec=self.abf_dec)
         return parts
 
-    def init_state(self, seed: Optional[int] = None) -> "Trainer":
+    def init_state(self, seed: Optional[int] = None,
+                   teacher_variables: Optional[Dict[str, Any]] = None) -> "Trainer":
         """Seeded weights for the student, the teacher and the ABF chains
         (drawn on the CPU from one ``torch.Generator``, then moved to the
-        device), and a fresh Adam over the trainable modules."""
+        device), and a fresh Adam over the trainable modules.
+        ``teacher_variables``: a pretrained teacher's flax ``{params,
+        batch_stats}`` tree (e.g. from ``utils.serialization.load_bundle``),
+        loaded over the seeded teacher."""
         g = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
         for m in (self.student, self.teacher, self.abf_enc, self.abf_dec):
             if m is not None:
                 m.cpu().reset_parameters(g)
                 m.to(self.device)
+        if teacher_variables is not None:
+            self.teacher.load_state_dict(torch_state_from_flax(teacher_variables), strict=True)
         self.teacher.requires_grad_(False).eval()
         for m in self.trainable().values():
             m.requires_grad_(True).train()
         params = [p for m in self.trainable().values() for p in m.parameters()]
         self.optimizer = torch.optim.Adam(params, lr=self.cfg.optim.lr)
         self.step = 0
+        self.epoch = 0
         return self
 
     def train_step(self, mix, clean) -> Dict[str, torch.Tensor]:
@@ -198,3 +226,156 @@ class Trainer:
         if self.use_fusion:
             norms["gn_abf"] = _global_norm(abf)
         return norms
+
+    # ------------------------------------------------------------- evaluation
+
+    @torch.no_grad()
+    def eval_step(self, mix, sources) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The student's forward with BN on running statistics on ``mix``
+        [B, T] and its metrics against ``sources`` [B, n_src, T] (numpy or
+        tensors): ``si_sdr``, ``input_si_sdr``, ``stoi``, ``input_stoi``,
+        ``si_sdr_imp`` and ``stoi_imp``, 0-d tensors on the device, and the
+        estimate.  Estimates are PIT-reordered against the sources when the
+        model has ``n_src`` outputs, as the reference's validation_step does
+        (distill.py:164-174); a single-output model on a multi-source task is
+        scored against the first source (the offline eval's fallback)."""
+        mix = torch.as_tensor(mix, dtype=torch.float32).to(self.device)
+        sources = torch.as_tensor(sources, dtype=torch.float32).to(self.device)
+        sr = self.cfg.data.sample_rate
+        with float32_math():
+            est = self.student(mix, training=False).wav
+            est_s = est if est.ndim == 3 else est[:, None, :]  # [B, n_est, T]
+            n_src = sources.shape[1]
+            if n_src > 1 and est_s.shape[1] == n_src:
+                est_s, _ = pit_reorder(est_s, sources)
+            elif n_src > 1:
+                sources = sources[:, :1]
+                n_src = 1
+            T = sources.shape[-1]
+            est_f = est_s[:, :n_src].reshape(-1, T)
+            src_f = sources.reshape(-1, T)
+            mix_f = torch.repeat_interleave(mix, n_src, dim=0) if n_src > 1 else mix
+            m = {
+                "si_sdr": si_sdr(src_f, est_f),
+                "input_si_sdr": si_sdr(src_f, mix_f),
+                "stoi": torch.mean(stoi_batch(src_f, est_f, fs=sr)),
+                "input_stoi": torch.mean(stoi_batch(src_f, mix_f, fs=sr)),
+            }
+        m["si_sdr_imp"] = m["si_sdr"] - m["input_si_sdr"]
+        m["stoi_imp"] = m["stoi"] - m["input_stoi"]
+        return m, est
+
+    # -------------------------------------------------------------- fit loop
+
+    def make_datasets(self):
+        """(train, validation) datasets of ``cfg.data``: the synthetic set
+        (validation ``max(8, size // 16)`` clips, seed ``seed + 10_000``), a
+        DNS directory, or LibriMix manifests."""
+        d = self.cfg.data
+        if d.synthetic:
+            train = SyntheticEnhancementDataset(
+                size=d.synthetic_size, segment=d.segment or 3.0,
+                sample_rate=d.sample_rate, seed=self.cfg.seed,
+                profile=d.synthetic_profile)
+            val = SyntheticEnhancementDataset(
+                size=max(8, d.synthetic_size // 16), segment=d.segment or 3.0,
+                sample_rate=d.sample_rate, seed=self.cfg.seed + 10_000,
+                profile=d.synthetic_profile)
+        elif d.dataset == "dns":
+            train = DNSDataset(d.train_dir, d.sample_rate, d.segment, seed=self.cfg.seed)
+            val = DNSDataset(d.valid_dir, d.sample_rate, d.segment, seed=self.cfg.seed)
+        else:
+            train = LibriMixDataset(d.train_dir, d.task, d.sample_rate, d.n_src, d.segment)
+            val = LibriMixDataset(d.valid_dir, d.task, d.sample_rate, d.n_src, d.segment)
+        return train, val
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(
+        self,
+        epochs: Optional[int] = None,
+        log_fn: Callable[[str], Any] = print,
+        checkpoint_manager=None,
+        metric_writer=None,
+    ) -> Dict[str, float]:
+        """Train from epoch ``self.epoch`` up to ``epochs`` (default
+        ``cfg.max_epochs``), validating after each epoch, and return the last
+        epoch's metrics (``validate``'s, ``epoch_time_s`` and
+        ``audio_s_per_s``).  A trainer whose ``init_state`` has not run is
+        initialized first (``init_state`` takes a pretrained teacher).
+
+        Epoch ``e`` shuffles with ``(cfg.seed, e)``, so a trainer restored
+        from a checkpoint continues the run it was cut from.  With
+        ``scan_steps`` K > 1, batches are gathered K at a time and run as K
+        steps, logging the window's last step, as the JAX fit's scan does; a
+        window that an epoch leaves incomplete carries into the next epoch,
+        and the one left at the end of ``fit`` is dropped (a checkpoint does
+        not hold it).  ``checkpoint_manager.save(self, metrics)`` runs after
+        each validation and ``metric_writer`` takes the train logs (scope
+        ``train``) and each epoch's metrics (scope ``val``).
+        """
+        cfg = self.cfg
+        if self.optimizer is None:
+            self.init_state()
+        train_ds, val_ds = self.make_datasets()
+        loader = make_loader(train_ds, cfg.data.batch_size, shuffle=True, seed=cfg.seed)
+        total_epochs = epochs or cfg.max_epochs
+        loader.epoch = start_epoch = min(self.epoch, total_epochs)
+        K = max(1, cfg.scan_steps)
+        history: Dict[str, float] = {}
+        pending: List[Tuple[np.ndarray, np.ndarray]] = []
+        for epoch in range(start_epoch, total_epochs):
+            self._sync()
+            t0 = time.time()
+            n = 0
+            for mix, src in loader:
+                pending.append((np.asarray(mix), np.asarray(src[:, 0])))
+                if len(pending) < K:
+                    continue
+                n_before = n
+                for mix_b, clean_b in pending:
+                    logs = self.train_step(mix_b, clean_b)
+                    n += 1
+                pending = []
+                if n_before // cfg.log_every != n // cfg.log_every:
+                    vals = {k: float(v) for k, v in logs.items()}
+                    log_fn(f"epoch {epoch} step {n}: "
+                           + " ".join(f"{k}={v:.4f}" for k, v in vals.items()))
+                    if metric_writer is not None:
+                        metric_writer.write(self.step, vals, scope="train")
+            self._sync()  # the steps' work, not their launches
+            dt = time.time() - t0
+            self.epoch = epoch + 1
+            metrics = self.validate(val_ds)
+            metrics["epoch_time_s"] = dt
+            seg = cfg.data.segment or 3.0
+            metrics["audio_s_per_s"] = n * cfg.data.batch_size * seg / dt
+            log_fn(f"epoch {epoch} done: "
+                   + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            if metric_writer is not None:
+                metric_writer.write(self.step, metrics, scope="val")
+            if checkpoint_manager is not None:
+                # top-k retention on the monitored metric (reference
+                # ModelCheckpoint(monitor='stoi'), distill.py:252-258)
+                checkpoint_manager.save(self, metrics)
+            history = metrics
+        return history
+
+    def validate(self, val_ds) -> Dict[str, float]:
+        """Mean of ``eval_step``'s metrics over ``val_ds`` in order, in
+        batches of ``min(batch_size, len(val_ds))``.  As in the JAX trainer,
+        the loader drops the last partial batch, so a set that is not a
+        multiple of the batch leaves its tail unscored.  The per-batch
+        metrics stay on the device and are read to the host once, at the
+        end."""
+        loader = make_loader(val_ds, min(self.cfg.data.batch_size, len(val_ds)), shuffle=False)
+        agg: Dict[str, List[torch.Tensor]] = {}
+        for mix, src in loader:
+            m, _ = self.eval_step(mix, src)
+            for k, v in m.items():
+                agg.setdefault(k, []).append(v)
+        keys = list(agg)
+        host = torch.stack([torch.stack(agg[k]) for k in keys]).cpu().numpy()  # one read
+        return {k: float(np.mean(host[i])) for i, k in enumerate(keys)}

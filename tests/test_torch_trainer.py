@@ -387,7 +387,6 @@ UNPORTED = {
     "weight_decay": dict(optim=OptimConfig(weight_decay=1e-4)),
     "grad_clip": dict(optim=OptimConfig(grad_clip=1.0)),
     "cosine": dict(optim=OptimConfig(lr_schedule="cosine")),
-    "scan_steps": dict(scan_steps=4),
 }
 
 
