@@ -92,7 +92,23 @@ card, then drives both paths through their entry points:
     ``load_bundle`` into a fresh student, serves the restored student's bits;
     K1f and K1b launches across the fit (8 and 4 a step, 4 K1f a validation
     batch); the fit's audio-seconds per second beside phase 7's, and where
-    the loop's time beyond the steps goes (the loader alone, validation).
+    the loop's time beyond the steps goes (the loader alone, validation);
+15. the ``reviewkd`` strategy: ``Trainer(TrainConfig(distill=DistillConfig(
+    strategy="reviewkd")))`` (HCL over the fused taps; SPKD on the LSTM taps
+    of unequal widths) as phase 9 (one warm-up and 5 timed steps; launches
+    per step: K1f 8, K1b 4, no other kernel) beside phase 7's step, and its
+    card-vs-CPU step on white noise (loss, and gradients against their
+    rounding floor as phase 13's) and speech (loss);
+16. the options of a tuned run on the kernel path: clskd with
+    ``abf_block_pallas``, ``abf_remat`` and ``spkd_bn2_fold``, AdamW with
+    weight decay, a gradient clip below the step's norm and the cosine
+    schedule after a warmup of 2 (``OPTION_DISTILL``, ``OPTION_OPTIM``) as
+    phase 11 (launches per step: K5f 24, its forward recomputed in the
+    backward, K5b 12, K1f 8, K1b 4) beside phase 11's step and peak memory;
+    then 3 steps card against CPU, each from the card's state (learning
+    rates 0, lr / 2, lr, every step clipped), and one step of the nine-dot
+    conv with the ABF re-init on the chain's per-op path (K1f 8, K1b 4)
+    (``option_checks``).
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -164,7 +180,7 @@ ZERO_GRAD = 1e-6
 # input moves the CPU's own gradients by up to 1.02e-3 (enc5_conv.wi), and
 # the card differs from the CPU by 1.08e-3 on the same tensor (NVIDIA H100
 # 80GB HBM3, 700 W).  Phase 13 holds them to this many times that floor,
-# measured in the run (``_card_vs_cpu``), where it is above
+# measured in the run (``synced_steps``), where it is above
 # TRAIN_GRAD_REL_L2.
 ROUNDING_FACTOR = 2.0
 # K2 vs plain: the same chunks of 2048 columns added in the same order, each
@@ -593,14 +609,21 @@ def train_batch(batch: int, seconds: float, seed: int = 2):
     return (np.stack([m for m, _ in pairs]), np.stack([c[0] for _, c in pairs]))
 
 
-def train_config(batch: int, seconds: float, distill: dict = None):
+def train_config(batch: int, seconds: float, distill: dict = None, optim: dict = None,
+                 **fields):
     """``TrainConfig()`` at ``batch`` x ``seconds``, with the ``distill``
-    fields (e.g. ``ABF_KERNEL_FLAGS``) set."""
+    fields (e.g. ``ABF_KERNEL_FLAGS``) and the ``optim`` fields set;
+    ``fields`` override the rest (the CPU rehearsals shrink the models)."""
     import dataclasses
 
-    from speech_enhancement_clskd_tpu_torch.config import DistillConfig, TrainConfig
+    from speech_enhancement_clskd_tpu_torch.config import (
+        DistillConfig,
+        OptimConfig,
+        TrainConfig,
+    )
 
-    cfg = TrainConfig(distill=DistillConfig(**(distill or {})))
+    cfg = TrainConfig(distill=DistillConfig(**(distill or {})),
+                      optim=OptimConfig(**(optim or {})), **fields)
     return dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, batch_size=batch, segment=seconds))
 
@@ -645,55 +668,6 @@ def gaussian_batch(batch: int, seconds: float, seed: int = 0):
     return clean + (0.05 * rng.standard_normal(clean.shape)).astype(np.float32), clean
 
 
-def _card_vs_cpu(mix, clean, distill: dict = None, rounding_floor: bool = False) -> dict:
-    """One step on the card and one on the CPU from the same seeded weights
-    (cuDNN set to deterministic algorithms for this step, so the comparison
-    repeats) on ``mix``/``clean`` ``[B, T]``: the loss's relative error and
-    the gradients' (``_grad_errors``), and the CPU step's seconds.
-
-    ``rounding_floor``: also take the CPU step on the input rounded once
-    more (each sample times 1 + 2^-23 in float32), and report the largest
-    relative change of a gradient tensor that gives (``_grad_errors`` again):
-    the floor below which no two float32 runs of the step can agree.  The
-    gradients are then held to ``ROUNDING_FACTOR`` times it where that is
-    above ``TRAIN_GRAD_REL_L2``."""
-    import numpy as np
-    import torch
-
-    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
-
-    batch, samples = mix.shape
-    cfg = train_config(batch, samples / 16000, distill)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        card = Trainer(cfg, device="cuda").init_state(1)
-        card_logs = card.train_step(mix, clean)
-        torch.cuda.synchronize()
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    t0 = time.perf_counter()
-    cpu = Trainer(cfg, device="cpu").init_state(1)
-    cpu_logs = cpu.train_step(mix, clean)
-    cpu_seconds = time.perf_counter() - t0
-    want = float(cpu_logs["train_loss"])
-    grad_norm = float(cpu_logs["grad_norm"])
-    cpu_grads = _grads(cpu)
-    grad_err, grad_worst, zero_grad = _grad_errors(_grads(card), cpu_grads, grad_norm)
-    rec = {"batch": batch, "seconds": samples / 16000,
-           "loss_rel_err": abs(float(card_logs["train_loss"]) - want) / abs(want),
-           "loss_rtol": TRAIN_LOSS_RTOL, "grad_max_rel_l2": grad_err, "grad_worst": grad_worst,
-           "grad_tol": TRAIN_GRAD_REL_L2, "zero_grad_max": zero_grad, "zero_grad_tol": ZERO_GRAD,
-           "cpu_step_s": cpu_seconds}
-    if rounding_floor:
-        again = Trainer(cfg, device="cpu").init_state(1)
-        again.train_step((mix * np.float32(1 + 2 ** -23)).astype(np.float32), clean)
-        floor, floor_worst, _ = _grad_errors(_grads(again), cpu_grads, grad_norm)
-        rec.update(rounding_floor=floor, rounding_floor_worst=floor_worst,
-                   grad_tol=max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * floor))
-    return rec
-
-
 def _kernel_counters() -> dict:
     """Every kernel wrapper of the training step, by kernel name."""
     from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
@@ -712,7 +686,7 @@ def _kernel_counters() -> dict:
             "gram_pair_fwd": gram_pair_fwd}
 
 
-def fitting_trainer(distill: dict, seconds: float):
+def fitting_trainer(distill: dict, seconds: float, optim: dict = None):
     """A ``Trainer`` on the card at full width on clips of ``seconds``, after
     one warm-up step, at the largest batch from 32 down, halving, that fits:
     ``(trainer, batch, cut, mix, clean)``, ``cut`` listing each halving."""
@@ -723,7 +697,8 @@ def fitting_trainer(distill: dict, seconds: float):
     batch, cut = TEACHER_BATCH, []
     while True:
         mix, clean = train_batch(batch, seconds)
-        trainer = Trainer(train_config(batch, seconds, distill), device="cuda").init_state(0)
+        trainer = Trainer(train_config(batch, seconds, distill, optim),
+                          device="cuda").init_state(0)
         try:
             trainer.train_step(mix, clean)  # warm-up
             torch.cuda.synchronize()
@@ -740,17 +715,20 @@ def fitting_trainer(distill: dict, seconds: float):
 
 def _training(phase: str, config: str, distill: dict, steps: int, expected: dict,
               seconds: float = TRAIN_SECONDS, check_batch: int = CHECK_BATCH,
-              check_seconds: float = CHECK_SECONDS, rounding_floor: bool = False) -> dict:
+              check_seconds: float = CHECK_SECONDS, rounding_floor: bool = False,
+              optim: dict = None, check=None, beside: dict = None) -> dict:
     """One warm-up and ``steps`` timed steps at full width on 32 clips of
     ``seconds`` (batch halved while it does not fit), launches per step held
     to ``expected`` (every other kernel: none), then the card-vs-CPU step on
-    ``check_batch`` clips of ``check_seconds`` (``rounding_floor``: its
-    gradients held against their own rounding floor, ``_card_vs_cpu``)."""
+    ``check_batch`` clips of ``check_seconds`` (``card_vs_cpu_checks``;
+    ``rounding_floor``: its gradients held against their own rounding
+    floor), or ``check()`` in its place; the check's ``failures`` fail the
+    phase.  ``beside``: another phase's numbers, printed in the record."""
     import numpy as np
     import torch
 
     counters = _kernel_counters()
-    trainer, batch, cut, mix, clean = fitting_trainer(distill, seconds)
+    trainer, batch, cut, mix, clean = fitting_trainer(distill, seconds, optim)
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     for fn in counters.values():
@@ -772,25 +750,25 @@ def _training(phase: str, config: str, distill: dict, steps: int, expected: dict
                step_ms_p90=float(np.percentile(step_ms, 90)), step_ms=step_ms,
                audio_s_per_s=batch * seconds / median_s, peak_mem_bytes=peak,
                losses=losses, logs_last={k: float(v) for k, v in logs.items()},
-               launches=launches, launches_per_step=per_step, finite=finite)
+               launches=launches, launches_per_step=per_step, finite=finite,
+               **({"beside": beside} if beside else {}))
     del trainer
     torch.cuda.empty_cache()
 
-    # one step on the card against one on the CPU from the same seeded weights
-    rec["card_vs_cpu"] = {
-        "gaussian": _card_vs_cpu(*gaussian_batch(check_batch, check_seconds), distill,
-                                 rounding_floor),
-        "speech": _card_vs_cpu(*train_batch(check_batch, check_seconds, seed=3), distill)}
+    if check is None:
+        cfg = train_config(check_batch, check_seconds, distill, optim)
+        rec["card_vs_cpu"] = card_vs_cpu_checks(cfg, "cuda", rounding_floor)
+    else:
+        rec["card_vs_cpu"] = check()
     say(phase, **rec)
     want = {name: expected.get(name, 0) for name in counters}
     if per_step != want:
         raise RuntimeError(f"kernel launches per step {per_step}, expected {want}")
     if not finite:
         raise RuntimeError("a training step gave a non-finite value")
-    gate = rec["card_vs_cpu"]["gaussian"]
-    if (any(c["loss_rel_err"] > TRAIN_LOSS_RTOL for c in rec["card_vs_cpu"].values())
-            or gate["grad_max_rel_l2"] > gate["grad_tol"] or gate["zero_grad_max"] > ZERO_GRAD):
-        raise RuntimeError("the training step on the card disagrees with the CPU")
+    if rec["card_vs_cpu"]["failures"]:
+        raise RuntimeError(f"the training step on the card disagrees with the CPU: "
+                           f"{rec['card_vs_cpu']['failures']}")
     return rec
 
 
@@ -1559,6 +1537,178 @@ def phase_training_spkd():
     return rec
 
 
+# the reviewkd strategy of phase 15
+REVIEWKD = dict(strategy="reviewkd")
+# phase 16: the options of a tuned clskd run on the whole-block kernel path
+# (remat doubles K5f's launches), its optimizer (the clip far below the
+# step's gradient norm, so every step clips; a warmup of 2 steps, so the
+# check's 3 steps take lr 0, lr / 2 and lr), and the XLA-route options
+OPTION_DISTILL = dict(abf_block_pallas=True, abf_remat=True, spkd_bn2_fold=True)
+OPTION_OPTIM = dict(optimizer="adamw", weight_decay=1e-2, grad_clip=0.05,
+                    lr_schedule="cosine", warmup_steps=2)
+OPTION_CHECK_STEPS = 3
+XLA_ROUTE_DISTILL = dict(abf_conv_ninedot=True, abf_reinit_each_step=True)
+
+
+def _mirror(dst, src) -> None:
+    """``src``'s weights, statistics, optimizer state and counters into
+    ``dst`` (another device)."""
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import trainer_parts
+
+    for part in trainer_parts(src):
+        getattr(dst, part).load_state_dict(getattr(src, part).state_dict())
+    dst.optimizer.load_state_dict(src.optimizer.state_dict())
+    dst.step, dst.epoch = src.step, src.epoch
+
+
+def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
+                 rounding_floor: bool = False) -> dict:
+    """``steps`` steps of ``Trainer(cfg)`` on ``device`` from seeded weights,
+    each mirrored by a CPU trainer loaded with the device trainer's state
+    just before it (weights, statistics, the optimizer's moments and step),
+    so every step is compared at one point (cuDNN on deterministic
+    algorithms): per step the loss's relative error and, with ``grads``, the
+    gradients' (``_grad_errors``, of the clipped gradients, the exempt ones
+    against the clipped norm), the learning rate, the gradient norm before
+    clipping and after, and the device's kernel launches.  With
+    ``rounding_floor`` a third trainer, mirrored alike, takes the step on
+    the input rounded once more (each sample times 1 + 2^-23), and the
+    gradients are held to ``ROUNDING_FACTOR`` times the largest change that
+    gives where that is above ``TRAIN_GRAD_REL_L2``.  ``failures`` lists
+    what was not held."""
+    import numpy as np
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer, _global_norm
+
+    counters = _kernel_counters()
+    on_card = device == "cuda"
+    card = Trainer(cfg, device=device).init_state(1)
+    cpu = Trainer(cfg, device="cpu").init_state(1)
+    again = Trainer(cfg, device="cpu").init_state(1) if grads and rounding_floor else None
+    clip = cfg.optim.grad_clip
+    recs, failures = [], []
+    deterministic = torch.backends.cudnn.deterministic
+    for k in range(steps):
+        _mirror(cpu, card)
+        if again is not None:
+            _mirror(again, card)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.backends.cudnn.deterministic = True
+        try:
+            card_logs = card.train_step(mix, clean)
+            if on_card:
+                torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        launches = {name: fn.launches for name, fn in counters.items()}
+        t0 = time.perf_counter()
+        cpu_logs = cpu.train_step(mix, clean)
+        want = float(cpu_logs["train_loss"])
+        norm = float(cpu_logs["grad_norm"])
+        rec = {"step": k, "lr": card.optimizer.param_groups[0]["lr"],
+               "loss_rel_err": abs(float(card_logs["train_loss"]) - want) / abs(want),
+               "grad_norm": norm, "cpu_step_s": time.perf_counter() - t0, "launches": launches}
+        if clip:
+            rec["clipped_norm"] = float(_global_norm(
+                p for m in card.trainable().values() for p in m.parameters()))
+            if not (norm > clip and abs(rec["clipped_norm"] - clip) <= 1e-5 * clip):
+                failures.append(f"step {k}: norm {norm} not clipped to {clip}")
+        if rec["loss_rel_err"] > TRAIN_LOSS_RTOL:
+            failures.append(f"step {k}: loss rel err {rec['loss_rel_err']}")
+        if grads:
+            scale = min(norm, clip or norm)
+            cpu_grads = _grads(cpu)
+            err, worst, zero = _grad_errors(_grads(card), cpu_grads, scale)
+            tol = TRAIN_GRAD_REL_L2
+            if again is not None:
+                again.train_step((mix * np.float32(1 + 2 ** -23)).astype(np.float32), clean)
+                floor, floor_worst, _ = _grad_errors(_grads(again), cpu_grads, scale)
+                tol = max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * floor)
+                rec.update(rounding_floor=floor, rounding_floor_worst=floor_worst)
+            rec.update(grad_max_rel_l2=err, grad_worst=worst, grad_tol=tol, zero_grad_max=zero)
+            if err > tol or zero > ZERO_GRAD:
+                failures.append(f"step {k}: gradients {err} ({worst}) against {tol}, "
+                                f"zero {zero}")
+        recs.append(rec)
+    return {"batch": mix.shape[0], "seconds": mix.shape[1] / 16000, "steps": recs,
+            "loss_rtol": TRAIN_LOSS_RTOL, "zero_grad_tol": ZERO_GRAD, "failures": failures}
+
+
+def card_vs_cpu_checks(cfg, device: str, rounding_floor: bool = False) -> dict:
+    """The training phases' check: one step of ``cfg`` on ``device`` against
+    the CPU from the same seeded weights (``synced_steps``) on white noise
+    (the loss and the gradients held; ``rounding_floor`` as there) and on
+    synthetic speech (the loss held: at random init on speech the
+    log-magnitude loss's gradient is ill-conditioned), at ``cfg``'s batch
+    and clip length."""
+    batch, seconds = cfg.data.batch_size, cfg.data.segment
+    rec = {"gaussian": synced_steps(cfg, *gaussian_batch(batch, seconds), device, 1,
+                                    rounding_floor=rounding_floor),
+           "speech": synced_steps(cfg, *train_batch(batch, seconds, seed=3), device, 1,
+                                  grads=False)}
+    rec["failures"] = [f"{name}: {f}" for name, r in rec.items() for f in r["failures"]]
+    return rec
+
+
+def option_checks(cfg, xla_cfg, device: str) -> dict:
+    """Phase 16's check: ``OPTION_CHECK_STEPS`` steps of ``cfg`` on
+    ``device`` against the CPU, each from the device's state (the learning
+    rates 0, lr / 2, lr of the warmup, every step clipped), then one step
+    of ``xla_cfg`` (the nine-dot conv, the ABF re-init), on white noise;
+    the launches of each device step."""
+    batch, seconds = cfg.data.batch_size, cfg.data.segment
+    mix, clean = gaussian_batch(batch, seconds)
+    rec = {"options": synced_steps(cfg, mix, clean, device, OPTION_CHECK_STEPS,
+                                   rounding_floor=True),
+           "xla_route": synced_steps(xla_cfg, mix, clean, device, 1, rounding_floor=True)}
+    lrs = [r["lr"] for r in rec["options"]["steps"]]
+    lr = cfg.optim.lr
+    failures = [f"{name}: {f}" for name, r in rec.items() for f in r["failures"]]
+    if not (lrs[0] == 0.0 and abs(lrs[1] - lr / 2) <= 1e-12 and abs(lrs[2] - lr) <= 1e-12):
+        failures.append(f"learning rates {lrs}, expected 0, {lr / 2}, {lr}")
+    rec["failures"] = failures
+    return rec
+
+
+def phase_training_reviewkd(phase7: dict) -> dict:
+    """Phase 15: the ``reviewkd`` strategy as phase 9 (launches per step: K1f
+    8, K1b 4) beside phase 7's step; its card-vs-CPU gradients held against
+    their rounding floor (a PReLU slope's read 1.36e-4 on the card, where
+    one rounding of the input moves another's by 9.1e-4 on the CPU; NVIDIA
+    H100 80GB HBM3, 700 W)."""
+    return _training("training_reviewkd", "reviewkd TrainConfig(distill=DistillConfig("
+                     "strategy='reviewkd'))", REVIEWKD, KERNEL_TRAIN_STEPS,
+                     {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4}, rounding_floor=True,
+                     beside=_beside("phase 7 (clskd)", phase7))
+
+
+def phase_training_options(block: dict) -> dict:
+    """Phase 16: clskd with ``OPTION_DISTILL`` and ``OPTION_OPTIM`` as phase
+    11 (launches per step: K5f 24, K5b 12, K1f 8, K1b 4), its check
+    ``option_checks``, beside phase 11's step and peak memory."""
+    cfg = train_config(CHECK_BATCH, CHECK_SECONDS, OPTION_DISTILL, OPTION_OPTIM)
+    xla_cfg = train_config(CHECK_BATCH, CHECK_SECONDS, XLA_ROUTE_DISTILL)
+    rec = _training("training_options", f"clskd TrainConfig(distill=DistillConfig("
+                    f"**{OPTION_DISTILL}), optim=OptimConfig(**{OPTION_OPTIM}))",
+                    OPTION_DISTILL, KERNEL_TRAIN_STEPS,
+                    {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4, "abf_block_fwd": 24,
+                     "abf_block_bwd": 12}, optim=OPTION_OPTIM,
+                    check=lambda: option_checks(cfg, xla_cfg, "cuda"),
+                    beside=_beside("phase 11 (abf_block_pallas)", block))
+    want = {name: {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4}.get(name, 0) for name in _kernel_counters()}
+    got = rec["card_vs_cpu"]["xla_route"]["steps"][0]["launches"]
+    if got != want:
+        raise RuntimeError(f"the XLA-route options' step launched {got}, expected {want}")
+    return rec
+
+
+def _beside(label: str, rec: dict) -> dict:
+    return {"phase": label, "step_ms_median": rec["step_ms_median"],
+            "audio_s_per_s": rec["audio_s_per_s"], "peak_mem_bytes": rec["peak_mem_bytes"]}
+
+
 def _cpu_copy(tree):
     """A copy of a checkpoint's tree (``utils.serialization.trainer_state``)
     with every tensor cloned to the CPU."""
@@ -1784,12 +1934,15 @@ def main() -> None:
     gram_shapes = phase_gram_vs_plain()
     spkd_training = phase_training_spkd()
     fit = phase_fit(training["step_ms_median"], training["audio_s_per_s"])
+    reviewkd_training = phase_training_reviewkd(training)
+    option_training = phase_training_options(block_training)
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
     conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
     fuse = next(r for r in fuse_shapes if (r["B"], r["D"], r["Dp"], r["T"], r["C"]) == FUSE_REF)
     trained = {name: training["launches"][name] + kernel_training["launches"][name]
                + block_training["launches"][name] + spkd_training["launches"][name]
+               + reviewkd_training["launches"][name] + option_training["launches"][name]
                for name in training["launches"]}
     src = "speech_enhancement_clskd_tpu_torch/kernels/csrc/"
     pallas = "speech_enhancement_clskd_tpu/ops/pallas/"
@@ -1811,7 +1964,9 @@ def main() -> None:
                              "training_kernels": kernel_training["launches"]["lstm_seq_fwd"],
                              "training_block": block_training["launches"]["lstm_seq_fwd"],
                              "training_spkd": spkd_training["launches"]["lstm_seq_fwd"],
-                             "fit": fit["launches"]["lstm_seq_fwd"]},
+                             "fit": fit["launches"]["lstm_seq_fwd"],
+                             "training_reviewkd": reviewkd_training["launches"]["lstm_seq_fwd"],
+                             "training_options": option_training["launches"]["lstm_seq_fwd"]},
         "per_shape": fwd_shapes,
     }, {
         "name": "lstm_seq_bwd",
@@ -1831,7 +1986,9 @@ def main() -> None:
                              "training_kernels": kernel_training["launches"]["lstm_seq_bwd"],
                              "training_block": block_training["launches"]["lstm_seq_bwd"],
                              "training_spkd": spkd_training["launches"]["lstm_seq_bwd"],
-                             "fit": fit["launches"]["lstm_seq_bwd"]},
+                             "fit": fit["launches"]["lstm_seq_bwd"],
+                             "training_reviewkd": reviewkd_training["launches"]["lstm_seq_bwd"],
+                             "training_options": option_training["launches"]["lstm_seq_bwd"]},
         "per_shape": bwd_shapes,
     }]
     conv_shape = dict(zip(("B", "D", "T", "C", "O"), CONV_REF))
@@ -1871,7 +2028,9 @@ def main() -> None:
             "route": "cuda",
             "source": src + source,
             "replaces": pallas + line,
-            "launches": block_training["launches"][name],
+            "launches": block_training["launches"][name] + option_training["launches"][name],
+            "launches_by_path": {"training_block": block_training["launches"][name],
+                                 "training_options": option_training["launches"][name]},
             "max_abs_err": max(r[err] for r in block_shapes),
             "ms": block[f"{key}_ms"],
             "plain_ms": block[f"{key}_plain_ms"],

@@ -415,8 +415,9 @@ def step(records: list, lib: ctypes.CDLL, bwd_lib: ctypes.CDLL) -> None:
             return library(source)
 
         with mock.patch.object(lstm, "_library", swapped):
-            rec = chip_smoke._card_vs_cpu(*chip_smoke.gaussian_batch(
-                chip_smoke.CHECK_BATCH, chip_smoke.CHECK_SECONDS), {})
+            cfg = chip_smoke.train_config(chip_smoke.CHECK_BATCH, chip_smoke.CHECK_SECONDS)
+            rec = chip_smoke.synced_steps(cfg, *chip_smoke.gaussian_batch(
+                chip_smoke.CHECK_BATCH, chip_smoke.CHECK_SECONDS), "cuda", 1)["steps"][0]
         emit(records, phase="step", variant=name,
              fwd_P_KS_WPT_by_width=variant["fwd"], bwd_KS_WPT_by_width=variant["bwd"],
              within_tol=rec["grad_max_rel_l2"] <= rec["grad_tol"], **rec)

@@ -1,11 +1,13 @@
 """Attention-based fusion (ABF) + ReviewKD cross-layer feature chain.
 
 Port of ``speech_enhancement_clskd_tpu/distill/abf.py``: its default path,
-and the opt-in kernel paths of ``conv_pallas`` (the 3x3 conv through
+the opt-in kernel paths of ``conv_pallas`` (the 3x3 conv through
 ``kernels.conv3x3``, K3f/K3w), ``attfuse_pallas`` (the attention fuse
 through ``kernels.attfuse``, K4f/K4b) and ``block_pallas`` (the whole block
-but bn2 through ``kernels.abf_block``, K5f/K5b).  Each ABF block takes one
-student tap ``[B, D, T, C_in]``:
+but bn2 through ``kernels.abf_block``, K5f/K5b), and the options
+``conv_ninedot`` (the 3x3 conv as nine shifted matmuls), ``bn2_affine_out``
+(bn2's affine returned, not applied) and ``remat`` (each block recomputed in
+the backward).  Each ABF block takes one student tap ``[B, D, T, C_in]``:
 
     x1   = tap @ W1                      (1x1 conv, bias-free)
     xhat = bn1(x1)                       (batch moments derived from the tap)
@@ -26,6 +28,15 @@ weights and bias.  Parameters keep the flax layouts (``conv1.kernel``
 ``[1, 1, I, O]``, ``att_conv.kernel`` ``[1, 1, 2C, 2]`` + ``bias``) except the
 3x3 kernel, which is ``[O, I, 3, 3]`` for ``F.conv2d`` (``utils.bridge``
 permutes it; the conv kernel's wrapper makes its own HWIO copy).
+
+Under ``remat`` each block runs inside ``torch.utils.checkpoint``, so its
+forward runs again in the backward, the kernels' forwards with it (K5f twice
+a block a step, and likewise K3f and K4f).  The port's BatchNorm moves its
+running statistics in its forward, and a recomputed forward would move them
+twice, where JAX's functional remat moves them once.  So a block's
+checkpointed part (``ABF.run``) normalizes on batch statistics without
+moving them and returns them, and the running statistics move outside the
+checkpoint (``ABF.update_running``), once a step.
 """
 
 from __future__ import annotations
@@ -36,11 +47,12 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.abf_block import abf_block, abf_block_dispatchable
 from ..kernels.attfuse import attention_fuse, attfuse_dispatchable
 from ..kernels.conv3x3 import conv3x3
-from ..ops.complex_layers import BatchNorm
+from ..ops.complex_layers import BatchNorm, batch_moments
 
 # flax's truncated_normal initializers divide the stddev by the stddev of a
 # unit normal truncated to [-2, 2]
@@ -154,14 +166,33 @@ class AttentionFuse(nn.Module):
         return xhat * z[..., 0:1] + y * z[..., 1:2]
 
 
+def _conv3x3_ninedot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME conv of x [B, D, T, C] with w [O, C, 3, 3] as nine shifted
+    [B, D, T, C] x [C, O] matmuls, summed in float32 whatever the input
+    dtype (the JAX ``_conv3x3_ninedot`` sums in the input's dtype), and
+    returned in x's dtype."""
+    b, d, t, _ = x.shape
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wf = w.float()
+    out = None
+    for di in range(3):
+        for dj in range(3):
+            y = torch.matmul(xp[:, di:di + d, dj:dj + t], wf[:, :, di, dj].T)
+            out = y if out is None else out + y
+    return out.to(x.dtype)
+
+
 class Conv3x3(nn.Module):
     """Bias-free 3x3 SAME conv over [B, D, T, C]: ``F.conv2d`` on the NCHW
-    view, as the JAX default path leaves it to XLA's conv, or with
-    ``use_kernel`` ``kernels.conv3x3.conv3x3`` (K3f/K3w)."""
+    view, as the JAX default path leaves it to XLA's conv; with
+    ``use_kernel`` ``kernels.conv3x3.conv3x3`` (K3f/K3w); else with
+    ``use_ninedot`` ``_conv3x3_ninedot``."""
 
-    def __init__(self, in_channels: int, features: int, use_kernel: bool = False):
+    def __init__(self, in_channels: int, features: int, use_kernel: bool = False,
+                 use_ninedot: bool = False):
         super().__init__()
         self.use_kernel = use_kernel
+        self.use_ninedot = use_ninedot
         self.kernel = nn.Parameter(torch.empty(features, in_channels, 3, 3))
 
     @torch.no_grad()
@@ -171,6 +202,8 @@ class Conv3x3(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_kernel:
             return conv3x3(x, self.kernel)
+        if self.use_ninedot:
+            return _conv3x3_ninedot(x, self.kernel)
         return F.conv2d(x.permute(0, 3, 1, 2), self.kernel, padding=1).permute(0, 2, 3, 1)
 
 
@@ -182,18 +215,23 @@ class ABF(nn.Module):
     through their kernels, and ``block_pallas`` everything but bn2 through
     the whole-block kernel where ``abf_block_dispatchable`` takes the
     geometry (the JAX flag names; a block the gate refuses takes the per-op
-    path under the other two)."""
+    path under the other two).  ``conv_ninedot``: the per-op path's 3x3 conv
+    as nine matmuls (``conv_pallas`` first, as in JAX).  ``bn2_affine_out``:
+    ``out`` is ``(raw conv2 map, a, b)`` with bn2's float32 affine, bn2's
+    running statistics moved all the same."""
 
     def __init__(self, in_channels: int, mid_channels: int, out_channels: int, fuse: bool,
                  conv_pallas: bool = False, attfuse_pallas: bool = False,
-                 block_pallas: bool = False):
+                 block_pallas: bool = False, conv_ninedot: bool = False,
+                 bn2_affine_out: bool = False):
         super().__init__()
         self.mid_channels, self.out_channels = mid_channels, out_channels
         self.block_pallas = block_pallas
+        self.bn2_affine_out = bn2_affine_out
         self.conv1 = _Kernel((1, 1, in_channels, mid_channels))
         self.bn1 = BatchNorm(mid_channels)
         self.att_conv = AttentionFuse(mid_channels, attfuse_pallas) if fuse else None
-        self.conv2 = Conv3x3(mid_channels, out_channels, conv_pallas)
+        self.conv2 = Conv3x3(mid_channels, out_channels, conv_pallas, conv_ninedot)
         self.bn2 = BatchNorm(out_channels)
 
     @torch.no_grad()
@@ -206,22 +244,44 @@ class ABF(nn.Module):
         self.bn2.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                training: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                training: bool = True):
+        out, xf, moments = self.run(x, residual, training)
+        self.update_running(moments)
+        return out, xf
+
+    def run(self, x: torch.Tensor, residual: Optional[torch.Tensor], training: bool):
+        """The block with bn1 and bn2 on batch statistics (``training``) or
+        running ones, the running statistics left as they are: ``(out, xf,
+        moments)``, ``moments`` bn1's and bn2's ``(mean, var, n)`` under
+        ``training``, else None."""
         w1 = self.conv1.kernel[0, 0]
-        moments = _bn1_moments_from_tap(x, w1) if training else None
-        aff = self.bn1(None, training=training, return_affine=True, moments=moments)
+        m1 = _bn1_moments_from_tap(x, w1) if training else None
+        aff = self.bn1(None, use_batch_stats=training, return_affine=True, moments=m1)
         fuse = self.att_conv is not None and residual is not None
         if self.block_pallas and abf_block_dispatchable(
                 x.shape, residual.shape if fuse else None, self.mid_channels,
                 self.out_channels):
-            out, xf = self._block(x, residual if fuse else None, w1, aff)
-            return self.bn2(out, training=training), xf
-        if fuse:
-            x = self.att_conv(x, residual, aff, w1)
+            raw, xf = self._block(x, residual if fuse else None, w1, aff)
         else:
-            a, b0 = aff
-            x = torch.matmul(x, w1) * a + b0
-        return self.bn2(self.conv2(x), training=training), x
+            if fuse:
+                xf = self.att_conv(x, residual, aff, w1)
+            else:
+                a, b0 = aff
+                xf = torch.matmul(x, w1) * a + b0
+            raw = self.conv2(xf)
+        m2 = batch_moments(raw) if training else None
+        if self.bn2_affine_out:
+            out = (raw,) + self.bn2(None, use_batch_stats=training, return_affine=True,
+                                    moments=m2)
+        else:
+            out = self.bn2(raw, use_batch_stats=training, moments=m2)
+        return out, xf, (m1, m2) if training else None
+
+    def update_running(self, moments) -> None:
+        """Move bn1's and bn2's running statistics by ``run``'s moments."""
+        if moments is not None:
+            for bn, (mean, var, n) in zip((self.bn1, self.bn2), moments):
+                bn.update_running(mean.detach(), var.detach(), n)
 
     def _block(self, x, residual, w1, aff):
         """``(raw conv2 output, xf)`` through ``kernels.abf_block``, with the
@@ -250,16 +310,22 @@ class ReviewKD(nn.Module):
     encoder taps (the list runs shallow -> deep, so processing starts from
     its end); decoder tap lists already lead with the deepest map.  Block
     ``abf{i}`` is the i-th in processing order.  ``conv_pallas``,
-    ``attfuse_pallas`` and ``block_pallas`` go to every block (``ABF``).
+    ``attfuse_pallas``, ``block_pallas``, ``conv_ninedot`` and
+    ``bn2_affine_out`` go to every block (``ABF``).  ``remat``: each block
+    runs under ``torch.utils.checkpoint`` (non-reentrant) while gradients
+    are recorded, its running statistics moved outside it.
     """
 
     def __init__(self, in_channels: Sequence[int], out_channels: Sequence[int],
                  mid_channels: int, reverse: bool = True, conv_pallas: bool = False,
-                 attfuse_pallas: bool = False, block_pallas: bool = False):
+                 attfuse_pallas: bool = False, block_pallas: bool = False,
+                 conv_ninedot: bool = False, bn2_affine_out: bool = False,
+                 remat: bool = False):
         super().__init__()
         if len(in_channels) != len(out_channels):
             raise ValueError("in_channels and out_channels differ in length")
         self.reverse = reverse
+        self.remat = remat
         ins = list(in_channels[::-1] if reverse else in_channels)
         outs = list(out_channels[::-1] if reverse else out_channels)
         self.blocks = len(ins)
@@ -267,7 +333,9 @@ class ReviewKD(nn.Module):
             self.add_module(f"abf{i}", ABF(c_in, mid_channels, c_out, fuse=i > 0,
                                            conv_pallas=conv_pallas,
                                            attfuse_pallas=attfuse_pallas,
-                                           block_pallas=block_pallas))
+                                           block_pallas=block_pallas,
+                                           conv_ninedot=conv_ninedot,
+                                           bn2_affine_out=bn2_affine_out))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
@@ -278,7 +346,13 @@ class ReviewKD(nn.Module):
         xs = list(feats[::-1] if self.reverse else feats)
         results: List[torch.Tensor] = []
         res = None
+        remat = self.remat and torch.is_grad_enabled()
         for i, f in enumerate(xs):
-            out, res = getattr(self, f"abf{i}")(f, res, training)
+            block = getattr(self, f"abf{i}")
+            if remat:
+                out, res, moments = checkpoint(block.run, f, res, training, use_reentrant=False)
+            else:
+                out, res, moments = block.run(f, res, training)
+            block.update_running(moments)
             results.append(out)
         return results[::-1] if self.reverse else results

@@ -1,18 +1,22 @@
 """The distillation strategies as loss functions.
 
-Port of ``speech_enhancement_clskd_tpu/distill/strategies.py``, four of its
-five strategies:
+Port of ``speech_enhancement_clskd_tpu/distill/strategies.py``, its five
+strategies:
 
 - ``clskd``: SPKD between the ReviewKD-fused student taps and the teacher's
-  encoder/decoder taps, plus SPKD on the complex-LSTM real/imaginary states;
+  encoder/decoder taps, plus SPKD on the complex-LSTM real/imaginary states
+  (a fused map given as ``(raw, a, b)``, bn2's affine unapplied, takes
+  ``spkd_loss_affine``);
+- ``reviewkd``: HCL between the same fused taps and the teacher's, both as
+  ``[B, C, D, T]``; on the LSTM states HCL where the student's and the
+  teacher's widths are equal, SPKD where they differ;
 - ``spkd``: SPKD between the output waveforms ``[B, samples]`` (from clips of
   32.8 s on, through the fused Gram pair K2: ``losses/kd.py``);
 - ``mse``: the mean squared difference of the output waveforms;
 - ``stft``: the base loss's STFT-magnitude term between the outputs.
 
 Every strategy adds the base loss, the single-resolution log-STFT-magnitude
-L1 of the student output against the clean target.  ``reviewkd`` (HCL over
-the fused taps) is ROADMAP queue 1 item 4 and raises.
+L1 of the student output against the clean target.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..config import DistillConfig
-from ..losses.kd import spkd_loss
+from ..losses.kd import hcl, spkd_loss, spkd_loss_affine
 from ..losses.spectral import multi_resolution_stft_loss
 from ..models.dccrn import DCCRNOutput
 
@@ -54,26 +58,47 @@ def distill_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss + per-term logs (``loss_keys(strategy)``) for one strategy.
     ``fused_encoder`` and ``fused_decoder`` are the ReviewKD outputs over the
-    student's taps (``clskd``; the other strategies take none)."""
+    student's taps (``clskd`` and ``reviewkd``; the other strategies take
+    none)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown distill strategy {strategy!r}")
-    if strategy == "reviewkd":
-        raise NotImplementedError(
-            "distill strategy 'reviewkd' (HCL over the fused taps) is ROADMAP queue 1 item 4")
     logs: Dict[str, torch.Tensor] = {}
     base = base_loss(s_out.wav, clean, dcfg)
     logs["base_loss"] = base
     gg = dcfg.spkd_gram_groups
+
+    def _sp(sf, tf):
+        if isinstance(sf, tuple):  # (raw conv2 map, a, b): bn2 folded into the Grams
+            return spkd_loss_affine(sf[0], sf[1], sf[2], tf, "batchmean", groups=gg)
+        return spkd_loss(sf, tf, "batchmean", groups=gg)
+
     if strategy == "clskd":
-        enc = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
-                  for sf, tf in zip(fused_encoder, t_out.taps.encoder))
-        dec = sum(spkd_loss(sf, tf, "batchmean", groups=gg)
-                  for sf, tf in zip(fused_decoder, t_out.taps.decoder))
+        enc = sum(_sp(sf, tf) for sf, tf in zip(fused_encoder, t_out.taps.encoder))
+        dec = sum(_sp(sf, tf) for sf, tf in zip(fused_decoder, t_out.taps.decoder))
         # LSTM taps are [T, B, F]: the Gram runs over batch axis 1
         lr = spkd_loss(s_out.taps.lstm_real, t_out.taps.lstm_real, "batchmean",
                        batch_axis=1, groups=gg)
         li = spkd_loss(s_out.taps.lstm_imag, t_out.taps.lstm_imag, "batchmean",
                        batch_axis=1, groups=gg)
+        logs.update(enc_loss=enc, dec_loss=dec, clstm_real_loss=lr, clstm_imag_loss=li)
+        distill = enc + dec + lr + li
+    elif strategy == "reviewkd":
+        def nchw(ts):
+            return [t.permute(0, 3, 1, 2) for t in ts]
+
+        enc = hcl(nchw(fused_encoder), nchw(t_out.taps.encoder))
+        dec = hcl(nchw(fused_decoder), nchw(t_out.taps.decoder))
+
+        def lstm_term(s_tap, t_tap):
+            # [T, B, F] -> [B, T, F]; the JAX defaults of spkd_loss (batch
+            # axis 0, one Gram) where the widths differ
+            s_b, t_b = s_tap.transpose(0, 1), t_tap.transpose(0, 1)
+            if s_b.shape == t_b.shape:
+                return hcl([s_b], [t_b])
+            return spkd_loss(s_b, t_b, "batchmean")
+
+        lr = lstm_term(s_out.taps.lstm_real, t_out.taps.lstm_real)
+        li = lstm_term(s_out.taps.lstm_imag, t_out.taps.lstm_imag)
         logs.update(enc_loss=enc, dec_loss=dec, clstm_real_loss=lr, clstm_imag_loss=li)
         distill = enc + dec + lr + li
     elif strategy == "spkd":
@@ -92,7 +117,8 @@ def distill_loss(
 
 def loss_keys(strategy: str) -> Tuple[str, ...]:
     """The loss logs ``distill_loss`` returns for ``strategy``."""
-    terms = {"clskd": ("enc_loss", "dec_loss", "clstm_real_loss", "clstm_imag_loss"),
+    fused = ("enc_loss", "dec_loss", "clstm_real_loss", "clstm_imag_loss")
+    terms = {"clskd": fused, "reviewkd": fused,
              "spkd": ("spkd_loss",), "mse": ("mse_loss",), "stft": ("stft_loss",)}
     return ("base_loss",) + terms[strategy] + ("train_loss",)
 

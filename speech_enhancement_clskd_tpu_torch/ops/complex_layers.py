@@ -178,7 +178,11 @@ class BatchNorm(nn.Module):
     ``normalize(x) == x * a + b`` instead of the normalized map, so a caller
     can fold it into its next contraction.  ``moments=(mean, var, n)`` gives
     the batch statistics from the caller (``var`` biased, ``n`` the element
-    count behind it); ``x`` may then be None.
+    count behind it, as ``batch_moments`` returns them); ``x`` may then be
+    None.  ``update_running(mean, var, n)`` is the running-statistics update
+    alone, for a caller that normalizes with ``training=False,
+    use_batch_stats=True`` and moves the statistics itself (the ABF blocks
+    under recomputation, ``distill.abf``).
     """
 
     MOMENTUM = 0.1
@@ -209,21 +213,10 @@ class BatchNorm(nn.Module):
         if use_batch_stats is None:
             use_batch_stats = training
         if use_batch_stats:
-            if moments is not None:
-                mean, var, n = moments
-                mean, var = mean.float(), var.float()
-            else:
-                dims = tuple(range(x.ndim - 1))
-                xf = x.float()
-                mean = xf.mean(dim=dims)
-                var = xf.square().mean(dim=dims) - mean.square()
-                n = x.numel() // x.shape[-1]
+            mean, var, n = moments if moments is not None else batch_moments(x)
+            mean, var = mean.float(), var.float()
             if training:
-                with torch.no_grad():
-                    m = self.MOMENTUM
-                    unbiased = var * (n / max(n - 1, 1))
-                    self.mean.copy_((1 - m) * self.mean + m * mean.to(self.mean.dtype))
-                    self.var.copy_((1 - m) * self.var + m * unbiased.to(self.var.dtype))
+                self.update_running(mean, var, n)
         else:
             mean, var = self.mean, self.var
         if return_affine:
@@ -231,3 +224,20 @@ class BatchNorm(nn.Module):
             return a, self.bias.float() - mean.float() * a
         inv = torch.rsqrt(var.to(x.dtype) + self.eps)
         return (x - mean.to(x.dtype)) * inv * self.scale + self.bias
+
+    @torch.no_grad()
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """running <- (1 - m) running + m batch, the variance made unbiased."""
+        m = self.MOMENTUM
+        unbiased = var.float() * (n / max(n - 1, 1))
+        self.mean.copy_((1 - m) * self.mean + m * mean.to(self.mean.dtype))
+        self.var.copy_((1 - m) * self.var + m * unbiased.to(self.var.dtype))
+
+
+def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """float32 per-channel batch mean and biased variance (E[x^2] - E[x]^2)
+    of a [..., C] map over all leading axes, and the element count a channel."""
+    dims = tuple(range(x.ndim - 1))
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    return mean, xf.square().mean(dim=dims) - mean.square(), x.numel() // x.shape[-1]

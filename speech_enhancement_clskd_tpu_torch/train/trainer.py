@@ -1,7 +1,7 @@
 """The distillation trainer's optimizer step.
 
-Port of ``speech_enhancement_clskd_tpu/train/trainer.py``, the step of the
-``clskd``, ``spkd``, ``mse`` and ``stft`` strategies.  One ``train_step`` runs
+Port of ``speech_enhancement_clskd_tpu/train/trainer.py``, the step of all
+five strategies in float32.  One ``train_step`` runs
 
 1. the frozen teacher forward under ``torch.no_grad()``, BN on batch
    statistics with its running statistics left as they are (the JAX step
@@ -10,26 +10,44 @@ Port of ``speech_enhancement_clskd_tpu/train/trainer.py``, the step of the
    the student runs;
 2. the student forward in training mode (BN on batch statistics, running
    statistics updated);
-3. for ``clskd`` (``needs_fusion``), two ReviewKD chains of ABF blocks over
-   the student's encoder and decoder taps (with ``distill.abf_conv_pallas``
-   and ``distill.abf_attfuse_pallas`` their 3x3 convs and attention fuses
-   go through the K3 and K4 kernels; with ``distill.abf_block_pallas`` each
-   block but its bn2 goes through the whole-block kernel K5, and a block its
-   gate refuses takes the path of the other two flags); the other
-   strategies build no ABF chains, as the JAX trainer does;
+3. for ``clskd`` and ``reviewkd`` (``needs_fusion``), two ReviewKD chains of
+   ABF blocks over the student's encoder and decoder taps (with
+   ``distill.abf_conv_pallas`` and ``distill.abf_attfuse_pallas`` their 3x3
+   convs and attention fuses go through the K3 and K4 kernels; with
+   ``distill.abf_block_pallas`` each block but its bn2 goes through the
+   whole-block kernel K5, and a block its gate refuses takes the path of the
+   other two flags; ``distill.abf_conv_ninedot`` takes the per-op 3x3 conv
+   as nine matmuls, ``distill.abf_remat`` recomputes each block in the
+   backward, and ``distill.spkd_bn2_fold`` under ``clskd`` folds bn2's affine
+   into the SPKD Grams); the other strategies build no ABF chains, as the
+   JAX trainer does.  With ``distill.abf_reinit_each_step`` the chains take
+   fresh weights every step (the reference's quirk), drawn from a
+   ``torch.Generator`` seeded from ``(cfg.seed, step)``, and are neither
+   trained nor keep their running statistics;
 4. the strategy's loss (``distill.strategies``): for ``clskd`` the SPKD Gram
-   losses against the teacher's taps and LSTM taps, for ``spkd`` the SPKD
+   losses against the teacher's taps and LSTM taps, for ``reviewkd`` HCL
+   against them (SPKD on LSTM taps of other widths), for ``spkd`` the SPKD
    loss between the output waveforms (the fused Gram pair K2 once a clip
    reaches 32.8 s), for ``mse`` and ``stft`` the waveforms' squared error
    or STFT-magnitude distance; plus the log-STFT-magnitude base loss;
 5. the backward (on CUDA tensors the LSTM backward kernel, and with the ABF
    flags the conv's dx and weight-gradient kernels and the fuse's backward,
    or the whole block's backward);
-6. Adam on the student and, with fusion, both ABF chains (optax ``adam`` and
-   torch ``Adam`` apply the same update, ``m_hat / (sqrt(v_hat) + 1e-8)``).
+6. the optimizer on the student and, with fusion, both ABF chains, as the
+   JAX ``_make_optimizer`` builds it: Adam (optax ``adam`` and torch
+   ``Adam`` apply the same update, ``m_hat / (sqrt(v_hat) + 1e-8)``), or
+   with ``optim.optimizer="adamw"`` or a ``weight_decay`` torch ``AdamW``,
+   whose decay is decoupled, ``p -= lr * (adam + wd * p)``, as optax's
+   ``adamw`` (not ``Adam``'s L2 term); ``optim.grad_clip`` scales the
+   gradients by ``clip / ||g||`` where ``||g|| >= clip`` (optax
+   ``clip_by_global_norm``, no epsilon), after the logs have read the raw
+   norms; the learning rate of update k (from 0) is ``lr_at(k)``, constant
+   or optax's ``warmup_cosine_decay_schedule(0, lr, warmup_steps,
+   total_steps(), lr / 100)``, set from ``step`` each step, so a restored
+   checkpoint continues the schedule.
 
-The whole step runs in full float32 (``utils.device.float32_math``).  Every
-option this step does not port, the ``reviewkd`` strategy among them, raises
+The whole step runs in full float32 (``utils.device.float32_math``).  bf16
+(``distill.taps_dtype``, a model's ``compute_dtype``) raises
 ``NotImplementedError`` naming its item.
 
 Around the step, the fit loop of the JAX trainer (``fit``, ``validate``,
@@ -45,6 +63,7 @@ that epoch, with that epoch's shuffle.
 
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
 
@@ -73,12 +92,14 @@ from ..utils.bridge import torch_state_from_flax
 from ..utils.device import float32_math, resolve_device
 
 
-def log_keys(strategy: str) -> Tuple[str, ...]:
+def log_keys(strategy: str, abf_reinit_each_step: bool = False) -> Tuple[str, ...]:
     """The keys of ``Trainer.train_step``'s logs for ``strategy``, as the JAX
     step returns them: the strategy's losses, the global gradient norm and
-    the student's per-part norms, and ``gn_abf`` with fusion."""
+    the student's per-part norms, and ``gn_abf`` where the ABF chains train
+    (fusion without ``abf_reinit_each_step``)."""
+    trained_abf = needs_fusion(strategy) and not abf_reinit_each_step
     return (loss_keys(strategy) + ("grad_norm", "gn_enc", "gn_lstm", "gn_dec")
-            + (("gn_abf",) if needs_fusion(strategy) else ()))
+            + (("gn_abf",) if trained_abf else ()))
 
 
 def _teacher_tap_channels(cfg: DCCRNConfig) -> Tuple[tuple, tuple]:
@@ -90,25 +111,31 @@ def _teacher_tap_channels(cfg: DCCRNConfig) -> Tuple[tuple, tuple]:
 
 
 def _check_supported(cfg: TrainConfig) -> None:
-    d, o = cfg.distill, cfg.optim
+    d = cfg.distill
     if d.strategy not in STRATEGIES:
         raise ValueError(f"unknown distill strategy {d.strategy!r}")
-    item4 = "ROADMAP queue 1 item 4 (the rest of training)"
-    unported = [
-        (d.strategy == "reviewkd", f"distill.strategy={d.strategy!r}: {item4}"),
-        (d.abf_reinit_each_step, f"distill.abf_reinit_each_step: {item4}"),
-        (d.taps_dtype != "float32", f"distill.taps_dtype={d.taps_dtype!r}: {item4}"),
-        (d.abf_remat, f"distill.abf_remat: {item4}"),
-        (d.abf_conv_ninedot, f"distill.abf_conv_ninedot: {item4}"),
-        (d.spkd_bn2_fold, f"distill.spkd_bn2_fold: {item4}"),
-        (o.optimizer != "adam" or bool(o.weight_decay),
-         f"optim.optimizer={o.optimizer!r}, weight_decay={o.weight_decay}: {item4}"),
-        (o.grad_clip is not None, f"optim.grad_clip: {item4}"),
-        (o.lr_schedule != "constant", f"optim.lr_schedule={o.lr_schedule!r}: {item4}"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+    if d.taps_dtype != "float32":
+        raise NotImplementedError(
+            f"not ported yet: distill.taps_dtype={d.taps_dtype!r}: bf16 training is "
+            "ROADMAP queue 1 item 4")
+
+
+def warmup_cosine(step: int, peak: float, warmup_steps: int, decay_steps: int,
+                  end: float) -> float:
+    """optax ``warmup_cosine_decay_schedule(0, peak, warmup_steps,
+    decay_steps, end)`` at ``step``: linear from 0 to ``peak`` over the
+    warmup, then a cosine from ``peak`` to ``end`` over the remaining
+    ``decay_steps - warmup_steps`` steps, ``end`` after them."""
+    if decay_steps - warmup_steps <= 0:
+        raise ValueError(
+            f"the cosine schedule needs total steps ({decay_steps}) above the warmup "
+            f"({warmup_steps})")
+    if step < warmup_steps:
+        return peak * step / warmup_steps
+    count = min(step - warmup_steps, decay_steps - warmup_steps)
+    alpha = 0.0 if peak == 0.0 else end / peak
+    cosine = 0.5 * (1 + math.cos(math.pi * count / (decay_steps - warmup_steps)))
+    return peak * ((1 - alpha) * cosine + alpha)
 
 
 def _global_norm(params: Iterable[nn.Parameter]) -> torch.Tensor:
@@ -128,7 +155,9 @@ class Trainer:
     modules are ``student``, ``teacher``, ``abf_enc`` and ``abf_dec``, the
     last two ``None`` for a strategy without fusion
     (``utils.bridge.load_train_state`` loads a JAX ``TrainState`` into them).
-    ``step`` counts optimizer steps and ``epoch`` completed epochs.
+    ``step`` counts optimizer steps and ``epoch`` completed epochs.  Under
+    ``abf_reinit_each_step`` the chains hold the last step's drawn weights
+    (``draw_abf``), which no optimizer moves.
     """
 
     def __init__(self, cfg: TrainConfig = TrainConfig(),
@@ -138,6 +167,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.strategy = cfg.distill.strategy
         self.use_fusion = needs_fusion(self.strategy)
+        self.reinit_abf = self.use_fusion and cfg.distill.abf_reinit_each_step
         self.student = DCCRN(cfg.student)
         self.teacher = DCCRN(cfg.teacher)
         self.abf_enc: Optional[ReviewKD] = None
@@ -147,25 +177,71 @@ class Trainer:
             s_enc, s_dec = _teacher_tap_channels(cfg.student)
             d = cfg.distill
             kernels = dict(conv_pallas=d.abf_conv_pallas, attfuse_pallas=d.abf_attfuse_pallas,
-                           block_pallas=d.abf_block_pallas)
+                           block_pallas=d.abf_block_pallas, conv_ninedot=d.abf_conv_ninedot,
+                           bn2_affine_out=d.spkd_bn2_fold and self.strategy == "clskd",
+                           remat=d.abf_remat)
             self.abf_enc = ReviewKD(s_enc, t_enc, d.abf_mid_channels, reverse=True, **kernels)
             self.abf_dec = ReviewKD(s_dec, t_dec, d.abf_mid_channels, reverse=False, **kernels)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.epoch = 0
+        self._total_steps: Optional[int] = None
 
     def trainable(self) -> Dict[str, nn.Module]:
-        """The modules Adam trains: the student, and the ABF chains with fusion."""
+        """The modules the optimizer trains: the student, and the ABF chains
+        with fusion unless they are drawn afresh each step."""
         parts = {"student": self.student}
-        if self.use_fusion:
+        if self.use_fusion and not self.reinit_abf:
             parts.update(abf_enc=self.abf_enc, abf_dec=self.abf_dec)
         return parts
+
+    def total_steps(self) -> int:
+        """Optimizer steps of the whole run, the cosine schedule's length:
+        ``max(1, len(train) // batch_size) * max_epochs`` (the loader drops
+        the last partial batch), the synthetic set's size for a synthetic
+        set, 20000 clips when the training set cannot be read."""
+        if self._total_steps is None:
+            d = self.cfg.data
+            if d.synthetic:
+                n = d.synthetic_size
+            else:
+                try:
+                    n = len(self.make_datasets()[0])
+                except Exception:
+                    n = 20000  # no manifest (e.g. a schedule preview)
+            self._total_steps = max(1, n // d.batch_size) * self.cfg.max_epochs
+        return self._total_steps
+
+    def lr_at(self, step: int) -> float:
+        """The learning rate of update ``step`` (counted from 0)."""
+        o = self.cfg.optim
+        if o.lr_schedule != "cosine":
+            return o.lr
+        return warmup_cosine(step, o.lr, o.warmup_steps, max(1, self.total_steps()),
+                             o.lr * 0.01)
+
+    def _make_optimizer(self, params: List[nn.Parameter]) -> torch.optim.Optimizer:
+        o = self.cfg.optim
+        if o.optimizer == "adamw" or o.weight_decay:
+            return torch.optim.AdamW(params, lr=o.lr, weight_decay=o.weight_decay)
+        return torch.optim.Adam(params, lr=o.lr)
+
+    @torch.no_grad()
+    def draw_abf(self, step: int) -> None:
+        """Fresh ABF weights and running statistics, drawn on the CPU from a
+        ``torch.Generator`` seeded from ``(cfg.seed, step)`` with the
+        initializers of ``init_state``."""
+        seed = int(np.random.SeedSequence([self.cfg.seed, step]).generate_state(1)[0])
+        g = torch.Generator().manual_seed(seed)
+        for m in (self.abf_enc, self.abf_dec):
+            m.cpu().reset_parameters(g)
+            m.to(self.device)
 
     def init_state(self, seed: Optional[int] = None,
                    teacher_variables: Optional[Dict[str, Any]] = None) -> "Trainer":
         """Seeded weights for the student, the teacher and the ABF chains
         (drawn on the CPU from one ``torch.Generator``, then moved to the
-        device), and a fresh Adam over the trainable modules.
+        device), and a fresh optimizer over the trainable modules.
         ``teacher_variables``: a pretrained teacher's flax ``{params,
         batch_stats}`` tree (e.g. from ``utils.serialization.load_bundle``),
         loaded over the seeded teacher."""
@@ -177,10 +253,15 @@ class Trainer:
         if teacher_variables is not None:
             self.teacher.load_state_dict(torch_state_from_flax(teacher_variables), strict=True)
         self.teacher.requires_grad_(False).eval()
+        if self.reinit_abf:
+            for m in (self.abf_enc, self.abf_dec):
+                m.requires_grad_(False).train()
         for m in self.trainable().values():
             m.requires_grad_(True).train()
         params = [p for m in self.trainable().values() for p in m.parameters()]
-        self.optimizer = torch.optim.Adam(params, lr=self.cfg.optim.lr)
+        self.optimizer = self._make_optimizer(params)
+        if self.cfg.optim.lr_schedule == "cosine":
+            self.lr_at(0)  # a schedule the run cannot take raises here, as in JAX
         self.step = 0
         self.epoch = 0
         return self
@@ -200,6 +281,8 @@ class Trainer:
                 t_out = t_out._replace(taps=None)  # free them before the student runs
             s_out = self.student(mix, training=True)
             fused_enc = fused_dec = None
+            if self.reinit_abf:
+                self.draw_abf(self.step)
             if self.use_fusion:
                 fused_enc = self.abf_enc(list(s_out.taps.encoder), training=True)
                 fused_dec = self.abf_dec(list(s_out.taps.decoder), training=True)
@@ -208,6 +291,10 @@ class Trainer:
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             logs.update(self._grad_norms())
+            if self.cfg.optim.grad_clip:
+                self._clip(logs["grad_norm"], self.cfg.optim.grad_clip)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_at(self.step)
             self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in logs.items()}
@@ -223,9 +310,18 @@ class Trainer:
                                     if n.startswith(("clstm", "rnn", "lstm"))),
             "gn_dec": _global_norm(p for n, p in student if n.startswith("dec")),
         }
-        if self.use_fusion:
+        if abf:
             norms["gn_abf"] = _global_norm(abf)
         return norms
+
+    def _clip(self, norm: torch.Tensor, max_norm: float) -> None:
+        """optax ``clip_by_global_norm``: every gradient times ``max_norm /
+        norm`` unless ``norm < max_norm``, with no host sync."""
+        keep = norm < max_norm
+        for m in self.trainable().values():
+            for p in m.parameters():
+                if p.grad is not None:
+                    p.grad.copy_(torch.where(keep, p.grad, p.grad / norm * max_norm))
 
     # ------------------------------------------------------------- evaluation
 

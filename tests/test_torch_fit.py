@@ -34,6 +34,7 @@ from speech_enhancement_clskd_tpu_torch import cli
 from speech_enhancement_clskd_tpu_torch.config import (
     DataConfig,
     DCCRNConfig,
+    OptimConfig,
     TrainConfig,
     load_config,
 )
@@ -275,11 +276,33 @@ def test_fit_matches_jax(tmp_path, scan_steps):
     assert p_hist["epoch_time_s"] > 0 and p_hist["audio_s_per_s"] > 0
 
 
+# a tuned run's optimizer: AdamW, clipping below the step's norm (~1), and
+# the cosine schedule after a warmup of one step (lr 0 at the first)
+TUNED_OPTIM = OptimConfig(optimizer="adamw", weight_decay=1e-2, grad_clip=0.5,
+                          lr_schedule="cosine", warmup_steps=1)
+
+
 def test_resume_continues_the_uninterrupted_run(tmp_path):
     """2 epochs, a checkpoint, a restore into a new trainer and a third
     epoch give the bits of 3 uninterrupted epochs: the resumed fit starts at
     the checkpoint's epoch counter and shuffles with that epoch."""
-    cfg = _cfg()  # an epoch of one step: 4 clips in batches of 4
+    _check_resume(tmp_path, _cfg())
+
+
+def test_resume_continues_a_tuned_run(tmp_path):
+    """The same under AdamW, clipping and the cosine schedule: the restored
+    step count continues the schedule, as the learning rate is taken from
+    it each step."""
+    cfg = _cfg(optim=TUNED_OPTIM)  # on clips of 0.25 s
+    resumed = _check_resume(tmp_path, dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, segment=0.25)))
+    assert isinstance(resumed.optimizer, torch.optim.AdamW)
+    assert resumed.optimizer.param_groups[0]["lr"] == resumed.lr_at(2) > resumed.lr_at(0) == 0
+
+
+def _check_resume(tmp_path, cfg):
+    """The resume checks on ``cfg`` cut to an epoch of one step (4 clips in
+    batches of 4); the resumed trainer."""
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, synthetic_size=4))
     straight = Trainer(cfg, device="cpu").init_state(0)
     want = straight.fit(epochs=3, log_fn=_quiet)
@@ -302,6 +325,8 @@ def test_resume_continues_the_uninterrupted_run(tmp_path):
     for i, st in a["optimizer"]["state"].items():
         for key, t in st.items():
             assert torch.equal(t, b["optimizer"]["state"][i][key]), (i, key)
+    assert a["optimizer"]["param_groups"] == b["optimizer"]["param_groups"]
+    return resumed
 
 
 # ------------------------------------------------------------- checkpoints
@@ -454,6 +479,39 @@ def test_distill_cli_on_the_cpu(tmp_path, capsys):
     assert steps[2:] == list(range(best + 1, 4))
 
 
+# every float32 option of a tuned reviewkd run, on the command line
+TUNED_ARGS = ["optim.optimizer=adamw", "optim.weight_decay=1e-2", "optim.grad_clip=0.5",
+              "optim.lr_schedule=cosine", "optim.warmup_steps=1", "distill.abf_remat=true",
+              "distill.spkd_bn2_fold=true", "distill.abf_conv_ninedot=true",
+              "distill.abf_reinit_each_step=true"]
+
+
+def test_distill_cli_reviewkd_with_the_options(tmp_path, capsys):
+    """``distill --strategy reviewkd`` with the options' overrides runs end to
+    end on the CPU: two epochs of one step, the best checkpoint's bundle,
+    and a trainer built from the same overrides has them all."""
+    out = str(tmp_path / "run")
+    argv = (["distill", "--strategy", "reviewkd", "--device", "cpu", "--out", out]
+            + TINY_ARGS + TUNED_ARGS + ["max_epochs=2", "log_every=1", "data.segment=0.25"])
+    assert cli.main(argv) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["bundle"] == os.path.join(out, "the_best_model.npz")
+    assert all(math.isfinite(v) for v in last["final_metrics"].values())
+    _, _, meta = ser.load_bundle(last["bundle"])
+    assert meta["infos"]["strategy"] == "reviewkd"
+    records = MetricWriter.read(os.path.join(out, "metrics.jsonl"))
+    train = [r for r in records if r["scope"] == "train"]
+    assert [r["step"] for r in train] == [1, 2]
+    assert "gn_abf" not in train[0] and math.isfinite(train[-1]["train_loss"])
+    cfg = load_config(None, TINY_ARGS + TUNED_ARGS + ["distill.strategy=reviewkd", "max_epochs=2"])
+    trainer = Trainer(cfg, device="cpu").init_state(0)
+    assert trainer.abf_enc.remat and trainer.abf_enc.abf0.conv2.use_ninedot
+    assert not trainer.abf_enc.abf0.bn2_affine_out  # the fold is clskd's alone, as in JAX
+    assert isinstance(trainer.optimizer, torch.optim.AdamW) and set(trainer.trainable()) == {
+        "student"}
+    assert trainer.lr_at(0) == 0.0 and trainer.lr_at(1) == pytest.approx(cfg.optim.lr, rel=1e-12)
+
+
 @pytest.mark.parametrize("argv", [["pretrain"], ["evaluate", "--bundle", "b.npz"],
                                   ["import-torch", "--pth", "a.pth", "--out", "b"], ["bench"]],
                          ids=lambda a: a[0])
@@ -487,3 +545,51 @@ def test_chip_smoke_fit_phase_rehearsed_on_the_cpu(tmp_path):
     assert rec["kept"] == [rec["best_step"]] and rec["restore_bit_equal"]
     assert rec["bundle_serves_restored_bits"]
     assert rec["stoi_abs_err"] == 0 and rec["si_sdr_abs_err_db"] == 0  # CPU against CPU
+
+
+# the training phases' checks rehearsed on 2 clips of 0.25 s, the least
+# batch SPKD takes
+REHEARSAL_CLIPS = (2, 0.25)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_reviewkd_phase_rehearsed_on_the_cpu():
+    """chip_smoke.py's phase 15 check at tiny widths on the CPU: the CPU
+    against itself from the same state, with zero error, and the gradients'
+    rounding floor measured."""
+    smoke = _chip_smoke()
+    cfg = smoke.train_config(*REHEARSAL_CLIPS, smoke.REVIEWKD, teacher=DCCRNConfig(**TINY_T),
+                             student=DCCRNConfig(**TINY_S))
+    rec = smoke.card_vs_cpu_checks(cfg, "cpu", rounding_floor=True)
+    assert rec["failures"] == []
+    for r in (rec["gaussian"], rec["speech"]):
+        assert [s["loss_rel_err"] for s in r["steps"]] == [0.0]
+    assert rec["gaussian"]["steps"][0]["grad_max_rel_l2"] == 0.0
+    assert rec["gaussian"]["steps"][0]["rounding_floor"] > 0.0
+
+
+def test_chip_smoke_options_phase_rehearsed_on_the_cpu():
+    """chip_smoke.py's phase 16 check at tiny widths on the CPU: 3 steps of
+    the options (learning rates 0, lr / 2, lr; every step clipped) and one
+    step of the nine-dot conv with the ABF re-init, CPU against CPU with
+    zero error."""
+    smoke = _chip_smoke()
+    models = dict(teacher=DCCRNConfig(**TINY_T), student=DCCRNConfig(**TINY_S))
+    cfg = smoke.train_config(*REHEARSAL_CLIPS, smoke.OPTION_DISTILL, smoke.OPTION_OPTIM,
+                             **models)
+    xla_cfg = smoke.train_config(*REHEARSAL_CLIPS, smoke.XLA_ROUTE_DISTILL, **models)
+    rec = smoke.option_checks(cfg, xla_cfg, "cpu")
+    assert rec["failures"] == []
+    steps = rec["options"]["steps"] + rec["xla_route"]["steps"]
+    assert len(steps) == smoke.OPTION_CHECK_STEPS + 1
+    assert all(s["loss_rel_err"] == 0.0 and s["grad_max_rel_l2"] == 0.0 for s in steps)
+    lr = cfg.optim.lr
+    assert [s["lr"] for s in rec["options"]["steps"]] == [0.0, lr / 2, lr]
+    assert all(s["grad_norm"] > s["clipped_norm"] for s in rec["options"]["steps"])
