@@ -108,7 +108,24 @@ card, then drives both paths through their entry points:
     then 3 steps card against CPU, each from the card's state (learning
     rates 0, lr / 2, lr, every step clipped), and one step of the nine-dot
     conv with the ABF re-init on the chain's per-op path (K1f 8, K1b 4)
-    (``option_checks``).
+    (``option_checks``);
+17. the bf16 kernels vs plain: the bf16 instantiations of K3f (and its dx
+    pass), K3w, K4f and K4b against their plain bf16 versions at phase 8's
+    shapes and each distinct conv shape of the kernel-config step, held by
+    ``kernels.bf16_check`` (bf16 outputs within one bf16 spacing, or the
+    float32 rounding of their terms where a sum cancels; float32 outputs to
+    1e-5 relative L2), two runs giving the same bits; times at the
+    reference shapes, the bound (bf16 tensor-core peak or bytes) and cuDNN's
+    bf16 ``F.conv2d`` and ``conv2d_weight``;
+18. bf16 training: teacher and student ``compute_dtype`` and
+    ``distill.taps_dtype`` bfloat16 (``bench.py``'s headline form) as phase
+    9 at 32 x 3 s beside phase 7's step, with its card-vs-CPU step (the
+    gradients against their bf16 rounding floor) and its losses against
+    float32's over 4 steps; at batch 64; and on the K3/K4 path (launches per
+    step: bf16 K3f 24, K3w 12, K4f 10, K4b 10, K1f 8, K1b 4) with its own
+    card-vs-CPU step;
+19. the bf16 teacher offline on 32 x 3 s beside phase 5: RTF, peak
+    memory, the waveform against the CPU's bf16 forward.
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -194,6 +211,42 @@ FIT_STOI_ATOL = 2e-4
 FIT_SI_SDR_ATOL = 1e-3
 
 
+# bf16 (phases 17-19): bench.py's headline form, teacher and student
+# compute_dtype and distill.taps_dtype bfloat16, at batch 32 beside phase 7
+# and at bench.py's default batch 64; the dense bf16 tensor-core peak
+BF16 = "bfloat16"
+PEAK_BF16_FLOP_S = 989e12
+BF16_DISTILL = dict(taps_dtype=BF16)
+BF16_KERNEL_DISTILL = dict(taps_dtype=BF16, **ABF_KERNEL_FLAGS)
+BF16_BATCH = 64
+# the kernels with a bf16 instantiation (their counters' names end in _bf16)
+BF16_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "attfuse_fwd", "attfuse_bwd")
+# the bf16 losses against the float32 ones over this many steps from the
+# same seeded state: the JAX package's bounds (tests/test_train.py's
+# test_bf16_loss_parity_with_f32)
+BF16_PARITY_STEPS = 4
+# the bf16 kernels' float32 outputs (K3w's dw, K4b's parameter gradients)
+# against their plain versions, relative L2: float32 sums in another order
+BF16_KERNEL_REL_L2 = 1e-5
+PARITY_RTOL, PARITY_ATOL = 0.05, 5e-3
+# card vs CPU under bf16: every op rounds to bf16 on both sides, and where
+# an op's float32 sum falls on the other side of a rounding boundary the two
+# part by one bf16 spacing (2^-8 relative) and carry it on.  Measured on an
+# NVIDIA H100 80GB HBM3 at 700 W (4 x 1 s, full width): the loss 2.6e-5 and
+# 7.6e-5 (default and K3/K4 path); the gradients 0.040 (an ABF bn2 bias, a
+# cancelling sum) and 0.037, against a rounding floor of 0.32 (the input
+# times 1 + 2^-8, one bf16 spacing: a PReLU slope's gradient); a conv bias
+# in front of a batch-statistics BN 2.0e-3 of the global norm.  Held: the
+# loss to BF16_LOSS_RTOL, the gradients to ROUNDING_FACTOR times their floor
+# but at most BF16_GRAD_REL_L2, the zero gradients to BF16_ZERO_GRAD.
+BF16_LOSS_RTOL = 1e-3
+BF16_GRAD_REL_L2 = 0.1
+BF16_ZERO_GRAD = 1e-2
+# the bf16 teacher's enhanced waveform, card against CPU (max abs; measured
+# 5.1e-4)
+BF16_SERVING_ATOL = 5e-3
+
+
 # Each kernel's design: K1f, K1b, K2, K3f, K3w, K5f and K5b are in their
 # second, K4f and K4b in their first (PERF.md section 6 keeps each design's times).
 DESIGNS = {
@@ -206,6 +259,10 @@ DESIGNS = {
     "abf_block_fwd": "xf-pass-3xtf32-mma",
     "abf_block_bwd": "mma-adjoint-pixel-pass",
     "gram_pair_fwd": "bulk-copy-ring-fma-tiles",
+    "conv3x3_fwd_bf16": "bf16-mma-m16n8k16",
+    "conv3x3_wgrad_bf16": "bf16-mma-m16n8k16",
+    "attfuse_fwd_bf16": "warp-row",
+    "attfuse_bwd_bf16": "warp-row",
 }
 
 
@@ -516,7 +573,8 @@ def phase_serving_teacher():
         wav_absmax=float(out.wav.abs().max()), finite=finite, shape_ok=shape_ok)
     if not (finite and shape_ok) or err > SERVING_ATOL:
         raise RuntimeError("teacher forward on the card is wrong")
-    return launches
+    return launches, {"forward_ms": wall * 1e3, "rtf": wall / (batch * seconds),
+                      "peak_mem_bytes": peak}
 
 
 def phase_backward_vs_plain():
@@ -669,7 +727,9 @@ def gaussian_batch(batch: int, seconds: float, seed: int = 0):
 
 
 def _kernel_counters() -> dict:
-    """Every kernel wrapper of the training step, by kernel name."""
+    """Every kernel of the training step, by kernel name: ``(wrapper, its
+    counter's attribute)``; a wrapper counts its bf16 instantiation's
+    launches in ``launches_bf16``."""
     from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
     from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
         attention_fuse_bwd,
@@ -679,25 +739,40 @@ def _kernel_counters() -> dict:
     from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair_fwd
     from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_bwd
 
-    return {"lstm_seq_fwd": lstm_seq, "lstm_seq_bwd": lstm_seq_bwd,
-            "conv3x3_fwd": conv3x3_fwd, "conv3x3_wgrad": conv3x3_wgrad,
-            "attfuse_fwd": attention_fuse_fwd, "attfuse_bwd": attention_fuse_bwd,
-            "abf_block_fwd": abf_block_fwd, "abf_block_bwd": abf_block_bwd,
-            "gram_pair_fwd": gram_pair_fwd}
+    wrappers = {"lstm_seq_fwd": lstm_seq, "lstm_seq_bwd": lstm_seq_bwd,
+                "conv3x3_fwd": conv3x3_fwd, "conv3x3_wgrad": conv3x3_wgrad,
+                "attfuse_fwd": attention_fuse_fwd, "attfuse_bwd": attention_fuse_bwd,
+                "abf_block_fwd": abf_block_fwd, "abf_block_bwd": abf_block_bwd,
+                "gram_pair_fwd": gram_pair_fwd}
+    counters = {name: (fn, "launches") for name, fn in wrappers.items()}
+    counters.update({f"{name}_bf16": (wrappers[name], "launches_bf16") for name in BF16_KERNELS})
+    return counters
 
 
-def fitting_trainer(distill: dict, seconds: float, optim: dict = None):
+def _zero_counts(counters: dict) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def _counts(counters: dict) -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+
+
+def fitting_trainer(distill: dict, seconds: float, optim: dict = None,
+                    batch: int = TEACHER_BATCH, models: dict = None):
     """A ``Trainer`` on the card at full width on clips of ``seconds``, after
-    one warm-up step, at the largest batch from 32 down, halving, that fits:
-    ``(trainer, batch, cut, mix, clean)``, ``cut`` listing each halving."""
+    one warm-up step, at the largest batch from ``batch`` down, halving,
+    that fits: ``(trainer, batch, cut, mix, clean)``, ``cut`` listing each
+    halving.  ``models``: the teacher and student configs (``bf16_models``),
+    the defaults' otherwise."""
     import torch
 
     from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 
-    batch, cut = TEACHER_BATCH, []
+    cut = []
     while True:
         mix, clean = train_batch(batch, seconds)
-        trainer = Trainer(train_config(batch, seconds, distill, optim),
+        trainer = Trainer(train_config(batch, seconds, distill, optim, **(models or {})),
                           device="cuda").init_state(0)
         try:
             trainer.train_step(mix, clean)  # warm-up
@@ -716,30 +791,31 @@ def fitting_trainer(distill: dict, seconds: float, optim: dict = None):
 def _training(phase: str, config: str, distill: dict, steps: int, expected: dict,
               seconds: float = TRAIN_SECONDS, check_batch: int = CHECK_BATCH,
               check_seconds: float = CHECK_SECONDS, rounding_floor: bool = False,
-              optim: dict = None, check=None, beside: dict = None) -> dict:
-    """One warm-up and ``steps`` timed steps at full width on 32 clips of
-    ``seconds`` (batch halved while it does not fit), launches per step held
-    to ``expected`` (every other kernel: none), then the card-vs-CPU step on
-    ``check_batch`` clips of ``check_seconds`` (``card_vs_cpu_checks``;
-    ``rounding_floor``: its gradients held against their own rounding
-    floor), or ``check()`` in its place; the check's ``failures`` fail the
-    phase.  ``beside``: another phase's numbers, printed in the record."""
+              optim: dict = None, check=None, beside: dict = None,
+              batch: int = TEACHER_BATCH, models: dict = None) -> dict:
+    """One warm-up and ``steps`` timed steps at full width on ``batch`` clips
+    of ``seconds`` (batch halved while it does not fit; ``models`` as
+    ``fitting_trainer`` takes them), launches per step held to ``expected``
+    (every other kernel: none), then the card-vs-CPU step on ``check_batch``
+    clips of ``check_seconds`` (``card_vs_cpu_checks``; ``rounding_floor``:
+    its gradients held against their own rounding floor), or ``check()`` in
+    its place; the check's ``failures`` fail the phase.  ``beside``: another
+    phase's numbers, printed in the record."""
     import numpy as np
     import torch
 
     counters = _kernel_counters()
-    trainer, batch, cut, mix, clean = fitting_trainer(distill, seconds, optim)
+    trainer, batch, cut, mix, clean = fitting_trainer(distill, seconds, optim, batch, models)
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts(counters)
     for _ in range(steps):
         t0 = time.perf_counter()
         logs = trainer.train_step(mix, clean)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(logs["train_loss"]))
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts(counters)
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / steps for k, v in launches.items()}
     finite = bool(np.isfinite(losses).all()) and all(
@@ -756,7 +832,7 @@ def _training(phase: str, config: str, distill: dict, steps: int, expected: dict
     torch.cuda.empty_cache()
 
     if check is None:
-        cfg = train_config(check_batch, check_seconds, distill, optim)
+        cfg = train_config(check_batch, check_seconds, distill, optim, **(models or {}))
         rec["card_vs_cpu"] = card_vs_cpu_checks(cfg, "cuda", rounding_floor)
     else:
         rec["card_vs_cpu"] = check()
@@ -1507,15 +1583,14 @@ def _one_step(strategy: str) -> dict:
     mix, clean = train_batch(batch, TRAIN_SECONDS)
     trainer = Trainer(train_config(batch, TRAIN_SECONDS, dict(strategy=strategy)),
                       device="cuda").init_state(0)
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     logs = trainer.train_step(mix, clean)
     torch.cuda.synchronize()
     rec = dict(strategy=strategy, batch=batch, seconds=TRAIN_SECONDS,
                step_ms=(time.perf_counter() - t0) * 1e3,
                logs={k: float(v) for k, v in logs.items()},
-               launches={name: fn.launches for name, fn in counters.items()},
+               launches=_counts(counters),
                finite=all(bool(np.isfinite(float(v))) for v in logs.values()))
     del trainer
     torch.cuda.empty_cache()
@@ -1572,10 +1647,13 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
     against the clipped norm), the learning rate, the gradient norm before
     clipping and after, and the device's kernel launches.  With
     ``rounding_floor`` a third trainer, mirrored alike, takes the step on
-    the input rounded once more (each sample times 1 + 2^-23), and the
-    gradients are held to ``ROUNDING_FACTOR`` times the largest change that
-    gives where that is above ``TRAIN_GRAD_REL_L2``.  ``failures`` lists
-    what was not held."""
+    the input rounded once more (each sample times 1 + 2^-23; under bf16
+    compute 1 + 2^-8, one bf16 spacing, which moves the bf16 spectrum by a
+    rounding), and the gradients are held to ``ROUNDING_FACTOR`` times the
+    largest change that gives where that is above ``TRAIN_GRAD_REL_L2``
+    (under bf16 at most ``BF16_GRAD_REL_L2``).
+    The loss is held to ``TRAIN_LOSS_RTOL``, under bf16 compute to
+    ``BF16_LOSS_RTOL``.  ``failures`` lists what was not held."""
     import numpy as np
     import torch
 
@@ -1587,14 +1665,16 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
     cpu = Trainer(cfg, device="cpu").init_state(1)
     again = Trainer(cfg, device="cpu").init_state(1) if grads and rounding_floor else None
     clip = cfg.optim.grad_clip
+    bf16 = cfg.student.compute_dtype == "bfloat16"
+    loss_rtol = BF16_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
+    rounding = 2.0 ** -8 if bf16 else 2.0 ** -23
     recs, failures = [], []
     deterministic = torch.backends.cudnn.deterministic
     for k in range(steps):
         _mirror(cpu, card)
         if again is not None:
             _mirror(again, card)
-        for fn in counters.values():
-            fn.launches = 0
+        _zero_counts(counters)
         torch.backends.cudnn.deterministic = True
         try:
             card_logs = card.train_step(mix, clean)
@@ -1602,7 +1682,7 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
                 torch.cuda.synchronize()
         finally:
             torch.backends.cudnn.deterministic = deterministic
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = _counts(counters)
         t0 = time.perf_counter()
         cpu_logs = cpu.train_step(mix, clean)
         want = float(cpu_logs["train_loss"])
@@ -1615,7 +1695,7 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
                 p for m in card.trainable().values() for p in m.parameters()))
             if not (norm > clip and abs(rec["clipped_norm"] - clip) <= 1e-5 * clip):
                 failures.append(f"step {k}: norm {norm} not clipped to {clip}")
-        if rec["loss_rel_err"] > TRAIN_LOSS_RTOL:
+        if rec["loss_rel_err"] > loss_rtol:
             failures.append(f"step {k}: loss rel err {rec['loss_rel_err']}")
         if grads:
             scale = min(norm, clip or norm)
@@ -1623,17 +1703,21 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
             err, worst, zero = _grad_errors(_grads(card), cpu_grads, scale)
             tol = TRAIN_GRAD_REL_L2
             if again is not None:
-                again.train_step((mix * np.float32(1 + 2 ** -23)).astype(np.float32), clean)
+                again.train_step((mix * np.float32(1 + rounding)).astype(np.float32), clean)
                 floor, floor_worst, _ = _grad_errors(_grads(again), cpu_grads, scale)
                 tol = max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * floor)
+                if bf16:
+                    tol = min(tol, BF16_GRAD_REL_L2)
                 rec.update(rounding_floor=floor, rounding_floor_worst=floor_worst)
             rec.update(grad_max_rel_l2=err, grad_worst=worst, grad_tol=tol, zero_grad_max=zero)
-            if err > tol or zero > ZERO_GRAD:
+            zero_tol = BF16_ZERO_GRAD if bf16 else ZERO_GRAD
+            rec["zero_grad_tol"] = zero_tol
+            if err > tol or zero > zero_tol:
                 failures.append(f"step {k}: gradients {err} ({worst}) against {tol}, "
                                 f"zero {zero}")
         recs.append(rec)
     return {"batch": mix.shape[0], "seconds": mix.shape[1] / 16000, "steps": recs,
-            "loss_rtol": TRAIN_LOSS_RTOL, "zero_grad_tol": ZERO_GRAD, "failures": failures}
+            "loss_rtol": loss_rtol, "zero_grad_tol": ZERO_GRAD, "failures": failures}
 
 
 def card_vs_cpu_checks(cfg, device: str, rounding_floor: bool = False) -> dict:
@@ -1803,13 +1887,12 @@ def fit_checks(cfg, device: str, counters: dict) -> dict:
     mgr = RecordingManager(out, monitor=cfg.monitor, keep_top_k=cfg.keep_top_k)
     writer = MetricWriter(f"{out}/metrics.jsonl")
     lines = []
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     history = trainer.fit(log_fn=lines.append, checkpoint_manager=mgr, metric_writer=writer)
     sync()
     fit_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _counts(counters)
     writer.close()
     records = MetricWriter.read(f"{out}/metrics.jsonl")
     val = [r for r in records if r["scope"] == "val"]
@@ -1915,6 +1998,318 @@ def phase_fit(step_ms_median: float, step_audio_s_per_s: float) -> dict:
         raise RuntimeError(f"the fit phase failed: {rec['failures']}")
     return rec
 
+
+# ------------------------------------------------------------------ bf16
+
+
+def bf16_models() -> dict:
+    """The default teacher and student, computing in bf16."""
+    import dataclasses
+
+    from speech_enhancement_clskd_tpu_torch.config import STUDENT, TEACHER
+
+    return {"teacher": dataclasses.replace(TEACHER, compute_dtype=BF16),
+            "student": dataclasses.replace(STUDENT, compute_dtype=BF16)}
+
+
+def _bound_bf16(nbytes: float, flops: float) -> tuple:
+    """The least time for ``nbytes`` moved and ``flops`` operations as bf16
+    tensor-core products."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _bf16_conv_case(B, D, T, C, O, timed: bool, dx: bool = False) -> dict:
+    """The bf16 K3f (or its dx pass, ``dx``: the same kernel, C and O of the
+    incoming gradient and the block's input) and K3w at x [B, D, T, C] -> O
+    against their plain bf16 versions: the bf16 output by ``bf16_check``
+    (one bf16 spacing, or ``SUM_REL`` of the sum of the products' magnitudes
+    where the sum cancels), dw by relative L2, two runs' bits; timed: the
+    kernels, their plain versions, the bound and cuDNN's bf16
+    ``F.conv2d``/``conv2d_weight``."""
+    import torch
+    import torch.nn.functional as F
+
+    from speech_enhancement_clskd_tpu_torch.kernels import SUM_REL, bf16_check
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
+        conv3x3_fwd,
+        conv3x3_fwd_route,
+        conv3x3_reference,
+        conv3x3_wgrad,
+        conv3x3_wgrad_reference,
+        conv3x3_wgrad_route,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + C + O + 7)
+    x = torch.randn(B, D, T, C, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(3, 3, C, O, device="cuda", generator=g) / (3 * C ** 0.5)).bfloat16()
+    gy = torch.randn(B, D, T, O, device="cuda", generator=g).bfloat16()
+    before = (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16)
+    out = conv3x3_fwd(x, w)
+    repeat = bool(torch.equal(out, conv3x3_fwd(x, w)))
+    dw = conv3x3_wgrad(x, gy)
+    dw_repeat = bool(torch.equal(dw, conv3x3_wgrad(x, gy)))
+    torch.cuda.synchronize()
+    if (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16) != (before[0] + 2,
+                                                                     before[1] + 2):
+        raise RuntimeError("the bf16 conv3x3 kernels did not count their launches")
+    with float32_math():
+        check = bf16_check(out, conv3x3_reference(x, w),
+                           conv3x3_reference(x.abs().float(), w.abs().float()), SUM_REL)
+        err_dw = _rel_l2(dw, conv3x3_wgrad_reference(x, gy))
+    del out, dw
+    rec = {"B": B, "D": D, "T": T, "C": C, "O": O, "pass": "dx" if dx else "fwd",
+           "fwd_route": conv3x3_fwd_route(C, O, torch.bfloat16),
+           "wgrad_route": conv3x3_wgrad_route(C, O, torch.bfloat16),
+           "fwd_check": check, "fwd_max_abs_err": check["max_abs_err"],
+           "fwd_bitwise_repeat": repeat, "wgrad_rel_l2": err_dw,
+           "wgrad_bitwise_repeat": dw_repeat, "wgrad_tol": BF16_KERNEL_REL_L2}
+    if timed:
+        rows = B * D * T
+        flops = 2.0 * rows * 9 * C * O
+        fwd_bytes = 2.0 * (rows * C + 9 * C * O + rows * O)
+        wgrad_bytes = 2.0 * (rows * C + rows * O) + 4.0 * 9 * C * O
+        fwd_bound = (_bound_bf16 if rec["fwd_route"] == "mma" else _bound)(fwd_bytes, flops)
+        wgrad_bound = (_bound_bf16 if rec["wgrad_route"] == "mma" else _bound)(wgrad_bytes,
+                                                                              flops)
+        x_nchw, gy_nchw = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        with float32_math():
+            rec.update(
+                fwd_ms=_time_ms(lambda: conv3x3_fwd(x, w), iters=10),
+                fwd_plain_ms=_time_ms(lambda: conv3x3_reference(x, w), iters=2),
+                fwd_library_ms=_time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), iters=10),
+                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                wgrad_ms=_time_ms(lambda: conv3x3_wgrad(x, gy), iters=10),
+                wgrad_plain_ms=_time_ms(lambda: conv3x3_wgrad_reference(x, gy), iters=2),
+                wgrad_library_ms=_time_ms(lambda: torch.nn.grad.conv2d_weight(
+                    x_nchw, w_oihw.shape, gy_nchw, padding=1), iters=10),
+                wgrad_bound_ms=wgrad_bound[0], wgrad_bound_by=wgrad_bound[1])
+    return rec
+
+
+def _bf16_fuse_case(B, D, Dp, T, C, timed: bool) -> dict:
+    """The bf16 K4f and K4b against their plain bf16 versions at x [B, D, T,
+    C] with the residual [B, Dp, T, C]: out by ``bf16_check`` with
+    ``BLEND_REL`` of the blend's terms (one bf16 spacing of z carried
+    through), z by one spacing, dx and dres with ``SUM_REL`` of their terms'
+    magnitudes, the float32 parameter gradients by relative L2, two runs'
+    bits; timed: the kernels, their plain versions and the bound."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels import BLEND_REL, SUM_REL, bf16_check
+    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
+        attention_fuse_bwd,
+        attention_fuse_bwd_reference,
+        attention_fuse_fwd,
+        attention_fuse_reference,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B * D + Dp + C + 7)
+    x, res, wx, wy, bias, gy = (t.bfloat16() for t in (
+        torch.randn(B, D, T, C, device="cuda", generator=g),
+        torch.randn(B, Dp, T, C, device="cuda", generator=g),
+        0.3 * torch.randn(C, 2, device="cuda", generator=g),
+        0.3 * torch.randn(C, 2, device="cuda", generator=g),
+        0.1 * torch.randn(2, device="cuda", generator=g),
+        torch.randn(B, D, T, C, device="cuda", generator=g)))
+    before = (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16)
+    out, z = attention_fuse_fwd(x, res, wx, wy, bias)
+    again_out, again_z = attention_fuse_fwd(x, res, wx, wy, bias)
+    fwd_repeat = bool(torch.equal(out, again_out) and torch.equal(z, again_z))
+    del again_out, again_z
+    grads = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    again = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    bwd_repeat = all(bool(torch.equal(a, b)) for a, b in zip(grads, again))
+    del again
+    torch.cuda.synchronize()
+    if (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16) != (
+            before[0] + 2, before[1] + 2):
+        raise RuntimeError("the bf16 attention fuse kernels did not count their launches")
+    with float32_math():
+        rout, rz = attention_fuse_reference(x, res, wx, wy, bias)
+        y = torch.repeat_interleave(res, D // Dp, dim=1)
+        blend = x.float().abs() * rz[..., 0:1].float() + y.float().abs() * rz[..., 1:2].float()
+        del y
+        out_check = bf16_check(out, rout, blend, BLEND_REL)
+        z_check = bf16_check(z, rz)
+        del rout, rz, blend, out
+        want = attention_fuse_bwd_reference(x, res, z, gy, wx, wy)
+        scales = attention_fuse_bwd_reference(*(t.abs() for t in (x, res, z, gy, wx, wy)))
+        map_checks = [bf16_check(a, b, c, SUM_REL) for a, b, c in zip(grads[:2], want[:2],
+                                                                       scales[:2])]
+        err_params = max(_rel_l2(a, b) for a, b in zip(grads[2:], want[2:]))
+        del want, scales, grads
+    rec = {"B": B, "D": D, "Dp": Dp, "T": T, "C": C, "out_check": out_check,
+           "z_check": z_check, "dx_check": map_checks[0], "dres_check": map_checks[1],
+           "fwd_max_abs_err": max(out_check["max_abs_err"], z_check["max_abs_err"]),
+           "bwd_max_abs_err_dx_dres": max(c["max_abs_err"] for c in map_checks),
+           "bwd_rel_l2_dwx_dwy_db": err_params, "fwd_bitwise_repeat": fwd_repeat,
+           "bwd_bitwise_repeat": bwd_repeat, "params_tol": BF16_KERNEL_REL_L2,
+           "within": all(c["within"] for c in [out_check, z_check] + map_checks)}
+    if timed:
+        rows, res_rows = B * D * T, B * Dp * T
+        fwd_bound = _bound(2.0 * (2 * rows * C + res_rows * C + 4 * C + 2 + 2 * rows),
+                           rows * (8.0 * C + 10))
+        bwd_bound = _bound(2.0 * (3 * rows * C + 2 * res_rows * C + 2 * rows + 4 * C)
+                           + 4.0 * (4 * C + 2), rows * (14.0 * C + 10))
+        with float32_math():
+            rec.update(
+                fwd_ms=_time_ms(lambda: attention_fuse_fwd(x, res, wx, wy, bias), iters=10),
+                fwd_plain_ms=_time_ms(lambda: attention_fuse_reference(x, res, wx, wy, bias),
+                                      iters=3),
+                fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+                bwd_ms=_time_ms(lambda: attention_fuse_bwd(x, res, z, gy, wx, wy), iters=10),
+                bwd_plain_ms=_time_ms(
+                    lambda: attention_fuse_bwd_reference(x, res, z, gy, wx, wy), iters=3),
+                bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+    return rec
+
+
+def phase_bf16_kernels_vs_plain():
+    """Phase 17: the bf16 K3f (and its dx pass), K3w, K4f and K4b against
+    their plain bf16 versions at phase 8's shapes and at each distinct conv
+    shape of the kernel-config step (forward and dx), with times at the
+    reference shapes."""
+    import torch
+
+    conv, fuse = [], []
+    step = {}
+    for D, C, O in STEP_CONV_FWD:
+        step.setdefault((TEACHER_BATCH, D, 483, C, O, False, False), None)
+        step.setdefault((TEACHER_BATCH, D, 483, O, C, False, True), None)
+    cases = [(*shape, False, False) for *shape, _ in CONV_CASES if tuple(shape) != CONV_REF]
+    cases = [(*CONV_REF, True, False)] + cases + [c for c in step if c[:5] != CONV_REF]
+    for B, D, T, C, O, timed, dx in cases:
+        rec = _bf16_conv_case(B, D, T, C, O, timed, dx)
+        say("bf16_kernels_vs_plain", kernel="conv3x3_bf16", **rec)
+        conv.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["fwd_check"]["within"] and rec["fwd_bitwise_repeat"]
+                and rec["wgrad_rel_l2"] <= BF16_KERNEL_REL_L2 and rec["wgrad_bitwise_repeat"]):
+            raise RuntimeError(f"the bf16 conv3x3 kernels disagree with their plain versions: "
+                               f"{rec}")
+    for *shape, timed in FUSE_CASES:
+        rec = _bf16_fuse_case(*shape, timed=timed)
+        say("bf16_kernels_vs_plain", kernel="attention_fuse_bf16", **rec)
+        fuse.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["within"] and rec["bwd_rel_l2_dwx_dwy_db"] <= BF16_KERNEL_REL_L2
+                and rec["fwd_bitwise_repeat"] and rec["bwd_bitwise_repeat"]):
+            raise RuntimeError(f"the bf16 attention fuse kernels disagree with their plain "
+                               f"versions: {rec}")
+    return conv, fuse
+
+
+def bf16_parity() -> dict:
+    """The bf16 trainer's losses against the float32 trainer's over
+    ``BF16_PARITY_STEPS`` steps from the same seed on one batch of speech
+    (``CHECK_BATCH`` clips of ``TRAIN_SECONDS``): held to the JAX package's
+    bounds, and the bf16 loss descends."""
+    import numpy as np
+
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
+
+    batch, seconds = CHECK_BATCH, TRAIN_SECONDS
+    mix, clean = train_batch(batch, seconds)
+    losses = {}
+    for name, distill, models in (("float32", {}, {}), (BF16, BF16_DISTILL, bf16_models())):
+        trainer = Trainer(train_config(batch, seconds, distill, **models),
+                          device="cuda").init_state(0)
+        losses[name] = [float(trainer.train_step(mix, clean)["train_loss"])
+                        for _ in range(BF16_PARITY_STEPS)]
+        del trainer
+    f32, bf16 = np.array(losses["float32"]), np.array(losses[BF16])
+    failures = []
+    if not np.isfinite(bf16).all():
+        failures.append("a bf16 loss is not finite")
+    if not np.allclose(bf16, f32, rtol=PARITY_RTOL, atol=PARITY_ATOL):
+        failures.append(f"bf16 losses {bf16.tolist()} against float32 {f32.tolist()}")
+    if not bf16[-1] < bf16[0] + 1e-3:
+        failures.append(f"bf16 losses do not descend: {bf16.tolist()}")
+    return {"batch": batch, "seconds": seconds, "losses": losses,
+            "max_rel_diff": float(np.max(np.abs(bf16 - f32) / np.abs(f32))),
+            "rtol": PARITY_RTOL, "atol": PARITY_ATOL, "failures": failures}
+
+
+def phase_training_bf16(phase7: dict) -> dict:
+    """Phase 18: bf16 compute and taps (``bf16_models``, ``BF16_DISTILL``)
+    as phase 7 at 32 x 3 s beside phase 7's step, with its card-vs-CPU step
+    (the loss to ``BF16_LOSS_RTOL``, the gradients on white noise against
+    their bf16 rounding floor) and the parity of its losses with float32
+    over ``BF16_PARITY_STEPS`` steps; at bench.py's batch 64; and on the
+    K3/K4 kernel path (launches per step: bf16 K3f 24, K3w 12, K4f 10, K4b
+    10, K1f 8, K1b 4) with its own card-vs-CPU step."""
+    models = bf16_models()
+    lstm = {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4}
+    b32 = _training("training_bf16", "clskd bf16 (teacher/student compute_dtype and "
+                    "distill.taps_dtype bfloat16)", BF16_DISTILL, KERNEL_TRAIN_STEPS, lstm,
+                    rounding_floor=True, models=models,
+                    beside=_beside("phase 7 (clskd, float32)", phase7))
+    parity = bf16_parity()
+    say("training_bf16_parity", **parity)
+    if parity["failures"]:
+        raise RuntimeError(f"bf16 losses do not track float32: {parity['failures']}")
+    b64 = _training("training_bf16_batch64", "clskd bf16, batch 64 (bench.py's default)",
+                    BF16_DISTILL, KERNEL_TRAIN_STEPS, lstm, batch=BF16_BATCH, models=models,
+                    check=lambda: {"failures": [], "checked": "at batch 32 (training_bf16)"})
+    kernels = _training("training_bf16_kernels", "clskd bf16 with abf_conv_pallas and "
+                        "abf_attfuse_pallas", BF16_KERNEL_DISTILL, KERNEL_TRAIN_STEPS,
+                        {**lstm, "conv3x3_fwd_bf16": 24, "conv3x3_wgrad_bf16": 12,
+                         "attfuse_fwd_bf16": 10, "attfuse_bwd_bf16": 10},
+                        rounding_floor=True, models=models,
+                        beside=_beside("training_bf16", b32))
+    return {"batch32": b32, "parity": parity, "batch64": b64, "kernels": kernels}
+
+
+def phase_serving_teacher_bf16(phase5: dict) -> dict:
+    """Phase 19: the teacher (``dccrn-cl``, seeded) computing in bf16,
+    offline on 32 x 3 s as phase 5: real-time factor beside phase 5's, peak
+    memory, K1f launches (4 a forward), the float32 waveform against the
+    CPU's bf16 forward on one utterance."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq
+    from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
+
+    cfg = bf16_models()["teacher"]
+    iters = 3
+    wav = torch.from_numpy(teacher_batch()).cuda()
+    model = make_model(cfg, device="cuda", seed=0)
+    with torch.inference_mode():
+        model(wav)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lstm_seq.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = model(wav)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+        launches = lstm_seq.launches
+        peak = torch.cuda.max_memory_allocated()
+        ref = make_model(cfg, device="cpu", seed=0)(wav[:1].cpu())
+    err = (out.wav[:1].cpu() - ref.wav).abs().max().item()
+    taps = list(out.taps.encoder) + list(out.taps.decoder) + [out.taps.lstm_real]
+    finite = bool(torch.isfinite(out.wav).all()) and all(bool(torch.isfinite(t).all())
+                                                         for t in taps)
+    dtypes_ok = out.wav.dtype == torch.float32 and all(t.dtype == torch.bfloat16 for t in taps)
+    rec = dict(config=f"{cfg.name} compute_dtype={cfg.compute_dtype}", batch=TEACHER_BATCH,
+               seconds=TEACHER_SECONDS, forward_ms=wall * 1e3,
+               rtf=wall / (TEACHER_BATCH * TEACHER_SECONDS), peak_mem_bytes=peak,
+               lstm_launches=launches, max_abs_err_vs_cpu=err, tol=BF16_SERVING_ATOL,
+               finite=finite, dtypes_ok=dtypes_ok,
+               beside={"phase": "phase 5 (float32)", "forward_ms": phase5["forward_ms"],
+                       "rtf": phase5["rtf"], "peak_mem_bytes": phase5["peak_mem_bytes"]})
+    say("serving_teacher_bf16", **rec)
+    if not (finite and dtypes_ok) or launches != 4 * iters or err > BF16_SERVING_ATOL:
+        raise RuntimeError(f"the bf16 teacher forward on the card is wrong: {rec}")
+    return rec
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -1924,7 +2319,9 @@ def main() -> None:
     card = phase_device()
     phase_build()
     fwd_shapes = phase_kernel_vs_plain()
-    serving_launches = phase_serving_student() + phase_serving_teacher()
+    student_launches = phase_serving_student()
+    teacher_launches, teacher = phase_serving_teacher()
+    serving_launches = student_launches + teacher_launches
     bwd_shapes = phase_backward_vs_plain()
     training = phase_training()
     conv_shapes, fuse_shapes = phase_abf_kernels_vs_plain()
@@ -1936,6 +2333,10 @@ def main() -> None:
     fit = phase_fit(training["step_ms_median"], training["audio_s_per_s"])
     reviewkd_training = phase_training_reviewkd(training)
     option_training = phase_training_options(block_training)
+    bf16_conv_shapes, bf16_fuse_shapes = phase_bf16_kernels_vs_plain()
+    bf16 = phase_training_bf16(training)
+    bf16_teacher = phase_serving_teacher_bf16(teacher)
+    bf16_paths = {f"training_bf16_{k}": bf16[k] for k in ("batch32", "batch64", "kernels")}
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
     conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
@@ -1943,6 +2344,7 @@ def main() -> None:
     trained = {name: training["launches"][name] + kernel_training["launches"][name]
                + block_training["launches"][name] + spkd_training["launches"][name]
                + reviewkd_training["launches"][name] + option_training["launches"][name]
+               + sum(r["launches"][name] for r in bf16_paths.values())
                for name in training["launches"]}
     src = "speech_enhancement_clskd_tpu_torch/kernels/csrc/"
     pallas = "speech_enhancement_clskd_tpu/ops/pallas/"
@@ -1951,7 +2353,7 @@ def main() -> None:
         "route": "cuda",
         "source": src + "lstm_seq_fwd.cu",
         "replaces": pallas + "lstm.py:36",
-        "launches": serving_launches + trained["lstm_seq_fwd"],
+        "launches": serving_launches + bf16_teacher["lstm_launches"] + trained["lstm_seq_fwd"],
         "max_abs_err": max(r["max_abs_err_y"] for r in fwd_shapes),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -1966,7 +2368,10 @@ def main() -> None:
                              "training_spkd": spkd_training["launches"]["lstm_seq_fwd"],
                              "fit": fit["launches"]["lstm_seq_fwd"],
                              "training_reviewkd": reviewkd_training["launches"]["lstm_seq_fwd"],
-                             "training_options": option_training["launches"]["lstm_seq_fwd"]},
+                             "training_options": option_training["launches"]["lstm_seq_fwd"],
+                             "serving_teacher_bf16": bf16_teacher["lstm_launches"],
+                             **{k: r["launches"]["lstm_seq_fwd"]
+                                for k, r in bf16_paths.items()}},
         "per_shape": fwd_shapes,
     }, {
         "name": "lstm_seq_bwd",
@@ -1988,7 +2393,9 @@ def main() -> None:
                              "training_spkd": spkd_training["launches"]["lstm_seq_bwd"],
                              "fit": fit["launches"]["lstm_seq_bwd"],
                              "training_reviewkd": reviewkd_training["launches"]["lstm_seq_bwd"],
-                             "training_options": option_training["launches"]["lstm_seq_bwd"]},
+                             "training_options": option_training["launches"]["lstm_seq_bwd"],
+                             **{k: r["launches"]["lstm_seq_bwd"]
+                                for k, r in bf16_paths.items()}},
         "per_shape": bwd_shapes,
     }]
     conv_shape = dict(zip(("B", "D", "T", "C", "O"), CONV_REF))
@@ -2068,6 +2475,40 @@ def main() -> None:
         "shape": {"B": spkd_batch, "Ds": SPKD_SAMPLES, "Dt": SPKD_SAMPLES},
         "per_shape": gram_shapes,
     })
+    bf16_conv = bf16_conv_shapes[0]  # the reference shape, timed
+    bf16_fuse = next(r for r in bf16_fuse_shapes
+                     if (r["B"], r["D"], r["Dp"], r["T"], r["C"]) == FUSE_REF)
+    kernel_bf16 = bf16["kernels"]["launches"]
+    for name, source, line, cases, shape, key, err, outs in (
+            ("conv3x3_fwd_bf16", "conv3x3_bf16.cu", "conv3x3.py:120", bf16_conv_shapes,
+             bf16_conv, "fwd", "fwd_max_abs_err", ("fwd_check",)),
+            ("conv3x3_wgrad_bf16", "conv3x3_bf16.cu", "conv3x3.py:135", bf16_conv_shapes,
+             bf16_conv, "wgrad", "wgrad_rel_l2", ()),
+            ("attfuse_fwd_bf16", "attfuse_fwd.cu", "attfuse.py:99", bf16_fuse_shapes,
+             bf16_fuse, "fwd", "fwd_max_abs_err", ("out_check", "z_check")),
+            ("attfuse_bwd_bf16", "attfuse_bwd.cu", "attfuse.py:113", bf16_fuse_shapes,
+             bf16_fuse, "bwd", "bwd_max_abs_err_dx_dres", ("dx_check", "dres_check"))):
+        # the bf16 outputs' distance from the plain version (dw is float32)
+        checks = [r[c] for r in cases for c in outs]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + source,
+            "replaces": pallas + line,
+            "dtype": BF16,
+            "launches": kernel_bf16[name],
+            "max_abs_err": max(r[err] for r in cases),
+            "ms": shape[f"{key}_ms"],
+            "plain_ms": shape[f"{key}_plain_ms"],
+            "bound_ms": shape[f"{key}_bound_ms"],
+            "bound_by": shape[f"{key}_bound_by"],
+            "library_ms": shape.get(f"{key}_library_ms"),
+            "max_ulps": max((c["max_ulps"] for c in checks), default=None),
+            "share_differ": max((c["share_differ"] for c in checks), default=None),
+            "share_over_1ulp": max((c["share_over_1ulp"] for c in checks), default=None),
+            "shape": conv_shape if name.startswith("conv") else fuse_shape,
+            "per_shape": cases,
+        })
     for k in kernels:
         k["design"] = DESIGNS[k["name"]]
         if k["name"] == "conv3x3_fwd":  # bound_ms is 3xTF32's; f32 FMA's, and TF32 cuDNN

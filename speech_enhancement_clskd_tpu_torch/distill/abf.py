@@ -29,6 +29,12 @@ weights and bias.  Parameters keep the flax layouts (``conv1.kernel``
 3x3 kernel, which is ``[O, I, 3, 3]`` for ``F.conv2d`` (``utils.bridge``
 permutes it; the conv kernel's wrapper makes its own HWIO copy).
 
+A chain computes in its taps' dtype, as the JAX chain does: under bf16 taps
+the contractions and the blend run in bf16 with the float32 parameters cast
+to bf16 at each use, bn1's moments and the folded affines stay float32, BN
+normalizes in bf16 on float32 statistics, and the kernel paths take the bf16
+instantiations of K3 and K4 (the whole-block K5 has none yet and raises).
+
 Under ``remat`` each block runs inside ``torch.utils.checkpoint``, so its
 forward runs again in the backward, the kernels' forwards with it (K5f twice
 a block a step, and likewise K3f and K4f).  The port's BatchNorm moves its
@@ -150,18 +156,18 @@ class AttentionFuse(nn.Module):
 
     def forward(self, x: torch.Tensor, res: torch.Tensor,
                 affine: Tuple[torch.Tensor, torch.Tensor], w_in: torch.Tensor) -> torch.Tensor:
-        c = self.channels
+        c, dt = self.channels, x.dtype
         wx, wy = self.kernel[0, 0, :c], self.kernel[0, 0, c:]
-        a, b0 = affine
-        xhat = torch.matmul(x, w_in) * a + b0
+        a, b0 = affine  # float32
+        xhat = torch.matmul(x, w_in.to(dt)) * a.to(dt) + b0.to(dt)
         if self.use_kernel and attfuse_dispatchable(xhat.shape, res.shape):
-            return attention_fuse(xhat, res, wx, wy, self.bias)
-        z_off = b0 @ wx + self.bias
-        wx_eff = w_in @ (a[:, None] * wx)  # [C_in, 2]
-        y_small = _nearest_axis(res, 2, x.shape[2])
+            return attention_fuse(xhat, res.to(dt), wx.to(dt), wy.to(dt), self.bias.to(dt))
+        z_off = (b0 @ wx + self.bias).to(dt)
+        wx_eff = (w_in.float() @ (a[:, None] * wx)).to(dt)  # [C_in, 2]
+        y_small = _nearest_axis(res, 2, x.shape[2]).to(dt)
         zx = torch.matmul(x, wx_eff)
-        zy = _nearest_axis(torch.matmul(y_small, wy), 1, x.shape[1])
-        z = torch.sigmoid(zx + zy + z_off)
+        zy = _nearest_axis(torch.matmul(y_small, wy.to(dt)), 1, x.shape[1])
+        z = torch.sigmoid((zx + zy + z_off).float()).to(dt)  # rounded once, as XLA's
         y = _nearest_axis(y_small, 1, x.shape[1])
         return xhat * z[..., 0:1] + y * z[..., 1:2]
 
@@ -200,11 +206,12 @@ class Conv3x3(nn.Module):
         _kaiming_uniform_(self.kernel, 9 * self.kernel.shape[1], generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel.to(x.dtype)
         if self.use_kernel:
-            return conv3x3(x, self.kernel)
+            return conv3x3(x, w)
         if self.use_ninedot:
-            return _conv3x3_ninedot(x, self.kernel)
-        return F.conv2d(x.permute(0, 3, 1, 2), self.kernel, padding=1).permute(0, 2, 3, 1)
+            return _conv3x3_ninedot(x, w)
+        return F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
 
 
 class ABF(nn.Module):
@@ -267,7 +274,7 @@ class ABF(nn.Module):
                 xf = self.att_conv(x, residual, aff, w1)
             else:
                 a, b0 = aff
-                xf = torch.matmul(x, w1) * a + b0
+                xf = torch.matmul(x, w1.to(x.dtype)) * a.to(x.dtype) + b0.to(x.dtype)
             raw = self.conv2(xf)
         m2 = batch_moments(raw) if training else None
         if self.bn2_affine_out:

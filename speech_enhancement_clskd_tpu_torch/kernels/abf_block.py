@@ -28,7 +28,8 @@ residual (``y[:, d] = res[:, d // k]``, ``k = D / Dp``):
   launched the kernels (K5f's xf pass and conv, K5b's adjoint, pixel pass,
   reduction and dw2 passes count as one).
 
-Everything is float32.  Each kernel takes one of two routes by shape
+Everything is float32; a bfloat16 input raises ``NotImplementedError`` (the
+bf16 instantiations are ROADMAP queue 1 item 10).  Each kernel takes one of two routes by shape
 (``abf_block_fwd_route``, ``abf_block_bwd_route``).  ``"mma"``: the 3x3 conv
 (K5f's over xf; K5b's adjoint over g_out, into a scratch ``dxf``) on K3f's
 tensor-core tile, f32 operands split into two TF32 parts each and three
@@ -48,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors
+from . import _build, check_tensors, refuse_bf16
 from .conv3x3 import conv3x3_reference, conv3x3_wgrad_reference
 
 FWD_SOURCE = "abf_block_fwd.cu"
@@ -146,6 +147,7 @@ def _check_inputs(tap, res, w1a, bvec, wxt, wy, zoff, w2, op: str) -> Tuple[int,
             raise ValueError(f"{name} must be {list(want)}, got "
                              f"{None if t is None else tuple(t.shape)}")
     fused = (("res", res), ("wxt", wxt), ("wy", wy), ("zoff", zoff)) if res is not None else ()
+    refuse_bf16((("tap", tap), ("w1a", w1a), ("bvec", bvec), ("w2", w2)) + fused, op)
     check_tensors((("tap", tap), ("w1a", w1a), ("bvec", bvec), ("w2", w2)) + fused, tap.device,
                   op)
     return Cs, M, O

@@ -21,7 +21,16 @@ the residual (``y[:, d] = res[:, d // k]``, ``k = D / Dp``):
   ``attention_fuse_reference`` and ``attention_fuse_bwd_reference``.  Their
   ``launches`` counters count kernel launches only.
 
-Everything is float32.
+Each wrapper runs in its input's dtype, float32 or bfloat16 (all inputs of
+one dtype).  The bf16 instantiations (``attfuse_fwd_bf16`` and
+``attfuse_bwd_bf16`` in the same sources, counted in ``launches_bf16``) are
+the Pallas kernels on bf16 maps: K4f sums the logits of the exact products in
+float32, rounds ``z = sigmoid(p + bias)`` to bf16 and blends in bf16
+arithmetic (each product and the sum rounded); K4b upcasts to float32,
+rounds ``dx`` and ``dres`` once to bf16 and returns the parameter gradients
+in float32.  The plain versions round at the same places.  The
+differentiable ``attention_fuse`` returns the parameter gradients in the
+parameters' dtype, as the JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ from typing import Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors
+from . import _build, check_tensors, float_dtype, widened
 
 FWD_SOURCE = "attfuse_fwd.cu"
 BWD_SOURCE = "attfuse_bwd.cu"
@@ -58,15 +67,26 @@ def _upscale(res: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def attention_fuse_reference(x, res, wx, wy, bias) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch: ``(out, z)``, with the residual upscaled in memory."""
+    """Plain PyTorch: ``(out, z)``, with the residual upscaled in memory.  On
+    bf16 inputs the logits are float32 sums, ``z`` is rounded to bf16 and the
+    blend runs in bf16 (each product and the sum rounded), as the Pallas
+    body does."""
     y = _upscale(res, x.shape[1])
-    z = torch.sigmoid(x @ wx + y @ wy + bias)
+    if x.dtype != torch.bfloat16:
+        z = torch.sigmoid(x @ wx + y @ wy + bias)
+    else:
+        p = x.float() @ wx.float() + y.float() @ wy.float()
+        z = torch.sigmoid(p + bias.float()).to(x.dtype)
     return x * z[..., 0:1] + y * z[..., 1:2], z
 
 
 def attention_fuse_bwd_reference(x, res, z, g, wx, wy):
     """Plain PyTorch: ``(dx, dres, dwx, dwy, dbias)`` for the incoming ``g``,
-    from the forward's inputs and its ``z``."""
+    from the forward's inputs and its ``z``.  On bf16 inputs: in float32 from
+    the upcast inputs, ``dx`` and ``dres`` rounded to bf16, the parameter
+    gradients float32."""
+    dt = x.dtype
+    x, res, z, g, wx, wy = (widened(t) for t in (x, res, z, g, wx, wy))
     B, D, T, C = x.shape
     Dp = res.shape[1]
     y = _upscale(res, D)
@@ -76,7 +96,8 @@ def attention_fuse_bwd_reference(x, res, z, g, wx, wy):
     dy = z[..., 1:2] * g + dp @ wy.T
     dres = dy.reshape(B, Dp, D // Dp, T, C).sum(dim=2)
     dp2 = dp.reshape(-1, 2)
-    return (dx, dres, x.reshape(-1, C).T @ dp2, y.reshape(-1, C).T @ dp2, dp2.sum(dim=0))
+    return (dx.to(dt), dres.to(dt), x.reshape(-1, C).T @ dp2, y.reshape(-1, C).T @ dp2,
+            dp2.sum(dim=0))
 
 
 def _check_inputs(x, res, wx, wy) -> None:
@@ -97,57 +118,72 @@ def _library(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
-        lib.attfuse_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-        lib.attfuse_fwd.restype = i32
+        for fn in (lib.attfuse_fwd, lib.attfuse_fwd_bf16):
+            fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            fn.restype = i32
     else:
-        lib.attfuse_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
-        lib.attfuse_bwd.restype = i32
+        for fn in (lib.attfuse_bwd, lib.attfuse_bwd_bf16):
+            fn.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+            fn.restype = i32
     return lib
 
 
 def attention_fuse_fwd(x, res, wx, wy, bias) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out [B, D, T, C], z [B, D, T, 2])``: the K4f kernel on CUDA tensors
-    (counted in ``attention_fuse_fwd.launches``), ``attention_fuse_reference``
-    on CPU tensors."""
+    """``(out [B, D, T, C], z [B, D, T, 2])`` in x's dtype (float32 or
+    bfloat16): the K4f kernel on CUDA tensors (counted in
+    ``attention_fuse_fwd.launches``, the bf16 instantiation in
+    ``attention_fuse_fwd.launches_bf16``), ``attention_fuse_reference`` on
+    CPU tensors."""
     _check_inputs(x, res, wx, wy)
     if tuple(bias.shape) != (2,):
         raise ValueError(f"bias must be [2], got {tuple(bias.shape)}")
+    dtype = float_dtype(x, "attention_fuse")
     check_tensors((("x", x), ("res", res), ("wx", wx), ("wy", wy), ("bias", bias)), x.device,
-                  "attention_fuse")
+                  "attention_fuse", dtype)
     if x.device.type == "cpu":
         return attention_fuse_reference(x, res, wx, wy, bias)
     B, D, T, C = x.shape
+    bf16 = dtype == torch.bfloat16
     lib = _library(FWD_SOURCE)
     out = torch.empty_like(x)
-    z = torch.empty(B, D, T, 2, device=x.device, dtype=torch.float32)
+    z = torch.empty(B, D, T, 2, device=x.device, dtype=dtype)
     with torch.cuda.device(x.device):
-        err = lib.attfuse_fwd(x.data_ptr(), res.data_ptr(), wx.data_ptr(), wy.data_ptr(),
-                              bias.data_ptr(), out.data_ptr(), z.data_ptr(), B, D,
-                              res.shape[1], T, C, torch.cuda.current_stream(x.device).cuda_stream)
+        err = (lib.attfuse_fwd_bf16 if bf16 else lib.attfuse_fwd)(
+            x.data_ptr(), res.data_ptr(), wx.data_ptr(), wy.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), z.data_ptr(), B, D, res.shape[1], T, C,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"attfuse_fwd launch failed: CUDA error {err}")
-    attention_fuse_fwd.launches += 1
+        raise RuntimeError(f"attfuse_fwd launch failed ({dtype}): CUDA error {err}")
+    if bf16:
+        attention_fuse_fwd.launches_bf16 += 1
+    else:
+        attention_fuse_fwd.launches += 1
     return out, z
 
 
 attention_fuse_fwd.launches = 0
+attention_fuse_fwd.launches_bf16 = 0
 
 
 def attention_fuse_bwd(x, res, z, g, wx, wy):
     """``(dx, dres, dwx [C, 2], dwy [C, 2], dbias [2])`` for the incoming
-    ``g``: the K4b kernel on CUDA tensors (counted in
-    ``attention_fuse_bwd.launches``; the three small gradients are per-block
-    partials added in a fixed order, so repeated runs give the same bits),
-    ``attention_fuse_bwd_reference`` on CPU tensors."""
+    ``g``, ``dx`` and ``dres`` in x's dtype (float32 or bfloat16), the
+    three small gradients float32: the K4b kernel on CUDA tensors (counted
+    in ``attention_fuse_bwd.launches``, the bf16 instantiation in
+    ``attention_fuse_bwd.launches_bf16``; the three small gradients are
+    per-block partials added in a fixed order, so repeated runs give the
+    same bits), ``attention_fuse_bwd_reference`` on CPU tensors."""
     _check_inputs(x, res, wx, wy)
     B, D, T, C = x.shape
     if tuple(z.shape) != (B, D, T, 2) or tuple(g.shape) != tuple(x.shape):
         raise ValueError(f"z must be [{B}, {D}, {T}, 2] and g like x, got "
                          f"{tuple(z.shape)}, {tuple(g.shape)}")
+    dtype = float_dtype(x, "attention_fuse")
     check_tensors((("x", x), ("res", res), ("z", z), ("g", g), ("wx", wx), ("wy", wy)),
-                  x.device, "attention_fuse")
+                  x.device, "attention_fuse", dtype)
     if x.device.type == "cpu":
         return attention_fuse_bwd_reference(x, res, z, g, wx, wy)
+    bf16 = dtype == torch.bfloat16
     Dp = res.shape[1]
     blocks = min(BWD_BLOCKS, B * Dp * T)
     lib = _library(BWD_SOURCE)
@@ -156,17 +192,21 @@ def attention_fuse_bwd(x, res, z, g, wx, wy):
     grads = torch.empty(4 * C + 2, device=x.device, dtype=torch.float32)
     scratch = torch.empty(blocks, 4 * C + 2, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        err = lib.attfuse_bwd(x.data_ptr(), res.data_ptr(), z.data_ptr(), g.data_ptr(),
-                              wx.data_ptr(), wy.data_ptr(), dx.data_ptr(), dres.data_ptr(),
-                              grads.data_ptr(), scratch.data_ptr(), B, D, Dp, T, C, blocks,
-                              torch.cuda.current_stream(x.device).cuda_stream)
+        err = (lib.attfuse_bwd_bf16 if bf16 else lib.attfuse_bwd)(
+            x.data_ptr(), res.data_ptr(), z.data_ptr(), g.data_ptr(), wx.data_ptr(),
+            wy.data_ptr(), dx.data_ptr(), dres.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
+            B, D, Dp, T, C, blocks, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"attfuse_bwd launch failed: CUDA error {err}")
-    attention_fuse_bwd.launches += 1
+        raise RuntimeError(f"attfuse_bwd launch failed ({dtype}): CUDA error {err}")
+    if bf16:
+        attention_fuse_bwd.launches_bf16 += 1
+    else:
+        attention_fuse_bwd.launches += 1
     return dx, dres, grads[:2 * C].view(C, 2), grads[2 * C:4 * C].view(C, 2), grads[4 * C:]
 
 
 attention_fuse_bwd.launches = 0
+attention_fuse_bwd.launches_bf16 = 0
 
 
 class _AttentionFuse(torch.autograd.Function):
@@ -180,7 +220,9 @@ class _AttentionFuse(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, res, z, wx, wy = ctx.saved_tensors
-        return attention_fuse_bwd(x, res, z, g.contiguous(), wx, wy)
+        dx, dres, dwx, dwy, db = attention_fuse_bwd(x, res, z, g.contiguous(), wx, wy)
+        # float32 sums, returned in the parameters' dtype (the JAX VJP's casts)
+        return dx, dres, dwx.to(wx.dtype), dwy.to(wy.dtype), db.to(wx.dtype)
 
 
 def attention_fuse(x: torch.Tensor, res: torch.Tensor, wx: torch.Tensor, wy: torch.Tensor,

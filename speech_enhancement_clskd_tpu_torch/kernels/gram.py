@@ -25,7 +25,8 @@ Replaces ``speech_enhancement_clskd_tpu/ops/pallas/gram.py``:
 - ``spkd_loss_fused`` is the SPKD loss on ``gram_pair``
   (``spkd_loss_pallas``).
 
-Everything is float32; the kernel uses f32 FMA, not TF32.
+Everything is float32; the kernel uses f32 FMA, not TF32.  A bfloat16 input
+raises ``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors
+from . import _build, check_tensors, refuse_bf16
 
 SOURCE = "gram_pair_fwd.cu"
 SOURCES = (SOURCE,)
@@ -87,6 +88,7 @@ def _check(s2: torch.Tensor, t2: torch.Tensor) -> None:
         raise ValueError(f"the Gram pair takes 2 <= B <= {MAX_BATCH} rows, got {B}")
     if s2.shape[1] < 1 or t2.shape[1] < 1:
         raise ValueError(f"empty rows: {tuple(s2.shape)}, {tuple(t2.shape)}")
+    refuse_bf16((("s2", s2), ("t2", t2)), "gram_pair")
     check_tensors((("s2", s2), ("t2", t2)), s2.device, "gram_pair")
 
 

@@ -9,7 +9,10 @@ weights ``W_hh [H, 4H]`` (gate order i, f, g, o) and returns the hidden and
 cell states of every step, ``[T, N, H]`` each, in float32.  It is
 differentiable in ``xw`` and ``w_hh``; ``c`` is not differentiable, and
 gradients for ``h0``/``c0`` are not supported (the JAX kernel path runs
-without a state).
+without a state).  bf16 inputs (bf16 compute) are upcast to float32 for the
+kernels and ``y`` comes back in bf16, their gradients in bf16, as the JAX
+layer casts around the Pallas call (``ops/pallas/lstm.py:118, 176-187``): the
+recurrence always runs in float32.
 
 - On a CUDA tensor the forward launches the kernel of ``csrc/lstm_seq_fwd.cu``
   and the backward that of ``csrc/lstm_seq_bwd.cu`` (each built at first use),
@@ -30,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors
+from . import _build, check_tensors, float_dtype
 
 FWD_SOURCE = "lstm_seq_fwd.cu"
 BWD_SOURCE = "lstm_seq_bwd.cu"
@@ -271,13 +274,19 @@ def lstm_seq(
     c0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[T, N, 4H] + [H, 4H] (+ [N, H] initial states) -> y, c [T, N, H];
-    differentiable in ``xw`` and ``w_hh``."""
+    differentiable in ``xw`` and ``w_hh``.  ``y`` in xw's dtype (float32 or
+    bfloat16; the recurrence in float32 either way), ``c`` float32."""
+    dtype = float_dtype(xw, "lstm_seq")
+    if dtype != torch.float32:
+        xw, w_hh = xw.float(), w_hh.float()
+        h0, c0 = (None if s is None else s.float() for s in (h0, c0))
     _check(xw, w_hh, h0, c0)
     if torch.is_grad_enabled() and any(s is not None and s.requires_grad for s in (h0, c0)):
         raise NotImplementedError(
             "lstm_seq has no gradient for h0/c0 (the JAX kernel path runs without a "
             "state); pass them without requires_grad")
-    return _LSTMSeq.apply(xw, w_hh, h0, c0)
+    y, c = _LSTMSeq.apply(xw, w_hh, h0, c0)
+    return y.to(dtype), c
 
 
 lstm_seq.launches = 0

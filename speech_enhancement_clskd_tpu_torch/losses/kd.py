@@ -23,6 +23,11 @@ Two routes, chosen as the JAX ``spkd_loss`` chooses them (``use_pallas``):
 ``spkd_loss_affine`` (``distill.spkd_bn2_fold``) takes the ABF's raw conv2
 map and bn2's per-channel affine and folds the affine into per-channel
 Grams, summed slice by slice as ``_grams`` sums.
+
+bf16 taps (``distill.taps_dtype``): the Grams and HCL's terms are summed in
+float32 from the upcast taps (a bf16 product is exact in float32, as in the
+JAX ``dot_general(..., preferred_element_type=float32)``), and every loss is
+float32.  The fused Gram pair has no bf16 instantiation yet and raises.
 """
 
 from __future__ import annotations
@@ -124,7 +129,8 @@ def spkd_loss(
                 raise ValueError(
                     f"the fused Gram pair flattens [B, *] inputs: batch_axis must be 0, "
                     f"got {batch_axis}")
-            return spkd_loss_fused(student.float(), teacher.float(), reduction)
+            # float32 inputs; a bf16 input raises there (bf16 K2 is not ported)
+            return spkd_loss_fused(student, teacher, reduction)
     g_s = _grouped_gram_l1(student, batch_axis, groups)
     g_t = _grouped_gram_l1(teacher, batch_axis, groups)
     loss = torch.sum((g_t - g_s) ** 2)

@@ -13,6 +13,13 @@ statistics updated, the LSTM backward kernel under autograd).
 Feature taps are explicit outputs (``FeatureTaps``) in the JAX layouts:
 encoder/decoder taps channels-last packed complex ``[B, D, T, 2C]``, LSTM taps
 ``[T, B, F]``.
+
+``cfg.compute_dtype="bfloat16"`` follows the JAX model's dtype flow: the
+STFT runs in float32 and its packed spectrum is cast to bf16; the convs,
+BN (statistics in float32), PReLU and LSTM layers compute in bf16 with
+float32 parameters, so every tap is bf16; the decoder's output goes back to
+float32 before the mask (bf16 near-silence rounds to 0, ``ops/stft.py``'s
+safe forms), and the mask, the iSTFT and the waveform are float32.
 """
 
 from __future__ import annotations
@@ -69,9 +76,9 @@ def _check_supported(cfg: DCCRNConfig) -> None:
     if not cfg.use_clstm:
         raise NotImplementedError(
             "use_clstm=False: the real-LSTM bottleneck is ROADMAP queue 1 item 7")
-    if cfg.compute_dtype != "float32":
+    if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: bf16 compute is ROADMAP queue 1 item 4")
+            f"compute_dtype {cfg.compute_dtype!r}: the port computes in float32 or bfloat16")
     if cfg.masking_mode not in ("E", "C", "R"):
         raise ValueError(f"unknown masking_mode {cfg.masking_mode!r}")
 
@@ -158,7 +165,7 @@ class DCCRN(nn.Module):
         spec_phase = stft_ops.safe_arctan2(im, re)
 
         # drop the DC bin, go channels-last packed complex: [B, D, T, 2]
-        x = torch.stack([re[:, 1:], im[:, 1:]], dim=-1)
+        x = torch.stack([re[:, 1:], im[:, 1:]], dim=-1).to(getattr(torch, cfg.compute_dtype))
 
         enc_taps: List[torch.Tensor] = []
         for i in range(n):
@@ -188,9 +195,10 @@ class DCCRN(nn.Module):
                 x = getattr(self, f"dec{i}_prelu")(x)
             dec_taps.append(x)
 
-        # x: [B, D=F-1, T, 2] -> masks [B, F, T] (pad the DC bin back)
-        mask_real = F.pad(x[..., 0], (0, 0, 1, 0))
-        mask_imag = F.pad(x[..., 1], (0, 0, 1, 0))
+        # x: [B, D=F-1, T, 2] -> masks [B, F, T] (pad the DC bin back), in float32
+        xf = x.float()
+        mask_real = F.pad(xf[..., 0], (0, 0, 1, 0))
+        mask_imag = F.pad(xf[..., 1], (0, 0, 1, 0))
 
         mode = cfg.masking_mode
         if mode == "E":

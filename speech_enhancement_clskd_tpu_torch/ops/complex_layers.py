@@ -11,6 +11,12 @@ C channels real and the last C imaginary, as in the JAX package.  Inside a
 conv the tensor is viewed as NCHW (``permute``, no copy: the view has
 channels-last strides, which cuDNN takes as they are).
 
+Parameters are float32.  A layer computes in its input's dtype: under
+bf16 compute the convs cast their weights and biases to bf16 (cuDNN runs the
+bf16 convolution, accumulating in float32), PReLU its slope, and BatchNorm
+keeps its statistics and their update in float32 and normalizes in bf16, as
+the JAX layers do.
+
 Weights are stored in ``torch.nn.functional`` layouts: ``[O, I, kh, kw]`` for
 ``ComplexConv2d``, ``[I, O, kh, kw]`` for ``ComplexConvTranspose2d``
 (``utils.bridge`` maps them from flax HWIO).  Every module draws its initial
@@ -94,8 +100,8 @@ class ComplexConv2d(_ComplexConvBase):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pf, pt = self.padding
         xn = F.pad(x.permute(0, 3, 1, 2), (pt, 0))  # [B, C, D, T], causal time pad
-        y = F.conv2d(xn, _block_weight(self.wr, self.wi, False), self._bias(),
-                     stride=self.strides, padding=(pf, 0))
+        y = F.conv2d(xn, _block_weight(self.wr, self.wi, False).to(x.dtype),
+                     self._bias().to(x.dtype), stride=self.strides, padding=(pf, 0))
         return y.permute(0, 2, 3, 1)
 
 
@@ -131,8 +137,8 @@ class ComplexConvTranspose2d(_ComplexConvBase):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv_transpose2d(
             x.permute(0, 3, 1, 2),
-            _block_weight(self.wr, self.wi, True),
-            self._bias(),
+            _block_weight(self.wr, self.wi, True).to(x.dtype),
+            self._bias().to(x.dtype),
             stride=self.strides,
             padding=self.padding,
             output_padding=self.output_padding,
@@ -153,7 +159,7 @@ class PReLU(nn.Module):
         self.alpha.fill_(self.init_alpha)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.where(x >= 0, x, self.alpha * x)
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
 
 
 class BatchNorm(nn.Module):
@@ -222,8 +228,11 @@ class BatchNorm(nn.Module):
         if return_affine:
             a = torch.rsqrt(var.float() + self.eps) * self.scale.float()
             return a, self.bias.float() - mean.float() * a
-        inv = torch.rsqrt(var.to(x.dtype) + self.eps)
-        return (x - mean.to(x.dtype)) * inv * self.scale + self.bias
+        dt = x.dtype  # normalize in the input's dtype, as the JAX module does
+        # rsqrt taken in float32 and rounded once (torch's bf16 rsqrt on the
+        # CPU is not correctly rounded; XLA's is)
+        inv = torch.rsqrt((var.to(dt) + self.eps).float()).to(dt)
+        return (x - mean.to(dt)) * inv * self.scale.to(dt) + self.bias.to(dt)
 
     @torch.no_grad()
     def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:

@@ -13,6 +13,12 @@ invocations::
   (the Hopper kernel on CUDA tensors, its plain version on CPU tensors);
 - gate order (i, f, g, o) and init (uniform +-1/sqrt(H), separate b_ih/b_hh)
   follow torch nn.LSTM.
+
+Parameters are float32; the layer computes in its input's dtype.  Under
+bf16 compute ``xw`` and the output projections are bf16 matmuls with the
+weights cast to bf16, and ``lstm_seq`` runs its recurrence in float32 on
+the upcast ``xw`` and W_hh and hands ``y`` back in bf16 (the JAX layer's
+casts around the Pallas kernel).
 """
 
 from __future__ import annotations
@@ -55,9 +61,10 @@ class LSTM(nn.Module):
         x: torch.Tensor,
         state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
-        xw = torch.matmul(x, self.w_ih) + (self.b_ih + self.b_hh)
+        dt = x.dtype
+        xw = torch.matmul(x, self.w_ih.to(dt)) + (self.b_ih + self.b_hh).to(dt)
         h0, c0 = (None, None) if state is None else state
-        y, _ = lstm_seq(xw, self.w_hh, h0, c0)
+        y, _ = lstm_seq(xw, self.w_hh.to(dt), h0, c0)
         return y
 
 
@@ -103,6 +110,7 @@ class NaiveComplexLSTM(nn.Module):
         out_r = r2r - i2i
         out_i = r2i + i2r
         if self.projection_dim is not None:
-            out_r = out_r @ self.proj_wr + self.proj_br
-            out_i = out_i @ self.proj_wi + self.proj_bi
+            dt = out_r.dtype
+            out_r = out_r @ self.proj_wr.to(dt) + self.proj_br.to(dt)
+            out_i = out_i @ self.proj_wi.to(dt) + self.proj_bi.to(dt)
         return out_r, out_i

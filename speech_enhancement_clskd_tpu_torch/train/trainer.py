@@ -46,9 +46,16 @@ five strategies in float32.  One ``train_step`` runs
    total_steps(), lr / 100)``, set from ``step`` each step, so a restored
    checkpoint continues the schedule.
 
-The whole step runs in full float32 (``utils.device.float32_math``).  bf16
-(``distill.taps_dtype``, a model's ``compute_dtype``) raises
-``NotImplementedError`` naming its item.
+The step's float32 work runs in full float32 (``utils.device.float32_math``).
+bf16 follows the JAX step's casts: a model with ``compute_dtype="bfloat16"``
+computes in bf16 (``models.dccrn``), and ``distill.taps_dtype="bfloat16"``
+casts both models' feature taps to bf16 after the forwards, so the ABF
+chains run in bf16 (their BN statistics and folded affines in float32; with
+``abf_conv_pallas`` and ``abf_attfuse_pallas`` the bf16 instantiations of K3
+and K4) and the KD losses take bf16 taps, their Grams summed in float32.
+The losses are float32, and the parameters, gradients and optimizer state
+stay float32.  ``abf_block_pallas`` on bf16 taps raises
+``NotImplementedError`` here (the bf16 K5 is ROADMAP queue 1 item 10).
 
 Around the step, the fit loop of the JAX trainer (``fit``, ``validate``,
 ``eval_step``, ``make_datasets``): epochs over the seeded loader
@@ -84,10 +91,11 @@ from ..distill.strategies import (
     needs_fusion,
     needs_teacher_taps,
 )
+from ..kernels import BF16_ITEM
 from ..losses.pit import pit_reorder
 from ..losses.signal import si_sdr
 from ..metrics.stoi import stoi_batch
-from ..models.dccrn import DCCRN
+from ..models.dccrn import DCCRN, FeatureTaps
 from ..utils.bridge import torch_state_from_flax
 from ..utils.device import float32_math, resolve_device
 
@@ -114,10 +122,32 @@ def _check_supported(cfg: TrainConfig) -> None:
     d = cfg.distill
     if d.strategy not in STRATEGIES:
         raise ValueError(f"unknown distill strategy {d.strategy!r}")
-    if d.taps_dtype != "float32":
+    if d.taps_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
-            f"not ported yet: distill.taps_dtype={d.taps_dtype!r}: bf16 training is "
-            "ROADMAP queue 1 item 4")
+            f"distill.taps_dtype={d.taps_dtype!r}: the port casts taps to bfloat16 or "
+            "leaves them")
+    if needs_fusion(d.strategy) and d.abf_block_pallas and _abf_dtype(cfg) == torch.bfloat16:
+        raise NotImplementedError(
+            f"distill.abf_block_pallas on bfloat16 taps (the whole-block kernel K5 in "
+            f"bf16): {BF16_ITEM}")
+
+
+def _taps_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
+    """The dtype the step casts both models' taps to, or None (taps left in
+    their models' compute dtype), as the JAX step casts for a taps_dtype
+    other than float32."""
+    return None if cfg.distill.taps_dtype == "float32" else getattr(torch, cfg.distill.taps_dtype)
+
+
+def _abf_dtype(cfg: TrainConfig) -> torch.dtype:
+    """The dtype the ABF chains run in: the student's taps' after the cast."""
+    return _taps_dtype(cfg) or getattr(torch, cfg.student.compute_dtype)
+
+
+def _cast_taps(taps: FeatureTaps, dtype: torch.dtype) -> FeatureTaps:
+    return FeatureTaps(encoder=[t.to(dtype) for t in taps.encoder],
+                       decoder=[t.to(dtype) for t in taps.decoder],
+                       lstm_real=taps.lstm_real.to(dtype), lstm_imag=taps.lstm_imag.to(dtype))
 
 
 def warmup_cosine(step: int, peak: float, warmup_steps: int, decay_steps: int,
@@ -182,6 +212,7 @@ class Trainer:
                            remat=d.abf_remat)
             self.abf_enc = ReviewKD(s_enc, t_enc, d.abf_mid_channels, reverse=True, **kernels)
             self.abf_dec = ReviewKD(s_dec, t_dec, d.abf_mid_channels, reverse=False, **kernels)
+        self.taps_dtype = _taps_dtype(cfg)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
         self.epoch = 0
@@ -280,6 +311,11 @@ class Trainer:
             if not needs_teacher_taps(self.strategy):
                 t_out = t_out._replace(taps=None)  # free them before the student runs
             s_out = self.student(mix, training=True)
+            if self.taps_dtype is not None:
+                # the big cross-layer activations (and so their gradients) in bf16
+                s_out = s_out._replace(taps=_cast_taps(s_out.taps, self.taps_dtype))
+                if t_out.taps is not None:
+                    t_out = t_out._replace(taps=_cast_taps(t_out.taps, self.taps_dtype))
             fused_enc = fused_dec = None
             if self.reinit_abf:
                 self.draw_abf(self.step)

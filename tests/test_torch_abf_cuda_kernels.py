@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of the ABF chain (3x3 conv K3f, its weight
 gradient K3w, attention fuse K4f and its backward K4b, the whole block K5f
-and its backward K5b) against their plain PyTorch versions, on the card.  Skipped where there is no CUDA device.
+and its backward K5b) against their plain PyTorch versions, on the card, and
+the bf16 instantiations of K3f, K3w, K4f and K4b against their plain bf16
+versions.  Skipped where there is no CUDA device.
 
 Imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest tests/test_torch_abf_cuda_kernels.py -q
@@ -9,6 +11,7 @@ Imports no JAX, so it runs on a machine without it:
 import pytest
 import torch
 
+from speech_enhancement_clskd_tpu_torch.kernels import BLEND_REL, SUM_REL, bf16_check
 from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
     abf_block,
     abf_block_bwd,
@@ -313,3 +316,128 @@ def test_k3w_matches_plain_on_its_route(cuda, shape):
                                          (3, 1, "narrow")])
 def test_k3w_route_by_shape(cuda, C, O, route):
     assert conv3x3_wgrad_route(C, O) == route
+
+
+# ---------------------------------------------------------------- bf16
+
+# bf16 outputs: both sides sum the same exact products (or float32 terms) in
+# other orders and round once, so an element differs by one bf16 spacing or,
+# where its sum cancels, by the float32 rounding of its terms' magnitudes
+# (kernels.SUM_REL of them; measured <= 0.54 float32 roundings on ~1e-5 of
+# the elements); K4f's blend by one spacing of z carried through
+# (kernels.BLEND_REL).  float32 outputs (dw, the fuse's parameter gradients)
+# by float32 rounding.
+BF16_REL_L2 = 1e-5
+# every route of both bf16 conv kernels: mma forward with whole and ragged
+# tiles, C off the 16-byte copies (12) and below 8 (the FMA route), O = 2
+# (FMA forward, narrow weight gradient), O = 12 (mma weight gradient off the
+# 16-byte copies), and the dx pass's C = 256 -> 64
+BF16_CONV_SHAPES = CONV_SHAPES + [(2, 3, 20, 12, 8), (2, 4, 40, 8, 24)]
+# the fuse's shapes and two with odd C
+BF16_FUSE_SHAPES = FUSE_SHAPES + [(2, 4, 2, 9, 5), (1, 2, 1, 7, 255)]
+
+
+def _bf16(*ts):
+    return tuple(t.to(torch.bfloat16) for t in ts)
+
+
+@pytest.mark.parametrize("shape", BF16_CONV_SHAPES, ids=str)
+def test_bf16_conv_kernels_match_plain(cuda, shape):
+    x, w, gy = _bf16(*_conv_inputs(shape, sum(shape), cuda))
+    before = (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16)
+    out = conv3x3_fwd(x, w)
+    dw = conv3x3_wgrad(x, gy)
+    torch.cuda.synchronize()
+    assert (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16) == (before[0] + 1,
+                                                                         before[1] + 1)
+    assert out.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    scale = conv3x3_reference(x.abs().float(), w.abs().float())
+    assert bf16_check(out, conv3x3_reference(x, w), scale, SUM_REL)["within"]
+    assert _rel_l2(dw, conv3x3_wgrad_reference(x, gy)) <= BF16_REL_L2
+    assert torch.equal(out, conv3x3_fwd(x, w))  # the same bits every run
+    assert torch.equal(dw, conv3x3_wgrad(x, gy))
+
+
+def test_bf16_conv_autograd_launches_its_kernels(cuda):
+    x, w, gy = _bf16(*_conv_inputs((2, 8, 40, 16, 32), 3, cuda))
+    w_mod = w.permute(3, 2, 0, 1).contiguous().requires_grad_(True)
+    x = x.requires_grad_(True)
+    before = (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16)
+    conv3x3(x, w_mod).backward(gy)
+    torch.cuda.synchronize()
+    assert (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16) == (before[0] + 2,
+                                                                         before[1] + 1)
+    assert x.grad.dtype == w_mod.grad.dtype == torch.bfloat16
+    w_flip = w.flip(0, 1).transpose(2, 3).contiguous()
+    scale = conv3x3_reference(gy.abs().float(), w_flip.abs().float())
+    assert bf16_check(x.grad, conv3x3_reference(gy, w_flip), scale, SUM_REL)["within"]
+    want = conv3x3_wgrad_reference(x.detach(), gy).to(torch.bfloat16).permute(3, 2, 0, 1)
+    assert bf16_check(w_mod.grad, want)["within"]
+
+
+@pytest.mark.parametrize("C, O, fwd, wgrad", [(64, 64, "mma", "mma"), (8, 8, "mma", "narrow"),
+                                              (4, 64, "fma", "mma"), (64, 2, "fma", "narrow")])
+def test_bf16_conv_route_by_shape(cuda, C, O, fwd, wgrad):
+    assert conv3x3_fwd_route(C, O, torch.bfloat16) == fwd
+    assert conv3x3_wgrad_route(C, O, torch.bfloat16) == wgrad
+
+
+@pytest.mark.parametrize("shape", BF16_FUSE_SHAPES, ids=str)
+def test_bf16_fuse_kernels_match_plain(cuda, shape):
+    x, res, wx, wy, bias, gy = _bf16(*_fuse_inputs(shape, sum(shape), cuda))
+    before = (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16)
+    out, z = attention_fuse_fwd(x, res, wx, wy, bias)
+    grads = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    torch.cuda.synchronize()
+    assert (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    rout, rz = attention_fuse_reference(x, res, wx, wy, bias)
+    assert out.dtype == z.dtype == torch.bfloat16
+    y = torch.repeat_interleave(res, x.shape[1] // res.shape[1], dim=1)
+    blend = x.float().abs() * rz[..., 0:1].float() + y.float().abs() * rz[..., 1:2].float()
+    assert bf16_check(out, rout, blend, BLEND_REL)["within"]
+    assert bf16_check(z, rz)["within"]
+    want = attention_fuse_bwd_reference(x, res, z, gy, wx, wy)
+    # the magnitudes of dx's and dres's terms: the plain backward on |inputs|
+    scales = attention_fuse_bwd_reference(*(t.abs() for t in (x, res, z, gy, wx, wy)))
+    for name, got, ref, scale in zip(("dx", "dres", "dwx", "dwy", "dbias"), grads, want,
+                                     scales):
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        if name in ("dx", "dres"):
+            assert got.dtype == torch.bfloat16
+            assert bf16_check(got, ref, scale, SUM_REL)["within"], name
+        else:
+            assert got.dtype == torch.float32
+            assert _rel_l2(got, ref) <= BF16_REL_L2, name
+    again_out, again_z = attention_fuse_fwd(x, res, wx, wy, bias)
+    assert torch.equal(out, again_out) and torch.equal(z, again_z)
+    again = attention_fuse_bwd(x, res, z, gy, wx, wy)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))  # the same bits every run
+
+
+def test_bf16_fuse_autograd_launches_its_kernels(cuda):
+    x, res, wx, wy, bias, gy = _bf16(*_fuse_inputs((2, 8, 4, 21, 64), 5, cuda))
+    ins = [t.requires_grad_(True) for t in (x, res, wx, wy, bias)]
+    before = (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16)
+    attention_fuse(*ins).backward(gy)
+    torch.cuda.synchronize()
+    assert (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert all(t.grad.dtype == torch.bfloat16 for t in ins)
+    assert tuple(ins[4].grad.shape) == (2,)
+
+
+@pytest.mark.parametrize("kernel", ["block", "gram"])
+def test_bf16_refused_where_not_ported(cuda, kernel):
+    from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
+        if kernel == "gram":
+            s = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
+            gram_pair(s, s)
+        else:
+            tap = torch.randn(2, 8, 37, 8, device=cuda, dtype=torch.bfloat16)
+            w1a = torch.randn(8, 64, device=cuda, dtype=torch.bfloat16)
+            bvec = torch.zeros(64, device=cuda, dtype=torch.bfloat16)
+            w2 = torch.randn(3, 3, 64, 32, device=cuda, dtype=torch.bfloat16)
+            abf_block(tap, None, w1a, bvec, None, None, None, w2)

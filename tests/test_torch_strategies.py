@@ -55,6 +55,7 @@ from speech_enhancement_clskd_tpu.config import (
     TrainConfig as JaxTrainConfig,
 )
 from speech_enhancement_clskd_tpu.train import Trainer as JaxTrainer
+from torch_oracle import each_once_per_session
 from speech_enhancement_clskd_tpu_torch.config import (
     DataConfig,
     DCCRNConfig,
@@ -117,28 +118,35 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Per case: the JAX step's logs, gradients and state after one step,
-    and the port's after the same step from the same start.  One JAX step
-    (one compile) per strategy."""
+def _jax_run(strategy):
+    """The JAX state before one ``strategy`` step, and the step's logs,
+    gradients and state after it (one JAX compile)."""
     mix, clean = _batch()
-    jax_runs = {}
-    for strategy in sorted({s for s, _ in CASES.values()}):
-        cfg = JaxTrainConfig(teacher=JaxDCCRNConfig(**TINY_T), student=JaxDCCRNConfig(**TINY_S),
-                             data=JaxDataConfig(**DATA),
-                             distill=JaxDistillConfig(strategy=strategy),
-                             mesh=MeshConfig(data=1, model=1), max_epochs=1, log_every=1000)
-        jt = JaxTrainer(cfg)
-        state = jt.init_state(jax.random.PRNGKey(0))
-        start = jax.tree.map(np.array, state)
-        state, logs = jt.train_step(state, jnp.asarray(mix), jnp.asarray(clean))
-        assert state.abf_enc_params is None and start.abf_enc_params is None
-        jax_runs[strategy] = dict(
-            start=start, logs={k: float(v) for k, v in logs.items()},
-            grads={n: m / 0.1 for n, m in _leaves(state.opt_state[0].mu["student"])},
-            state={f"{p}_{c}": dict(_leaves(getattr(state, f"{p}_{c}")))
-                   for p in PARTS for c in ("params", "stats")})
+    cfg = JaxTrainConfig(teacher=JaxDCCRNConfig(**TINY_T), student=JaxDCCRNConfig(**TINY_S),
+                         data=JaxDataConfig(**DATA),
+                         distill=JaxDistillConfig(strategy=strategy),
+                         mesh=MeshConfig(data=1, model=1), max_epochs=1, log_every=1000)
+    jt = JaxTrainer(cfg)
+    state = jt.init_state(jax.random.PRNGKey(0))
+    start = jax.tree.map(np.array, state)
+    state, logs = jt.train_step(state, jnp.asarray(mix), jnp.asarray(clean))
+    assert state.abf_enc_params is None and start.abf_enc_params is None
+    return dict(
+        start=start, logs={k: float(v) for k, v in logs.items()},
+        grads={n: m / 0.1 for n, m in _leaves(state.opt_state[0].mu["student"])},
+        state={f"{p}_{c}": dict(_leaves(getattr(state, f"{p}_{c}")))
+               for p in PARTS for c in ("params", "stats")})
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Per case: the JAX step's logs, gradients and state after one step
+    (each strategy's computed once per test session, side by side across
+    workers: ``torch_oracle.each_once_per_session``), and the port's after
+    the same step from the same start."""
+    jax_runs = each_once_per_session(tmp_path_factory, "test_torch_strategies.jax_run",
+                                     sorted({s for s, _ in CASES.values()}), _jax_run)
+    mix, clean = _batch()
     out = {}
     for case, (strategy, fused) in CASES.items():
         ref = jax_runs[strategy]
