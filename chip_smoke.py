@@ -125,7 +125,27 @@ card, then drives both paths through their entry points:
     step: bf16 K3f 24, K3w 12, K4f 10, K4b 10, K1f 8, K1b 4) with its own
     card-vs-CPU step;
 19. the bf16 teacher offline on 32 x 3 s beside phase 5: RTF, peak
-    memory, the waveform against the CPU's bf16 forward.
+    memory, the waveform against the CPU's bf16 forward;
+20. the bf16 whole-block kernels and the bf16 Gram pair vs plain: K5f and
+    K5b on bf16 maps and weights (bvec, zoff float32) at the reference
+    block (timed, with the plain versions and the bound) and at each
+    distinct block shape of the block-config step (the mask block among
+    them; kernel times summed by blocks a step), the backward on the
+    kernel's own xf: xf, out, g_tap and g_res by ``kernels.bf16_check``
+    with ``abf_block_bf16_scales``, the float32 parameter gradients by
+    relative L2 (dw1a, dwxt and dwy, sums of values rounded to bf16 inside
+    the kernel, to 1e-4; the others to 1e-5), two runs giving the same bits;
+    K2 on bf16 at B = 32 and 64 x 528,000 (each Gram to 1e-5 relative L2,
+    both sides' distance from the float64 Gram beside it; times as phase
+    12's, the bound and cuBLAS's bf16 product with a float32 result); then
+    ``losses.kd.spkd_loss`` on bf16 [32, 528,000] inputs, the route bf16
+    takes to K2 (the auto gate), forward and backward: one bf16 K2 launch;
+21. bf16 training on the whole-block kernel: phase 18's bf16 models with
+    ``abf_block_pallas`` at 32 x 3 s (launches per step: bf16 K5f 12, K5b
+    12, K1f 8, K1b 4) and its card-vs-CPU step (phase 18's bf16 holds),
+    beside phase 18's bf16 default step and phase 11's float32 block step;
+    then ``bench.py``'s ``--block-pallas --abf-remat --bn2-fold`` form at
+    its batch 64 (bf16 K5f 24, K5b 12).
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -220,7 +240,8 @@ BF16_DISTILL = dict(taps_dtype=BF16)
 BF16_KERNEL_DISTILL = dict(taps_dtype=BF16, **ABF_KERNEL_FLAGS)
 BF16_BATCH = 64
 # the kernels with a bf16 instantiation (their counters' names end in _bf16)
-BF16_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "attfuse_fwd", "attfuse_bwd")
+BF16_KERNELS = ("conv3x3_fwd", "conv3x3_wgrad", "attfuse_fwd", "attfuse_bwd", "abf_block_fwd",
+                "abf_block_bwd", "gram_pair_fwd")
 # the bf16 losses against the float32 ones over this many steps from the
 # same seeded state: the JAX package's bounds (tests/test_train.py's
 # test_bf16_loss_parity_with_f32)
@@ -263,6 +284,9 @@ DESIGNS = {
     "conv3x3_wgrad_bf16": "bf16-mma-m16n8k16",
     "attfuse_fwd_bf16": "warp-row",
     "attfuse_bwd_bf16": "warp-row",
+    "abf_block_fwd_bf16": "xf-pass-bf16-mma",
+    "abf_block_bwd_bf16": "bf16-mma-adjoint-pixel-pass",
+    "gram_pair_fwd_bf16": "bulk-copy-ring-fma-tiles",
 }
 
 
@@ -1408,6 +1432,7 @@ FLUSH_BYTES = 128 * 2 ** 20
 # cycles of a device-side wait that holds the profiled loop's launches back
 # until all are queued, so host gaps do not count as device time (~5 ms)
 QUEUE_CYCLES = 10_000_000
+PROFILE_ATTEMPTS = 3
 
 
 def _flusher(nbytes: int):
@@ -1447,6 +1472,17 @@ def _event_ms(fn, iters: int, flush=None) -> float:
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def _gram_calls(events) -> list:
+    """The complete calls among K2's profiled kernels, in start order: each
+    first pass (``gram_partial``) directly followed by its second pass
+    (``gram_sum``). A call of which the profiler lost a record is left out."""
+    calls = []
+    for a, b in zip(events, events[1:]):
+        if "gram_partial" in a.name and "gram_sum" in b.name:
+            calls.append((a, b))
+    return calls
+
+
 def gram_times(fn, nbytes: int, iters: int = 20) -> dict:
     """K2's times for ``fn`` (one ``gram_pair_fwd`` call on ``nbytes`` of
     inputs), L2 flushed between launches where the inputs fit in it:
@@ -1455,10 +1491,19 @@ def gram_times(fn, nbytes: int, iters: int = 20) -> dict:
       first pass's start to the second pass's end (``gram_*`` kernels, two
       a call; the calls queued behind a device-side wait, so that none waits
       for the host), with ``pass1_ms`` and ``pass2_ms`` (the second pass
-      from where the first ends, as it may start earlier and wait);
+      from where the first ends, as it may start earlier and wait), over the
+      ``calls_timed`` calls whose two records the profiler kept;
     - ``event_ms``: CUDA events (back to back without a flush, so a
       host-bound loop shows here and not in ``ms``);
-    - ``host_ms``: host time to enqueue one call."""
+    - ``host_ms``: host time to enqueue one call.
+
+    The profiler loses some kernel records now and then (on the card: the
+    first profile of each bf16 case, 28 of 40 records in all three profiles
+    of one run). A profile that keeps fewer than half the calls whole is
+    taken again, up to ``PROFILE_ATTEMPTS`` times; if none does, ``ms`` is
+    read from CUDA events around each call queued behind the same wait (with
+    the flush before each), ``timing`` says which, and the pass split is
+    None."""
     import re
 
     import torch
@@ -1468,35 +1513,56 @@ def gram_times(fn, nbytes: int, iters: int = 20) -> dict:
     flush = _flusher(nbytes)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    calls, names, seen = [], set(), []
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(QUEUE_CYCLES)
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and "gram_" in e.name), key=lambda e: e.time_range.start)
+        seen.append(len(events))
+        names |= {re.search(r"gram_\w+", e.name).group(0) for e in events}
+        calls = _gram_calls(events)
+        if 2 * len(calls) >= iters and len(calls) <= iters:
+            break
+    else:
+        calls = []
+    rec = {"kernels": sorted(names), "profile_attempts": attempt,
+           "profiled_records": seen, "calls_timed": len(calls)}
+    if calls:
+        us = 1e3 * len(calls)
+        rec.update(
+            timing="profiler",
+            ms=sum(b.time_range.end - a.time_range.start for a, b in calls) / us,
+            pass1_ms=sum(a.time_range.end - a.time_range.start for a, _ in calls) / us,
+            pass2_ms=sum(b.time_range.end - max(b.time_range.start, a.time_range.end)
+                         for a, b in calls) / us)
+    else:
+        pairs = []
         torch.cuda._sleep(QUEUE_CYCLES)
         for _ in range(iters):
             if flush is not None:
                 flush()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
             fn()
+            end.record()
+            pairs.append((start, end))
         torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and "gram_" in e.name), key=lambda e: e.time_range.start)
-    if len(events) != 2 * iters:
-        raise RuntimeError(f"the profiler saw {len(events)} gram_* kernels for {iters} calls: "
-                           f"{sorted({e.name for e in events})}")
-    firsts, seconds = events[0::2], events[1::2]
-    us = 1e3 * iters
+        rec.update(timing="cuda_events", calls_timed=iters,
+                   ms=sum(a.elapsed_time(b) for a, b in pairs) / iters,
+                   pass1_ms=None, pass2_ms=None)
     t0 = time.perf_counter()
     for _ in range(iters):
         fn()
     host_ms = (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
-    return {
-        "ms": sum(b.time_range.end - a.time_range.start for a, b in zip(firsts, seconds)) / us,
-        "pass1_ms": sum(a.time_range.end - a.time_range.start for a in firsts) / us,
-        "pass2_ms": sum(b.time_range.end - max(b.time_range.start, a.time_range.end)
-                        for a, b in zip(firsts, seconds)) / us,
-        "kernels": sorted({re.search(r"gram_\w+", e.name).group(0) for e in events}),
-        "event_ms": _event_ms(fn, iters),
-        "host_ms": host_ms,
-        "l2_flushed": flush is not None,
-    }
+    rec.update(event_ms=_event_ms(fn, iters), host_ms=host_ms, l2_flushed=flush is not None)
+    return rec
 
 
 def _gram_case(B: int, ds: int, dt: int, timed: bool) -> dict:
@@ -2310,6 +2376,281 @@ def phase_serving_teacher_bf16(phase5: dict) -> dict:
     return rec
 
 
+# bf16 K5 and K2 (phases 20-21): the block-config step on bf16 taps, its
+# launches a step (K5f 24 under abf_remat, its forward recomputed in the
+# backward), bench.py's --block-pallas --abf-remat --bn2-fold form at its
+# batch 64, and the bf16 K5b's float32 sums of values rounded to bf16 inside
+# the kernel (dw1a from bf16(g_xhat), dwxt and dwy from bf16(dp)), where a
+# float32 value near a rounding midpoint rounds the other way on the two
+# sides and moves its term by one bf16 spacing (2.4e-5 relative L2 on dw1a in
+# the card tests, NVIDIA H100 80GB HBM3, 700 W)
+BF16_BLOCK_DISTILL = dict(taps_dtype=BF16, **ABF_BLOCK_FLAGS)
+BF16_BENCH_DISTILL = dict(BF16_BLOCK_DISTILL, abf_remat=True, spkd_bn2_fold=True)
+BF16_ROUNDED_REL_L2 = 1e-4
+BLOCK_ROUNDED = ("dw1a", "dwxt", "dwy")
+# K2's bf16 shapes (B, Ds, Dt): the spkd strategy's 33 s waveforms at batch 32
+# and at the gate's largest, 64
+BF16_GRAM_CASES = [(TEACHER_BATCH, SPKD_SAMPLES, SPKD_SAMPLES),
+                   (64, SPKD_SAMPLES, SPKD_SAMPLES)]
+
+
+def _bf16_block_inputs(fuse, B, D, k, T, Cs, M, O):
+    """``_block_inputs`` as the bf16 path hands them to the kernel: the maps
+    and w1a, wxt, wy, w2 in bf16, bvec and zoff float32."""
+    import torch
+
+    kw, gxf, gout = _block_inputs(fuse, B, D, k, T, Cs, M, O)
+    kw = {n: t if t is None or n in ("bvec", "zoff") else t.to(torch.bfloat16)
+          for n, t in kw.items()}
+    return kw, gxf.to(torch.bfloat16), gout.to(torch.bfloat16)
+
+
+def _bf16_block_bounds(fuse, B, D, k, T, Cs, M, O) -> dict:
+    """The bf16 K5f's and K5b's bounds: the bytes of ``_block_bounds`` at 2
+    bytes an element of every map and bf16 weight (bvec, zoff and the
+    parameter gradients 4), and every operation a product of bf16 operands
+    at the bf16 tensor-core peak."""
+    rows, res_rows = B * D * T, (B * D * T // k if fuse else 0)
+    w16 = Cs * M + 2 * Cs + 2 * M + 9 * M * O
+    w32 = M + 2
+    conv = rows * 18.0 * M * O
+    fwd_ops = conv + rows * (2.0 * Cs * M + ((4 * Cs + 7 * M + 8) if fuse else M))
+    bwd_ops = 2 * conv + rows * (6.0 * Cs * M + ((4 * Cs + 16 * M) if fuse else M))
+    fwd_bytes = 2.0 * (rows * Cs + res_rows * M + w16 + rows * M + rows * O) + 4.0 * w32
+    bwd_bytes = (2.0 * (2 * rows * Cs + 2 * res_rows * M + 2 * rows * M + rows * O + w16)
+                 + 4.0 * (w32 + w16 + w32))
+    return {"fwd": _bound_bf16(fwd_bytes, fwd_ops), "bwd": _bound_bf16(bwd_bytes, bwd_ops)}
+
+
+def _bf16_block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
+    """The bf16 K5f and K5b against their plain bf16 versions on the same
+    inputs (the backward on the kernel's own xf): xf, g_tap and g_res by
+    ``bf16_check`` with ``abf_block_bf16_scales``, out against the plain conv
+    on the kernel's own xf; the float32 parameter gradients by relative L2
+    (``BLOCK_ROUNDED`` to ``BF16_ROUNDED_REL_L2``, the others to
+    ``BF16_KERNEL_REL_L2``); two runs' bits; the kernels' times, and timed:
+    the plain versions' and the bound."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels import bf16_check
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
+        abf_block_bf16_scales,
+        abf_block_bwd,
+        abf_block_bwd_reference,
+        abf_block_bwd_route,
+        abf_block_fwd,
+        abf_block_fwd_route,
+        abf_block_reference,
+    )
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_reference
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    kw, gxf, gout = _bf16_block_inputs(fuse, B, D, k, T, Cs, M, O)
+    before = (abf_block_fwd.launches_bf16, abf_block_bwd.launches_bf16)
+    xf, out = abf_block_fwd(**kw)
+    xf_again, out_again = abf_block_fwd(**kw)
+    fwd_repeat = bool(torch.equal(xf, xf_again)) and bool(torch.equal(out, out_again))
+    del xf_again, out_again
+    grads = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
+    again = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
+    bwd_repeat = all(a is None or bool(torch.equal(a, b)) for a, b in zip(grads, again))
+    del again
+    torch.cuda.synchronize()
+    if (abf_block_fwd.launches_bf16, abf_block_bwd.launches_bf16) != (before[0] + 2,
+                                                                     before[1] + 2):
+        raise RuntimeError("the bf16 abf_block kernels did not count their launches")
+    names = ("g_tap", "g_res", "dw1a", "dbvec", "dwxt", "dwy", "dzoff", "dw2")
+    with float32_math():
+        scales = abf_block_bf16_scales(**kw, xf=xf, gxf=gxf, gout=gout)
+        checks = {"xf": bf16_check(xf, abf_block_reference(**kw)[0], *scales["xf"]),
+                  "out": bf16_check(out, conv3x3_reference(xf, kw["w2"]), *scales["out"])}
+        want = abf_block_bwd_reference(**kw, xf=xf, gxf=gxf, gout=gout)
+        for n, a, b in zip(names[:2], grads, want):
+            if b is not None:
+                checks[n] = bf16_check(a, b, *scales[n])
+        del scales
+        rel = {n: _rel_l2(a, b) for n, a, b in zip(names[2:], grads[2:], want[2:])
+               if b is not None}
+    del want, grads
+    tols = {n: BF16_ROUNDED_REL_L2 if n in BLOCK_ROUNDED else BF16_KERNEL_REL_L2 for n in rel}
+    rec = {"fuse": fuse, "B": B, "D": D, "k": k, "T": T, "Cs": Cs, "M": M, "O": O,
+           "fwd_route": abf_block_fwd_route(M, O, torch.bfloat16),
+           "bwd_route": abf_block_bwd_route(M, O, torch.bfloat16),
+           "checks": checks, "fwd_max_abs_err": max(checks[n]["max_abs_err"] for n in ("xf", "out")),
+           "bwd_max_abs_err_g_tap_g_res": max(c["max_abs_err"] for n, c in checks.items()
+                                              if n.startswith("g_")),
+           "bwd_rel_l2": rel, "bwd_tol": tols, "fwd_bitwise_repeat": fwd_repeat,
+           "bwd_bitwise_repeat": bwd_repeat,
+           "within": all(c["within"] for c in checks.values())
+           and all(rel[n] <= tols[n] for n in rel)}
+    with float32_math():
+        rec.update(fwd_ms=_time_ms(lambda: abf_block_fwd(**kw), iters=5),
+                   bwd_ms=_time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout),
+                                   iters=5))
+        if timed:
+            bounds = _bf16_block_bounds(fuse, B, D, k, T, Cs, M, O)
+            rec.update(
+                fwd_plain_ms=_time_ms(lambda: abf_block_reference(**kw), iters=2),
+                fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+                bwd_plain_ms=_time_ms(lambda: abf_block_bwd_reference(
+                    **kw, xf=xf, gxf=gxf, gout=gout), iters=2),
+                bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1])
+    return rec
+
+
+def _bf16_gram_case(B: int, ds: int, dt: int) -> dict:
+    """The bf16 K2 against its plain version on bf16 s [B, ds] and t [B, dt]:
+    each float32 Gram by relative L2 (``BF16_KERNEL_REL_L2``), both sides'
+    distance from the float64 Gram beside it, two runs' bits, symmetry;
+    times as phase 12's (``gram_times``), the plain version's, the bound and
+    cuBLAS's bf16 product with a float32 result where this torch has one
+    (``torch.mm(..., out_dtype=torch.float32)``)."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair_fwd, gram_pair_reference
+    from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
+
+    g = torch.Generator(device="cuda").manual_seed(B + ds + dt)
+    s = (0.3 * torch.randn(B, ds, device="cuda", generator=g)).clamp(-1, 1).bfloat16()
+    t = (0.3 * torch.randn(B, dt, device="cuda", generator=g)).clamp(-1, 1).bfloat16()
+    before = gram_pair_fwd.launches_bf16
+    got = gram_pair_fwd(s, t)
+    again = gram_pair_fwd(s, t)
+    torch.cuda.synchronize()
+    if gram_pair_fwd.launches_bf16 != before + 2:
+        raise RuntimeError("the bf16 gram_pair_fwd did not count its launches")
+    with float32_math():
+        want = gram_pair_reference(s, t)
+        exact = [(z.double() @ z.double().T) for z in (s, t)]
+
+    def rel(pair, truth):
+        return max(((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+                   for a, b in zip(pair, truth))
+
+    rec = {"B": B, "Ds": ds, "Dt": dt, "dtype": BF16,
+           "rel_l2": max(_rel_l2(a, b) for a, b in zip(got, want)),
+           "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got, want)),
+           "max_rel_err": rel(got, want), "rel_err_f64": rel(got, exact),
+           "plain_rel_err_f64": rel(want, exact), "tol": BF16_KERNEL_REL_L2,
+           "bitwise_repeat": all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+           "symmetric": all(bool(torch.equal(a, a.T)) for a in got)}
+    del exact, want
+    nbytes = 2 * B * (ds + dt)
+    # the upper triangles' B (B + 1) / 2 multiply-adds a column, bf16 products
+    bound_ms, bound_by = _bound_bf16(nbytes, 1.0 * B * (B + 1) * (ds + dt))
+    flush = _flusher(nbytes)
+    try:
+        torch.mm(s, s.T, out_dtype=torch.float32)
+        library = lambda: (torch.mm(s, s.T, out_dtype=torch.float32),  # noqa: E731
+                           torch.mm(t, t.T, out_dtype=torch.float32))
+    except (TypeError, RuntimeError) as e:  # no out_dtype here: no one-call yardstick
+        library, rec["library_note"] = None, f"torch.mm has no out_dtype here: {e}"
+    with float32_math():
+        rec.update(plain_ms=_event_ms(lambda: gram_pair_reference(s, t), 3, flush),
+                   library_ms=None if library is None else _event_ms(library, 20, flush))
+    rec.update(gram_times(lambda: gram_pair_fwd(s, t), nbytes), bound_ms=bound_ms,
+               bound_by=bound_by)
+    return rec
+
+
+def _bf16_spkd_entry() -> dict:
+    """K2's bf16 entry path: ``losses.kd.spkd_loss`` on bf16 ``[B, D]``
+    inputs with D >= 2^19 (the spkd strategy's 33 s waveforms at batch 32),
+    routed by the JAX auto gate, forward and backward, the counters zeroed
+    just before and read just after (no training step hands K2 bf16: the
+    waveforms stay float32 under bf16 compute)."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.losses.kd import spkd_loss
+
+    counters = _kernel_counters()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    s = (0.3 * torch.randn(TEACHER_BATCH, SPKD_SAMPLES, device="cuda", generator=g)).bfloat16()
+    t = (0.3 * torch.randn(TEACHER_BATCH, SPKD_SAMPLES, device="cuda", generator=g)).bfloat16()
+    s.requires_grad_(True)
+    _zero_counts(counters)
+    loss = spkd_loss(s, t)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = _counts(counters)
+    rec = {"entry": "losses.kd.spkd_loss (auto gate)", "B": TEACHER_BATCH, "D": SPKD_SAMPLES,
+           "loss": float(loss), "loss_dtype": str(loss.dtype), "grad_dtype": str(s.grad.dtype),
+           "finite": bool(torch.isfinite(loss)) and bool(torch.isfinite(s.grad.float()).all()),
+           "launches": launches}
+    want = {name: 1 if name == "gram_pair_fwd_bf16" else 0 for name in counters}
+    if launches != want or not rec["finite"] or s.grad.dtype != torch.bfloat16:
+        raise RuntimeError(f"spkd_loss on bf16 did not take the bf16 K2: {rec}")
+    return rec
+
+
+def phase_bf16_block_kernels_vs_plain() -> dict:
+    """Phase 20: the bf16 K5f and K5b against their plain bf16 versions at
+    the reference block (timed, with plain times and the bound) and at each
+    distinct block shape of the block-config step (the mask block among
+    them), their kernel times summed by blocks a step; the bf16 K2 at B = 32
+    and 64 x 528,000; and K2's bf16 entry path (``_bf16_spkd_entry``)."""
+    import torch
+
+    ref = _bf16_block_case(*BLOCK_REF, timed=True)
+    say("bf16_block_kernels_vs_plain", reference=True, **ref)
+    cases = [ref]
+    steps = []
+    for fuse, D, Cs, O in dict.fromkeys(STEP_BLOCKS):
+        rec = _bf16_block_case(fuse, TEACHER_BATCH, D, 2 if fuse else 1, 483, Cs, 64, O,
+                               timed=False)
+        rec["count"] = STEP_BLOCKS.count((fuse, D, Cs, O))
+        say("bf16_block_kernels_vs_plain", step_shape=True, **rec)
+        cases.append(rec)
+        steps.append(rec)
+        torch.cuda.empty_cache()
+    for rec in cases:
+        if not (rec["within"] and rec["fwd_bitwise_repeat"] and rec["bwd_bitwise_repeat"]):
+            raise RuntimeError(f"the bf16 abf_block kernels disagree with their plain versions: "
+                               f"{rec}")
+    per_step = {key: sum(r["count"] * r[key] for r in steps) for key in ("fwd_ms", "bwd_ms")}
+    say("bf16_block_kernels_vs_plain", step_sums_ms=per_step, blocks_a_step=len(STEP_BLOCKS))
+    grams = []
+    for shape in BF16_GRAM_CASES:
+        rec = _bf16_gram_case(*shape)
+        say("bf16_gram_vs_plain", **rec)
+        grams.append(rec)
+        torch.cuda.empty_cache()
+        if not (rec["rel_l2"] <= BF16_KERNEL_REL_L2 and rec["bitwise_repeat"]
+                and rec["symmetric"]):
+            raise RuntimeError(f"the bf16 gram_pair_fwd disagrees with its plain version: {rec}")
+    entry = _bf16_spkd_entry()
+    say("bf16_gram_entry", **entry)
+    return {"blocks": cases, "block_steps": steps, "block_step_sums": per_step,
+            "grams": grams, "gram_entry": entry}
+
+
+def phase_training_bf16_block(bf16_phase: dict, block: dict) -> dict:
+    """Phase 21: the block-config step on bf16 (``BF16_BLOCK_DISTILL``,
+    ``bf16_models``) at 32 x 3 s as phase 18 (launches per step: bf16 K5f
+    12, K5b 12, K1f 8, K1b 4) with its card-vs-CPU step (phase 18's bf16
+    holds), beside phase 18's bf16 default step and phase 11's float32 block
+    step; then ``bench.py``'s batch 64 with ``abf_remat`` and
+    ``spkd_bn2_fold`` (K5f 24)."""
+    models = bf16_models()
+    lstm = {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4}
+    b32 = _training("training_bf16_block", "clskd bf16 with abf_block_pallas",
+                    BF16_BLOCK_DISTILL, KERNEL_TRAIN_STEPS,
+                    {**lstm, "abf_block_fwd_bf16": 12, "abf_block_bwd_bf16": 12},
+                    rounding_floor=True, models=models,
+                    beside={"phase 18 (clskd bf16)": _beside("training_bf16", bf16_phase),
+                            "phase 11 (abf_block_pallas, float32)": _beside("training_block",
+                                                                            block)})
+    b64 = _training("training_bf16_block_bench", "clskd bf16 with abf_block_pallas, abf_remat "
+                    "and spkd_bn2_fold, batch 64 (bench.py --block-pallas --abf-remat "
+                    "--bn2-fold)", BF16_BENCH_DISTILL, KERNEL_TRAIN_STEPS,
+                    {**lstm, "abf_block_fwd_bf16": 24, "abf_block_bwd_bf16": 12},
+                    batch=BF16_BATCH, models=models,
+                    check=lambda: {"failures": [], "checked": "the block path at batch 32 "
+                                   "(training_bf16_block); remat and the fold bit for bit on "
+                                   "the CPU (tests)"})
+    return {"batch32": b32, "bench": b64}
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2336,7 +2677,10 @@ def main() -> None:
     bf16_conv_shapes, bf16_fuse_shapes = phase_bf16_kernels_vs_plain()
     bf16 = phase_training_bf16(training)
     bf16_teacher = phase_serving_teacher_bf16(teacher)
+    bf16_kernels_k5_k2 = phase_bf16_block_kernels_vs_plain()
+    bf16_block = phase_training_bf16_block(bf16["batch32"], block_training)
     bf16_paths = {f"training_bf16_{k}": bf16[k] for k in ("batch32", "batch64", "kernels")}
+    bf16_paths.update({f"training_bf16_block_{k}": r for k, r in bf16_block.items()})
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
     conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
@@ -2470,8 +2814,8 @@ def main() -> None:
         "bound_ms": gram_ref["bound_ms"],
         "bound_by": gram_ref["bound_by"],
         "library_ms": gram_ref["library_ms"],
-        "times": {k: gram_ref[k] for k in ("pass1_ms", "pass2_ms", "event_ms", "host_ms",
-                                           "l2_flushed")},
+        "times": {k: gram_ref[k] for k in ("timing", "calls_timed", "pass1_ms", "pass2_ms",
+                                           "event_ms", "host_ms", "l2_flushed")},
         "shape": {"B": spkd_batch, "Ds": SPKD_SAMPLES, "Dt": SPKD_SAMPLES},
         "per_shape": gram_shapes,
     })
@@ -2509,6 +2853,63 @@ def main() -> None:
             "shape": conv_shape if name.startswith("conv") else fuse_shape,
             "per_shape": cases,
         })
+    bf16_block_ref = bf16_kernels_k5_k2["blocks"][0]
+    for name, source, line, key in (("abf_block_fwd_bf16", "abf_block_fwd.cu", "abf_block.py:196",
+                                     "fwd"),
+                                    ("abf_block_bwd_bf16", "abf_block_bwd.cu", "abf_block.py:220",
+                                     "bwd")):
+        cases = bf16_kernels_k5_k2["blocks"]
+        outs = ("xf", "out") if key == "fwd" else ("g_tap", "g_res")
+        checks = [r["checks"][c] for r in cases for c in outs if c in r["checks"]]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + source,
+            "replaces": pallas + line,
+            "dtype": BF16,
+            "launches": sum(r["launches"][name] for r in bf16_block.values()),
+            "launches_by_path": {f"training_bf16_block_{k}": r["launches"][name]
+                                 for k, r in bf16_block.items()},
+            "max_abs_err": max(r[f"{key}_max_abs_err" if key == "fwd"
+                                 else "bwd_max_abs_err_g_tap_g_res"] for r in cases),
+            "bwd_max_rel_l2": (max(max(r["bwd_rel_l2"].values()) for r in cases)
+                               if key == "bwd" else None),
+            "ms": bf16_block_ref[f"{key}_ms"],
+            "plain_ms": bf16_block_ref[f"{key}_plain_ms"],
+            "bound_ms": bf16_block_ref[f"{key}_bound_ms"],
+            "bound_by": bf16_block_ref[f"{key}_bound_by"],
+            "library_ms": None,
+            "step_ms": bf16_kernels_k5_k2["block_step_sums"][f"{key}_ms"],
+            "routes": {r: sum(c["count"] for c in bf16_kernels_k5_k2["block_steps"]
+                              if c[f"{key}_route"] == r) for r in ("mma", "direct")},
+            "max_ulps": max(c["max_ulps"] for c in checks),
+            "share_differ": max(c["share_differ"] for c in checks),
+            "share_over_1ulp": max(c["share_over_1ulp"] for c in checks),
+            "shape": block_shape,
+            "per_shape": cases,
+        })
+    bf16_gram = bf16_kernels_k5_k2["grams"][0]
+    kernels.append({
+        "name": "gram_pair_fwd_bf16",
+        "route": "cuda",
+        "source": src + "gram_pair_fwd.cu",
+        "replaces": pallas + "gram.py:41",
+        "dtype": BF16,
+        "launches": bf16_kernels_k5_k2["gram_entry"]["launches"]["gram_pair_fwd_bf16"],
+        "launches_by_path": {"spkd_loss_bf16_entry": bf16_kernels_k5_k2["gram_entry"]["launches"][
+            "gram_pair_fwd_bf16"]},
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_kernels_k5_k2["grams"]),
+        "rel_l2": max(r["rel_l2"] for r in bf16_kernels_k5_k2["grams"]),
+        "ms": bf16_gram["ms"],
+        "plain_ms": bf16_gram["plain_ms"],
+        "bound_ms": bf16_gram["bound_ms"],
+        "bound_by": bf16_gram["bound_by"],
+        "library_ms": bf16_gram["library_ms"],
+        "times": {k: bf16_gram[k] for k in ("timing", "calls_timed", "pass1_ms", "pass2_ms",
+                                            "event_ms", "host_ms", "l2_flushed")},
+        "shape": {"B": bf16_gram["B"], "Ds": bf16_gram["Ds"], "Dt": bf16_gram["Dt"]},
+        "per_shape": bf16_kernels_k5_k2["grams"],
+    })
     for k in kernels:
         k["design"] = DESIGNS[k["name"]]
         if k["name"] == "conv3x3_fwd":  # bound_ms is 3xTF32's; f32 FMA's, and TF32 cuDNN

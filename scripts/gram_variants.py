@@ -48,8 +48,8 @@ VARIANTS = {
                "static constexpr int kPairs = NB % 2 == 0 ? NB / 2 : 0;"),
     # 256 columns a stage at B <= 32 (1 KB row copies, six stages), 128 at B = 64
     # (512-byte row copies, six stages), and a ring of half the shared memory
-    "b32_kt256": ("Plan<8, 4, 32, 512>>(3", "Plan<8, 4, 32, 256>>(3"),
-    "b64_kt128": ("Plan<8, 8, 8, 256>>(5", "Plan<8, 8, 8, 128>>(5"),
+    "b32_kt256": ("Plan<8, 4, 32, 512, E>>(p0 + 3", "Plan<8, 4, 32, 256, E>>(p0 + 3"),
+    "b64_kt128": ("Plan<8, 8, 8, 256, E>>(p0 + 5", "Plan<8, 8, 8, 128, E>>(p0 + 5"),
     "ring_100k": ("constexpr int kRingBudget = 200 * 1024;", "constexpr int kRingBudget = 100 * 1024;"),
     "no_dependent_launch": ("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;"),
     # pass 2: 256 chunks staged at a time (528,000 columns in two spans) and
@@ -60,10 +60,10 @@ VARIANTS = {
     # probes, not candidates (their Grams are wrong): no arithmetic (the copies
     # alone), and no copies (the arithmetic alone, on whatever the stages hold)
     "probe_no_compute": ("for (int gi = l; gi < groups; gi += L) {", "for (int gi = l; gi < 0; gi += L) {"),
-    "probe_no_copy": [("mbar_arrive_expect_tx(&full[slot], (uint32_t)(B * n * 4));",
+    "probe_no_copy": [("mbar_arrive_expect_tx(&full[slot], (uint32_t)(B * n * (int)sizeof(E)));",
                        "mbar_arrive(&full[slot]);"),
-                      ("for (int r = lane; r < B; r += 32) bulk_copy(",
-                       "for (int r = lane; r < 0; r += 32) bulk_copy(")],
+                      ("for (int r = lane; r < B; r += 32)\n          bulk_copy(",
+                       "for (int r = lane; r < 0; r += 32)\n          bulk_copy(")],
 }
 PROBES = {name for name in VARIANTS if name.startswith("probe_")}
 

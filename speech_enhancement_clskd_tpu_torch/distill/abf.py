@@ -33,7 +33,8 @@ A chain computes in its taps' dtype, as the JAX chain does: under bf16 taps
 the contractions and the blend run in bf16 with the float32 parameters cast
 to bf16 at each use, bn1's moments and the folded affines stay float32, BN
 normalizes in bf16 on float32 statistics, and the kernel paths take the bf16
-instantiations of K3 and K4 (the whole-block K5 has none yet and raises).
+instantiations of K3, K4 and K5 (the whole block's operands cast as the JAX
+block casts them: ``ABF._block``).
 
 Under ``remat`` each block runs inside ``torch.utils.checkpoint``, so its
 forward runs again in the backward, the kernels' forwards with it (K5f twice
@@ -294,18 +295,24 @@ class ABF(nn.Module):
         """``(raw conv2 output, xf)`` through ``kernels.abf_block``, with the
         kernel's folded weights formed here, in autograd, so the gradients
         reach conv1, bn1, att_conv and conv2: ``w1a = w1 * a``, ``wxt = w1a @
-        wx``, ``zoff = b @ wx + att bias`` and conv2's kernel as HWIO."""
+        wx``, ``zoff = b @ wx + att bias`` and conv2's kernel as HWIO.  As the
+        JAX block does, the residual, ``w1a``, ``wxt``, ``wy`` and the HWIO
+        kernel are cast to the tap's dtype (``wxt`` formed in float32 first),
+        and ``bvec = b`` and ``zoff`` stay float32; the gradients reach the
+        float32 parameters through the casts."""
+        dt = x.dtype
         a, b0 = aff
         w1a = w1 * a
-        w2 = self.conv2.kernel.permute(2, 3, 1, 0).contiguous()
+        w2 = self.conv2.kernel.permute(2, 3, 1, 0).to(dt).contiguous()
         if residual is None:
-            xf, out = abf_block(x.contiguous(), None, w1a, b0, None, None, None, w2)
+            xf, out = abf_block(x.contiguous(), None, w1a.to(dt), b0, None, None, None, w2)
             return out, xf
         c = self.mid_channels
         att = self.att_conv.kernel[0, 0]
         wx, wy = att[:c], att[c:]
-        xf, out = abf_block(x.contiguous(), residual.contiguous(), w1a, b0, w1a @ wx,
-                            wy.contiguous(), b0 @ wx + self.att_conv.bias, w2)
+        xf, out = abf_block(x.contiguous(), residual.to(dt).contiguous(), w1a.to(dt), b0,
+                            (w1a @ wx).to(dt), wy.to(dt).contiguous(),
+                            b0 @ wx + self.att_conv.bias, w2)
         return out, xf
 
 

@@ -1,17 +1,14 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
 version; the input checks their wrappers share (float32, or bfloat16 for
-the kernels with a bf16 instantiation, the others refusing it), and the
-measure that holds a bf16 kernel to its plain version (``bf16_check``)."""
+the kernels with a bf16 instantiation: K3f/K3w, K4f/K4b, K5f/K5b and K2;
+the LSTM kernels K1f/K1b take float32 alone), and the measure that holds a
+bf16 kernel to its plain version (``bf16_check``)."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
-
-
-# the item of ROADMAP queue 1 that ports the bf16 instantiations of K5f/K5b and K2
-BF16_ITEM = "bf16 K5f/K5b and K2 are ROADMAP queue 1 item 10"
 
 
 def check_tensors(named, device: torch.device, op: str,
@@ -39,15 +36,6 @@ def float_dtype(t: torch.Tensor, op: str) -> torch.dtype:
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{op} takes float32 or bfloat16 tensors, got {t.dtype}")
     return t.dtype
-
-
-def refuse_bf16(named, op: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item where a tensor
-    of ``named`` is bfloat16: the wrappers of kernels that have no bf16
-    instantiation yet (K5f/K5b, K2)."""
-    for name, t in named:
-        if t is not None and t.dtype == torch.bfloat16:
-            raise NotImplementedError(f"{op} on bfloat16 ({name}): {BF16_ITEM}")
 
 
 def _bf16_spacing(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

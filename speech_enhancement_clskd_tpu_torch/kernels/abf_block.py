@@ -26,10 +26,32 @@ residual (``y[:, d] = res[:, d // k]``, ``k = D / Dp``):
   back.  On a CPU tensor they run ``abf_block_reference`` and
   ``abf_block_bwd_reference``.  Their ``launches`` counters count calls that
   launched the kernels (K5f's xf pass and conv, K5b's adjoint, pixel pass,
-  reduction and dw2 passes count as one).
+  reduction and dw2 passes count as one; the bf16 instantiation in
+  ``launches_bf16``).
 
-Everything is float32; a bfloat16 input raises ``NotImplementedError`` (the
-bf16 instantiations are ROADMAP queue 1 item 10).  Each kernel takes one of two routes by shape
+The wrappers run in the tap's dtype, float32 or bfloat16 (``kernels.
+float_dtype``): the maps (tap, res, xf, the incoming gradients) and ``w1a``,
+``wxt``, ``wy``, ``w2`` in that dtype, ``bvec`` and ``zoff`` always float32, as
+``distill/abf.py`` hands them to the JAX kernel.  Outputs: ``xf`` and ``out``,
+``g_tap`` and ``g_res`` in the tap's dtype; the backward's parameter
+gradients float32 (their sums), which ``abf_block`` returns in the dtypes of
+their inputs, as the JAX VJP casts them (``dw1a``, ``dwxt``, ``dwy``, ``dw2``
+bf16 under bf16; ``dbvec``, ``dzoff`` float32).
+
+On bf16 the plain versions round where the Pallas bodies round on bf16
+operands (each dot multiplies bf16 by bf16 into float32 sums): the forward's
+``xhat = bf16(tap @ w1a + bvec)``, the logits and ``z`` float32, the blend
+``bf16(bf16(xhat * bf16(z0)) + bf16(y * bf16(z1)))`` (each product rounded
+before the add: measured bit for bit against ``abf_block(...,
+interpret=True)``, as the bf16 K4f's blend), the conv on bf16 ``xf`` and
+``w2`` rounded once.  The backward: ``dxf`` the float32 adjoint of bf16
+``g_out`` plus ``g_xf``; ``xhat`` recomputed and not rounded (the Pallas
+backward does not round it); ``z``, ``dp``, ``g_xhat`` and ``g_y`` float32;
+``g_tap = bf16(g_xhat) @ w1a^T + dp @ wxt^T`` and ``g_res`` rounded once;
+``dw1a`` from ``bf16(g_xhat)``, ``dwxt`` and ``dwy`` from ``bf16(dp)``, ``dbvec``
+and ``dzoff`` unrounded sums; ``dw2`` from bf16 ``xf`` and ``g_out``.
+
+In float32 each kernel takes one of two routes by shape
 (``abf_block_fwd_route``, ``abf_block_bwd_route``).  ``"mma"``: the 3x3 conv
 (K5f's over xf; K5b's adjoint over g_out, into a scratch ``dxf``) on K3f's
 tensor-core tile, f32 operands split into two TF32 parts each and three
@@ -37,7 +59,13 @@ products a pair ("3xTF32", within f32 rounding of an f32 sum).  ``"direct"``
 (K5f: O < 8 or M < 4, the decoder's mask block; K5b: O < 4 or M < 8): the
 conv in f32 FMA inside the kernel's own pass.  The 1x1 conv, the attention
 and their gradients are f32 FMA; K5b's dw2 is K3w's split-TF32 reduction
-(f32 FMA for O <= 8).
+(f32 FMA for O <= 8).  In bf16 the 3x3 convs run on the bf16 K3f's and K3w's
+code (``csrc/conv3x3_bf16.cuh``): K5f's xf pass, then the conv on the
+m16n8k16 bf16 tensor-core tile (route ``"mma"``, O >= 8 and M >= 8), or the
+direct kernel on bf16 loads (``"direct"``: the mask block); K5b's adjoint on
+the same tile into a float32 scratch ``dxf`` (``"mma"``, O >= 8 and M >= 8)
+or in the pixel pass (``"direct"``), the pass on bf16 loads in float32
+arithmetic, dw2 on the bf16 K3w's routes.
 """
 
 from __future__ import annotations
@@ -49,7 +77,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors, refuse_bf16
+from . import BLEND_REL, SUM_REL, _build, check_tensors, float_dtype, widened
 from .conv3x3 import conv3x3_reference, conv3x3_wgrad_reference
 
 FWD_SOURCE = "abf_block_fwd.cu"
@@ -85,46 +113,105 @@ def _flip(w2: torch.Tensor) -> torch.Tensor:
     return w2.flip(0, 1).transpose(2, 3).contiguous()
 
 
+def _rounding(dtype: torch.dtype):
+    """``x -> x`` rounded to ``dtype`` and read back in float32 (bf16), or
+    ``x`` itself (float32)."""
+    if dtype == torch.bfloat16:
+        return lambda x: x.to(dtype).float()
+    return lambda x: x
+
+
 def abf_block_reference(tap, res, w1a, bvec, wxt, wy, zoff, w2):
-    """Plain PyTorch: ``(xf, out)``, every intermediate in memory (the
-    composition of ``_ref_block`` in ``tests/test_pallas_abf_block.py``)."""
-    xf = tap @ w1a + bvec
+    """Plain PyTorch: ``(xf, out)`` in the tap's dtype, every intermediate in
+    memory (the composition of ``_ref_block`` in
+    ``tests/test_pallas_abf_block.py``), rounded where the Pallas body rounds
+    on bf16 operands (module docstring)."""
+    rnd = _rounding(tap.dtype)
+    tapw = widened(tap)
+    xf = rnd(tapw @ widened(w1a) + bvec)
     if res is not None:
-        y = _upscale(res, tap.shape[1])
-        z = torch.sigmoid(tap @ wxt + y @ wy + zoff)
-        xf = xf * z[..., 0:1] + y * z[..., 1:2]
+        y = _upscale(widened(res), tap.shape[1])
+        z = torch.sigmoid(tapw @ widened(wxt) + y @ widened(wy) + zoff)
+        xf = rnd(rnd(xf * rnd(z[..., 0:1])) + rnd(y * rnd(z[..., 1:2])))
+    xf = xf.to(tap.dtype)
     return xf, conv3x3_reference(xf, w2)
 
 
 def abf_block_bwd_reference(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
     """Plain PyTorch, the backward written out: ``(g_tap, g_res, dw1a, dbvec,
-    dwxt, dwy, dzoff, dw2)`` for the incoming ``gxf``/``gout``; without a
-    residual ``g_res``, ``dwxt``, ``dwy`` and ``dzoff`` are ``None``."""
+    dwxt, dwy, dzoff, dw2)`` for the incoming ``gxf``/``gout``, ``g_tap`` and
+    ``g_res`` in the tap's dtype and the parameter gradients float32, rounded
+    where the Pallas body rounds on bf16 operands (module docstring); without
+    a residual ``g_res``, ``dwxt``, ``dwy`` and ``dzoff`` are ``None``."""
     Cs, M = w1a.shape
-    dxf = gxf + conv3x3_reference(gout, _flip(w2))
+    dt = tap.dtype
+    rnd = _rounding(dt)
+    tapw, w1w = widened(tap), widened(w1a)
+    dxf = widened(gxf) + conv3x3_reference(widened(gout), _flip(widened(w2)))
     dw2 = conv3x3_wgrad_reference(xf, gout)
-    tap2 = tap.reshape(-1, Cs)
+    tap2 = tapw.reshape(-1, Cs)
     if res is None:
         g_xhat = dxf.reshape(-1, M)
-        gtap = (g_xhat @ w1a.T).reshape(tap.shape)
-        return gtap, None, tap2.T @ g_xhat, g_xhat.sum(0), None, None, None, dw2
+        gtap = (rnd(g_xhat) @ w1w.T).reshape(tap.shape).to(dt)
+        return gtap, None, tap2.T @ rnd(g_xhat), g_xhat.sum(0), None, None, None, dw2
     B, D, T, _ = tap.shape
     Dp = res.shape[1]
-    y = _upscale(res, D)
-    xhat = tap @ w1a + bvec
-    z = torch.sigmoid(tap @ wxt + y @ wy + zoff)
+    y = _upscale(widened(res), D)
+    wxw, wyw = widened(wxt), widened(wy)
+    xhat = tapw @ w1w + bvec
+    z = torch.sigmoid(tapw @ wxw + y @ wyw + zoff)
     dp = z * (1 - z) * torch.stack([(dxf * xhat).sum(-1), (dxf * y).sum(-1)], dim=-1)
     g_xhat = dxf * z[..., 0:1]
-    g_y = dxf * z[..., 1:2] + dp @ wy.T
-    gtap = g_xhat @ w1a.T + dp @ wxt.T
-    gres = g_y.reshape(B, Dp, D // Dp, T, M).sum(dim=2)
+    g_y = dxf * z[..., 1:2] + dp @ wyw.T
+    gtap = (rnd(g_xhat) @ w1w.T + dp @ wxw.T).to(dt)
+    gres = g_y.reshape(B, Dp, D // Dp, T, M).sum(dim=2).to(dt)
     g_xhat2, dp2 = g_xhat.reshape(-1, M), dp.reshape(-1, 2)
-    return (gtap, gres, tap2.T @ g_xhat2, g_xhat2.sum(0), tap2.T @ dp2,
-            y.reshape(-1, M).T @ dp2, dp2.sum(0), dw2)
+    return (gtap, gres, tap2.T @ rnd(g_xhat2), g_xhat2.sum(0), tap2.T @ rnd(dp2),
+            y.reshape(-1, M).T @ rnd(dp2), dp2.sum(0), dw2)
+
+
+def abf_block_bf16_scales(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout) -> dict:
+    """How far the bf16 kernels' map outputs may lie from the plain
+    versions' on the same inputs (``xf`` the kernel's, which both backward
+    passes take), for ``kernels.bf16_check(got, want, scale, rel)``: one bf16
+    spacing plus ``rel * scale``.  ``{name: (scale, rel)}`` for ``xf``,
+    ``out``, ``g_tap`` and ``g_res`` (``None`` without a residual), ``scale``
+    (float32) the sum of the magnitudes of the terms that form each element.
+    ``rel`` is ``SUM_REL`` where both sides sum float32 terms in another
+    order and round once (``out``; ``g_res``, from float32 ``dxf`` and
+    ``dp``), and ``BLEND_REL`` where a value rounded to bf16 inside the sum
+    may round the other way and carry one bf16 spacing through its product
+    (``xhat`` and ``z`` in ``xf``'s blend, as in K4f's; ``bf16(g_xhat)`` in
+    ``g_tap``)."""
+    absw = (lambda t: widened(t).abs())
+    D = tap.shape[1]
+    tapw, w1w = widened(tap), widened(w1a)
+    w1_abs = w1w.abs()
+    dot = tapw.abs() @ w1_abs + bvec.abs()
+    out_scale = conv3x3_reference(absw(xf), absw(w2))
+    dxf = absw(gxf) + conv3x3_reference(absw(gout), _flip(absw(w2)))
+    if res is None:
+        return {"xf": (dot, BLEND_REL), "out": (out_scale, SUM_REL),
+                "g_tap": (dxf @ w1_abs.T, BLEND_REL), "g_res": None}
+    y = _upscale(widened(res), D)
+    xhat = tapw @ w1w + bvec
+    z = torch.sigmoid(tapw @ widened(wxt) + y @ widened(wy) + zoff)
+    z0, z1 = z[..., 0:1], z[..., 1:2]
+    # dp's terms: dz's, through z (1 - z), whose float32 error is z's (1 - z
+    # cancels where z nears 1)
+    dp = z * torch.stack([(dxf * xhat.abs()).sum(-1), (dxf * y.abs()).sum(-1)], -1)
+    g_tap = (dxf * z0) @ w1_abs.T + dp @ absw(wxt).T
+    g_y = dxf * z1 + dp @ absw(wy).T
+    B, _, T, M = g_y.shape
+    g_res = g_y.reshape(B, res.shape[1], D // res.shape[1], T, M).sum(dim=2)
+    return {"xf": ((xhat.abs() + dot) * z0 + y.abs() * z1, BLEND_REL),
+            "out": (out_scale, SUM_REL), "g_tap": (g_tap, BLEND_REL), "g_res": (g_res, SUM_REL)}
 
 
 def _check_inputs(tap, res, w1a, bvec, wxt, wy, zoff, w2, op: str) -> Tuple[int, int, int]:
-    """Raise unless the inputs fit the kernels; ``(Cs, M, O)``."""
+    """Raise unless the inputs fit the kernels: the maps and weights in the
+    tap's dtype (float32 or bfloat16), ``bvec`` and ``zoff`` float32;
+    ``(Cs, M, O)``."""
     if tap.ndim != 4 or (res is not None and res.ndim != 4):
         raise ValueError(f"tap and res must be [B, D, T, C], got {tuple(tap.shape)}, "
                          f"{None if res is None else tuple(res.shape)}")
@@ -146,10 +233,10 @@ def _check_inputs(tap, res, w1a, bvec, wxt, wy, zoff, w2, op: str) -> Tuple[int,
         if t is None or tuple(t.shape) != want:
             raise ValueError(f"{name} must be {list(want)}, got "
                              f"{None if t is None else tuple(t.shape)}")
-    fused = (("res", res), ("wxt", wxt), ("wy", wy), ("zoff", zoff)) if res is not None else ()
-    refuse_bf16((("tap", tap), ("w1a", w1a), ("bvec", bvec), ("w2", w2)) + fused, op)
-    check_tensors((("tap", tap), ("w1a", w1a), ("bvec", bvec), ("w2", w2)) + fused, tap.device,
-                  op)
+    dtype = float_dtype(tap, op)
+    fused = (("res", res), ("wxt", wxt), ("wy", wy)) if res is not None else ()
+    check_tensors((("tap", tap), ("w1a", w1a), ("w2", w2)) + fused, tap.device, op, dtype)
+    check_tensors((("bvec", bvec), ("zoff", zoff if res is not None else None)), tap.device, op)
     return Cs, M, O
 
 
@@ -158,23 +245,27 @@ def _library(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if source == FWD_SOURCE:
-        lib.abf_block_fwd.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
-        lib.abf_block_fwd.restype = i32
-        lib.abf_block_fwd_route.argtypes = [i32] * 2
-        lib.abf_block_fwd_route.restype = i32
-        lib.abf_block_fwd_scratch_floats.argtypes = [i32] * 2
-        lib.abf_block_fwd_scratch_floats.restype = ctypes.c_long
+        for fn in (lib.abf_block_fwd, lib.abf_block_fwd_bf16):
+            fn.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+            fn.restype = i32
+        routes, sizes = ("abf_block_fwd_route", "abf_block_fwd_bf16_route"), (
+            "abf_block_fwd_scratch_floats", "abf_block_fwd_bf16_scratch_elems")
     else:
         lib.abf_block_bwd_blocks.argtypes = [i32] * 3
         lib.abf_block_bwd_blocks.restype = i32
         lib.abf_block_bwd_wgrad_chunks.argtypes = [i32] * 3
         lib.abf_block_bwd_wgrad_chunks.restype = i32
-        lib.abf_block_bwd.argtypes = [ptr] * 19 + [i32] * 9 + [ptr]
-        lib.abf_block_bwd.restype = i32
-        lib.abf_block_bwd_route.argtypes = [i32] * 2
-        lib.abf_block_bwd_route.restype = i32
-        lib.abf_block_bwd_split_floats.argtypes = [i32] * 2
-        lib.abf_block_bwd_split_floats.restype = ctypes.c_long
+        for fn in (lib.abf_block_bwd, lib.abf_block_bwd_bf16):
+            fn.argtypes = [ptr] * 19 + [i32] * 9 + [ptr]
+            fn.restype = i32
+        routes, sizes = ("abf_block_bwd_route", "abf_block_bwd_bf16_route"), (
+            "abf_block_bwd_split_floats", "abf_block_bwd_bf16_pack_elems")
+    for name in routes:
+        getattr(lib, name).argtypes = [i32] * 2
+        getattr(lib, name).restype = i32
+    for name in sizes:
+        getattr(lib, name).argtypes = [i32] * 2
+        getattr(lib, name).restype = ctypes.c_long
     return lib
 
 
@@ -190,8 +281,9 @@ def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(xf [B, D, T, M], out [B, D, T, O])``: the K5f kernel on CUDA
-    tensors (counted in ``abf_block_fwd.launches``), ``abf_block_reference``
+    """``(xf [B, D, T, M], out [B, D, T, O])`` in the tap's dtype: the K5f
+    kernel on CUDA tensors (counted in ``abf_block_fwd.launches``, the bf16
+    instantiation in ``abf_block_fwd.launches_bf16``), ``abf_block_reference``
     on CPU tensors."""
     Cs, M, O = _check_inputs(tap, res, w1a, bvec, wxt, wy, zoff, w2, "abf_block")
     if tap.device.type == "cpu":
@@ -200,60 +292,78 @@ def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor,
         wxt = wy = zoff = None
     tap, res = _aligned(tap), _aligned(res)
     B, D, T, _ = tap.shape
+    dt = tap.dtype
+    bf16 = dt == torch.bfloat16
     lib = _library(FWD_SOURCE)
-    xf = torch.empty(B, D, T, M, device=tap.device, dtype=torch.float32)
-    out = torch.empty(B, D, T, O, device=tap.device, dtype=torch.float32)
-    # route "mma": w2 split into TF32 parts, in the tensor-core tile's layout
-    n_split = lib.abf_block_fwd_scratch_floats(M, O)
-    split = torch.empty(n_split, device=tap.device, dtype=torch.float32) if n_split else None
+    xf = torch.empty(B, D, T, M, device=tap.device, dtype=dt)
+    out = torch.empty(B, D, T, O, device=tap.device, dtype=dt)
+    # route "mma": w2 split into TF32 parts (float32) or packed (bf16), in the
+    # tensor-core tile's layout
+    n_scratch = (lib.abf_block_fwd_bf16_scratch_elems if bf16
+                 else lib.abf_block_fwd_scratch_floats)(M, O)
+    scratch = torch.empty(n_scratch, device=tap.device, dtype=dt) if n_scratch else None
     with torch.cuda.device(tap.device):
-        err = lib.abf_block_fwd(
+        err = (lib.abf_block_fwd_bf16 if bf16 else lib.abf_block_fwd)(
             tap.data_ptr(), _ptr(res), w1a.data_ptr(), bvec.data_ptr(), _ptr(wxt), _ptr(wy),
-            _ptr(zoff), w2.data_ptr(), _ptr(split), xf.data_ptr(), out.data_ptr(), B, D,
+            _ptr(zoff), w2.data_ptr(), _ptr(scratch), xf.data_ptr(), out.data_ptr(), B, D,
             D if res is None else res.shape[1], T, Cs, M, O,
             torch.cuda.current_stream(tap.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"abf_block_fwd launch failed: CUDA error {err}")
-    abf_block_fwd.launches += 1
+        raise RuntimeError(f"abf_block_fwd launch failed ({dt}): CUDA error {err}")
+    if bf16:
+        abf_block_fwd.launches_bf16 += 1
+    else:
+        abf_block_fwd.launches += 1
     return xf, out
 
 
 abf_block_fwd.launches = 0
+abf_block_fwd.launches_bf16 = 0
 
 ROUTES = ("direct", "mma")
 
 
-def abf_block_fwd_route(M: int, O: int) -> str:
-    """The route K5f takes for M mid and O output channels, as its C entry
-    chooses it: ``"mma"`` (xf pass, then the conv on K3f's tensor-core tile)
-    or ``"direct"`` (xf and the conv in one f32 FMA pass).  Asks the built
-    library, so it needs the CUDA toolkit."""
-    return ROUTES[_library(FWD_SOURCE).abf_block_fwd_route(M, O)]
+def abf_block_fwd_route(M: int, O: int, dtype: torch.dtype = torch.float32) -> str:
+    """The route K5f takes for M mid and O output channels in ``dtype``, as
+    its C entry chooses it: ``"mma"`` (xf pass, then the conv on K3f's
+    tensor-core tile, split TF32 or bf16) or ``"direct"`` (xf and the conv in
+    one f32 FMA pass).  Asks the built library, so it needs the CUDA
+    toolkit."""
+    lib = _library(FWD_SOURCE)
+    if dtype == torch.bfloat16:
+        return ROUTES[lib.abf_block_fwd_bf16_route(M, O)]
+    return ROUTES[lib.abf_block_fwd_route(M, O)]
 
 
-def abf_block_bwd_route(M: int, O: int) -> str:
-    """The route of K5b's conv adjoint for M mid and O output channels, as its
-    C entry chooses it: ``"mma"`` (K3f's tensor-core tile into a scratch dxf)
-    or ``"direct"`` (formed in the pixel pass, f32 FMA).  Asks the built
-    library, so it needs the CUDA toolkit."""
-    return ROUTES[_library(BWD_SOURCE).abf_block_bwd_route(M, O)]
+def abf_block_bwd_route(M: int, O: int, dtype: torch.dtype = torch.float32) -> str:
+    """The route of K5b's conv adjoint for M mid and O output channels in
+    ``dtype``, as its C entry chooses it: ``"mma"`` (K3f's tensor-core tile,
+    split TF32 or bf16, into a scratch dxf) or ``"direct"`` (formed in the
+    pixel pass, f32 FMA).  Asks the built library, so it needs the CUDA
+    toolkit."""
+    lib = _library(BWD_SOURCE)
+    if dtype == torch.bfloat16:
+        return ROUTES[lib.abf_block_bwd_bf16_route(M, O)]
+    return ROUTES[lib.abf_block_bwd_route(M, O)]
 
 
 def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
     """``(g_tap, g_res, dw1a [Cs, M], dbvec [M], dwxt [Cs, 2], dwy [M, 2],
     dzoff [2], dw2 [3, 3, M, O])`` for the incoming ``gxf [B, D, T, M]`` and
     ``gout [B, D, T, O]``, from the forward's inputs and its ``xf`` (without
-    a residual ``g_res``, ``dwxt``, ``dwy`` and ``dzoff`` are ``None``): the
-    K5b kernel on CUDA tensors (counted in ``abf_block_bwd.launches``; the
-    parameter gradients are per-block partials added in a fixed order, so
-    repeated runs give the same bits), ``abf_block_bwd_reference`` on CPU
-    tensors."""
+    a residual ``g_res``, ``dwxt``, ``dwy`` and ``dzoff`` are ``None``);
+    ``g_tap`` and ``g_res`` in the tap's dtype, the parameter gradients
+    float32: the K5b kernel on CUDA tensors (counted in
+    ``abf_block_bwd.launches``, the bf16 instantiation in
+    ``abf_block_bwd.launches_bf16``; the parameter gradients are per-block
+    partials added in a fixed order, so repeated runs give the same bits),
+    ``abf_block_bwd_reference`` on CPU tensors."""
     Cs, M, O = _check_inputs(tap, res, w1a, bvec, wxt, wy, zoff, w2, "abf_block")
     B, D, T, _ = tap.shape
     for name, t, c in (("xf", xf, M), ("gxf", gxf, M), ("gout", gout, O)):
         if tuple(t.shape) != (B, D, T, c):
             raise ValueError(f"{name} must be [{B}, {D}, {T}, {c}], got {tuple(t.shape)}")
-    check_tensors((("xf", xf), ("gxf", gxf), ("gout", gout)), tap.device, "abf_block")
+    check_tensors((("xf", xf), ("gxf", gxf), ("gout", gout)), tap.device, "abf_block", tap.dtype)
     if tap.device.type == "cpu":
         return abf_block_bwd_reference(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout)
     fuse = res is not None
@@ -261,14 +371,17 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
         wxt = wy = zoff = None
     tap, res, xf, gxf, gout = (_aligned(t) for t in (tap, res, xf, gxf, gout))
     Dp = res.shape[1] if fuse else D
+    dt = tap.dtype
+    bf16 = dt == torch.bfloat16
     lib = _library(BWD_SOURCE)
     blocks = lib.abf_block_bwd_blocks(B, Dp, T)
     chunks = lib.abf_block_bwd_wgrad_chunks(M, O, B * D)
     dev = tap.device
-    # route "mma": the adjoint (with g_xf added) goes through a scratch dxf,
-    # and w2f split into TF32 parts
-    n_split = lib.abf_block_bwd_split_floats(M, O)
-    split = torch.empty(n_split, device=dev, dtype=torch.float32) if n_split else None
+    # route "mma": the adjoint (with g_xf added) goes through a float32
+    # scratch dxf, and w2f split into TF32 parts (float32) or packed (bf16)
+    n_split = (lib.abf_block_bwd_bf16_pack_elems if bf16
+               else lib.abf_block_bwd_split_floats)(M, O)
+    split = torch.empty(n_split, device=dev, dtype=dt) if n_split else None
     dxf = torch.empty(B, D, T, M, device=dev, dtype=torch.float32) if n_split else None
     n = Cs * M + 3 * M + 2 * Cs + 2
     gtap = torch.empty_like(tap)
@@ -279,15 +392,18 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
     wscratch = torch.empty(chunks, 9 * M * O, device=dev, dtype=torch.float32)
     w2f = _flip(w2)
     with torch.cuda.device(dev):
-        err = lib.abf_block_bwd(
+        err = (lib.abf_block_bwd_bf16 if bf16 else lib.abf_block_bwd)(
             tap.data_ptr(), _ptr(res), w1a.data_ptr(), bvec.data_ptr(), _ptr(wxt), _ptr(wy),
             _ptr(zoff), w2f.data_ptr(), xf.data_ptr(), gxf.data_ptr(), gout.data_ptr(),
             gtap.data_ptr(), _ptr(gres), grads.data_ptr(), partial.data_ptr(), dw2.data_ptr(),
             wscratch.data_ptr(), _ptr(dxf), _ptr(split), B, D, Dp, T, Cs, M, O, blocks, chunks,
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"abf_block_bwd launch failed: CUDA error {err}")
-    abf_block_bwd.launches += 1
+        raise RuntimeError(f"abf_block_bwd launch failed ({dt}): CUDA error {err}")
+    if bf16:
+        abf_block_bwd.launches_bf16 += 1
+    else:
+        abf_block_bwd.launches += 1
     dw1a = grads[:Cs * M].view(Cs, M)
     dbvec = grads[Cs * M:Cs * M + M]
     if not fuse:
@@ -298,6 +414,7 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
 
 
 abf_block_bwd.launches = 0
+abf_block_bwd.launches_bf16 = 0
 
 
 class _ABFBlock(torch.autograd.Function):
@@ -311,7 +428,12 @@ class _ABFBlock(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gxf, gout):
         # an unused xf (the last block's) comes back as a materialized zero
-        return abf_block_bwd(*ctx.saved_tensors, gxf.contiguous(), gout.contiguous())
+        saved = ctx.saved_tensors
+        grads = abf_block_bwd(*saved, gxf.contiguous(), gout.contiguous())
+        # the parameter gradients' float32 sums in their inputs' dtypes, as
+        # the JAX VJP casts them
+        return tuple(g if g is None or x is None else g.to(x.dtype)
+                     for g, x in zip(grads, saved[:8]))
 
 
 def abf_block(tap: torch.Tensor, res: Optional[torch.Tensor], w1a: torch.Tensor,

@@ -70,6 +70,20 @@
 // The 1x1 conv's products and the blend are f32 FMA.  Every split depends
 // only on the shape, so every run gives the same bits.  Offsets are 64-bit.
 //
+// The bf16 instantiation (abf_block_bwd_bf16) takes the maps and w1a, wxt, wy,
+// w2f in bf16 (bvec, zoff float32) and writes g_tap and g_res in bf16, the
+// parameter gradients in float32.  It rounds where the Pallas body rounds on
+// bf16 operands (abf_block.py:255-343): dxf is the float32 adjoint plus g_xf;
+// xhat is recomputed and not rounded; z, dp, g_xhat and g_y are float32;
+// g_tap's product and dw1a take g_xhat rounded to bf16, dwxt and dwy dp
+// rounded to bf16; dbvec and dzoff sum them unrounded.  The adjoint runs on
+// the bf16 K3f's tile (conv3x3_bf16.cuh, route "mma" for O >= 8 and M >= 8)
+// with g_xf added in its epilogue into the float32 dxf scratch, or in the
+// pass ("direct"); the pass loads bf16 and computes in float32 in the same
+// order as the float32 pass; dw2 runs on the bf16 K3w's routes from the bf16
+// xf and g_out, its chunks' partials added in chunk order.  Bound at the
+// reference block: the bytes, ~570 MB (0.170 ms).
+//
 // Interface: plain C, bound with ctypes.  res == NULL means no fuse (wxt, wy,
 // zoff, g_res are then not touched, and the dwxt/dwy/dzoff slots come out 0).
 // abf_block_bwd_blocks(B, Dp, T) gives the pass's block count (pass Dp = D
@@ -79,10 +93,15 @@
 // allocates g_tap, g_res, grads [Cs*M + 3M + 2Cs + 2], dw2 [3, 3, M, O], the
 // partials (blocks x the grads' length), the dw2 scratch (chunks * 9 * M * O)
 // and, on route "mma", dxf [B, D, T, M] and the split weights (16-byte
-// aligned).  The return value is cudaGetLastError() after each launch.
+// aligned).  The return value is cudaGetLastError() after each launch.  The
+// bf16 entries: abf_block_bwd_bf16 (the same arguments; the packed weights of
+// abf_block_bwd_bf16_pack_elems(M, O) bf16 in the split weights' place) and
+// abf_block_bwd_bf16_route(M, O).
 
 #include <cuda_runtime.h>
 
+#include "bf16_io.cuh"
+#include "conv3x3_bf16.cuh"
 #include "conv3x3_mma.cuh"
 #include "conv3x3_tiles.cuh"
 
@@ -116,55 +135,74 @@ constexpr int kSmemMma = kGs * 4;                          // 105,216
 // of a pixel row computes its 4 pixels' gates, so this sits on the pass's path)
 __device__ __forceinline__ float sigmoid_f32(float x) { return __fdividef(1.0f, 1.0f + __expf(-x)); }
 
-// p[m0 .. m0 + 3], zeros at and past M (VEC: one float4; p + m0 16-byte aligned)
-__device__ __forceinline__ float4 load4(const float* p, int m0, int M, bool vec) {
+using bf16_io::bf16;
+using bf16_io::ld1;
+using bf16_io::ld4;
+using bf16_io::round_to;
+using bf16_io::st1;
+using bf16_io::st4;
+
+// p[m0 .. m0 + 3] as floats, zeros at and past M (VEC: one 4-wide load; p +
+// m0 aligned to 4 elements)
+template <class E>
+__device__ __forceinline__ float4 load4(const E* p, int m0, int M, bool vec) {
   if (m0 >= M) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (vec) return __ldg(reinterpret_cast<const float4*>(p + m0));
-  return make_float4(__ldg(p + m0), m0 + 1 < M ? __ldg(p + m0 + 1) : 0.0f,
-                     m0 + 2 < M ? __ldg(p + m0 + 2) : 0.0f, m0 + 3 < M ? __ldg(p + m0 + 3) : 0.0f);
+  if (vec) return ld4(p + m0);
+  return make_float4(ld1(p + m0), m0 + 1 < M ? ld1(p + m0 + 1) : 0.0f,
+                     m0 + 2 < M ? ld1(p + m0 + 2) : 0.0f, m0 + 3 < M ? ld1(p + m0 + 3) : 0.0f);
 }
 
-__device__ __forceinline__ void store4(float* p, int m0, int M, bool vec, float4 v) {
+template <class E>
+__device__ __forceinline__ void store4(E* p, int m0, int M, bool vec, float4 v) {
   if (m0 >= M) return;
   if (vec) {
-    *reinterpret_cast<float4*>(p + m0) = v;
+    st4(p + m0, v);
     return;
   }
-  p[m0] = v.x;
-  if (m0 + 1 < M) p[m0 + 1] = v.y;
-  if (m0 + 2 < M) p[m0 + 2] = v.z;
-  if (m0 + 3 < M) p[m0 + 3] = v.w;
+  st1(p + m0, v.x);
+  if (m0 + 1 < M) st1(p + m0 + 1, v.y);
+  if (m0 + 2 < M) st1(p + m0 + 2, v.z);
+  if (m0 + 3 < M) st1(p + m0 + 3, v.w);
 }
 
+// E: the maps' and the weights' element type (bvec, zoff, dxf and the
+// partials are float32 either way)
+template <class E>
 struct Args {
-  const float* tap;
-  const float* res;
-  const float* w1a;
+  const E* tap;
+  const E* res;
+  const E* w1a;
   const float* bvec;
-  const float* wxt;
-  const float* wy;
+  const E* wxt;
+  const E* wy;
   const float* zoff;
-  const float* w2f;
-  const float* gxf;
-  const float* gout;
+  const E* w2f;
+  const E* gxf;
+  const E* gout;
   const float* dxf;  // route "mma": the adjoint with g_xf added
-  float* gtap;
-  float* gres;
+  E* gtap;
+  E* gres;
   float* partial;
   long items, items_per_block;
   int D, k, T, Cs, M, O;
 };
 
 // ws[k][o][m] = w2f[k, o0 + o, m] (zeros past O and M)
-__device__ __forceinline__ void stage_w2f(float* ws, const Args& a, int o0) {
+template <class E>
+__device__ __forceinline__ void stage_w2f(float* ws, const Args<E>& a, int o0) {
   for (int e = threadIdx.x; e < 9 * kOCh * kMaxM; e += kThreads) {
     const int m = e % kMaxM, o = (e / kMaxM) % kOCh, kk = e / (kMaxM * kOCh);
-    ws[e] = (o0 + o < a.O && m < a.M) ? __ldg(a.w2f + ((long)kk * a.O + o0 + o) * a.M + m) : 0.0f;
+    ws[e] = (o0 + o < a.O && m < a.M) ? ld1(a.w2f + ((long)kk * a.O + o0 + o) * a.M + m) : 0.0f;
   }
 }
 
-template <bool DIRECT>
-__global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a) {
+// E = bf16: the Pallas body's roundings on bf16 operands.  xhat, z, dp,
+// g_xhat and g_y are float32 (xhat is not rounded here, where the forward
+// rounds it); g_tap's product and dw1a take g_xhat rounded to bf16, dwxt and
+// dwy dp rounded to bf16; dbvec and dzoff sum them unrounded; g_tap and g_res
+// are stored rounded to bf16.
+template <bool DIRECT, class E>
+__global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args<E> a) {
   extern __shared__ __align__(16) float smem[];
   float* w1s = smem + kW1;
   float* taps = smem + kTaps;
@@ -203,13 +241,13 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a)
 
   for (int e = tid; e < kMaxCs * kLd; e += kThreads) {
     const int c = e / kLd, m = e % kLd;
-    w1s[e] = (c < Cs && m < M) ? __ldg(a.w1a + (long)c * M + m) : 0.0f;
+    w1s[e] = (c < Cs && m < M) ? ld1(a.w1a + (long)c * M + m) : 0.0f;
   }
   for (int e = tid; e < kMaxM; e += kThreads) smem[kBv + e] = e < M ? __ldg(a.bvec + e) : 0.0f;
   for (int e = tid; e < 2 * kMaxCs; e += kThreads)
-    smem[kWx + e] = (fuse && e < 2 * Cs) ? __ldg(a.wxt + e) : 0.0f;
+    smem[kWx + e] = (fuse && e < 2 * Cs) ? ld1(a.wxt + e) : 0.0f;
   for (int e = tid; e < 2 * kMaxM; e += kThreads)
-    smem[kWy + e] = (fuse && e < 2 * M) ? __ldg(a.wy + e) : 0.0f;
+    smem[kWy + e] = (fuse && e < 2 * M) ? ld1(a.wy + e) : 0.0f;
   if (DIRECT && O <= kOCh) stage_w2f(ws, a, 0);  // one stage holds all of w2f
   __syncthreads();
   const float zo0 = fuse ? __ldg(a.zoff) : 0.0f, zo1 = fuse ? __ldg(a.zoff + 1) : 0.0f;
@@ -258,13 +296,12 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a)
           for (int e = tid; e < kBM * Cs / 4; e += kThreads) {
             const int p = 4 * e / Cs, c = 4 * e - p * Cs;
             *reinterpret_cast<float4*>(taps + p * kLd + c) =
-                4 * e < n ? __ldg(reinterpret_cast<const float4*>(a.tap + tbase) + e)
-                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                4 * e < n ? ld4(a.tap + tbase + 4 * e) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           }
         } else {
           for (int e = tid; e < kBM * 4 * cq4; e += kThreads) {
             const int p = e / (4 * cq4), c = e - p * 4 * cq4, f = p * Cs + c;
-            taps[p * kLd + c] = (c < Cs && f < n) ? __ldg(a.tap + tbase + f) : 0.0f;
+            taps[p * kLd + c] = (c < Cs && f < n) ? ld1(a.tap + tbase + f) : 0.0f;
           }
         }
       }
@@ -281,7 +318,7 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a)
             const int o = e % kOCh, j = (e / kOCh) % (kBM + 2), rr = e / (kOCh * (kBM + 2));
             const int dr = d + rr - 1, t = t0 + j - 1, oc = o0 + o;
             gs[e] = (dr >= 0 && dr < D && t >= 0 && t < T && oc < O)
-                        ? __ldg(a.gout + ((bd + rr - 1) * T + t) * (long)O + oc)
+                        ? ld1(a.gout + ((bd + rr - 1) * T + t) * (long)O + oc)
                         : 0.0f;
           }
           if (O > kOCh) stage_w2f(ws, a, o0);
@@ -405,26 +442,28 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a)
           float gx[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            gx[j] = dx[i][j] * z0;
-            sb[j] += gx[j];
+            const float v = dx[i][j] * z0;
+            sb[j] += v;
+            gx[j] = round_to<E>(v);
           }
           *reinterpret_cast<float4*>(gxs + p * kLd + m0) = make_float4(gx[0], gx[1], gx[2], gx[3]);
           if (fuse) {
+            const float dr0 = round_to<E>(dp0[i]), dr1 = round_to<E>(dp1[i]);
             const float4 gy4 = *reinterpret_cast<const float4*>(gys + p * kLd + m0);
             float gy[4] = {gy4.x, gy4.y, gy4.z, gy4.w};
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               gy[j] += fmaf(dp1[i], wys[2 * (m0 + j) + 1], fmaf(dp0[i], wys[2 * (m0 + j)], dx[i][j] * z1));
-              sy[j][0] = fmaf(y[j], dp0[i], sy[j][0]);
-              sy[j][1] = fmaf(y[j], dp1[i], sy[j][1]);
+              sy[j][0] = fmaf(y[j], dr0, sy[j][0]);
+              sy[j][1] = fmaf(y[j], dr1, sy[j][1]);
             }
             *reinterpret_cast<float4*>(gys + p * kLd + m0) = make_float4(gy[0], gy[1], gy[2], gy[3]);
 #pragma unroll
             for (int cc = 0; cc < 4; ++cc) {
               const int c = lo + 16 * cc;
               const float x = c < Cs ? taps[p * kLd + c] : 0.0f;
-              sx[cc][0] = fmaf(x, dp0[i], sx[cc][0]);
-              sx[cc][1] = fmaf(x, dp1[i], sx[cc][1]);
+              sx[cc][0] = fmaf(x, dr0, sx[cc][0]);
+              sx[cc][1] = fmaf(x, dr1, sx[cc][1]);
             }
             sz[0] += dp0[i];
             sz[1] += dp1[i];
@@ -473,7 +512,7 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a)
             if ((4 * i + e) % nsp != sp_g || t >= T || c >= Cs) continue;
             float v = ga[i][e];
             if (fuse) v = fmaf(zdp[2 * p + 1], wxs[2 * c + 1], fmaf(zdp[2 * p], wxs[2 * c], v));
-            a.gtap[(bd * T + t) * (long)Cs + c] = v;
+            st1(a.gtap + (bd * T + t) * (long)Cs + c, v);
           }
         }
       }
@@ -563,14 +602,14 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_bwd_pass_kernel(Args a)
 
 long work_items(int B, int Dp, int T) { return (long)B * Dp * ((T + kBM - 1) / kBM); }
 
-template <bool DIRECT>
-cudaError_t launch_pass(const Args& a, int blocks, cudaStream_t stream) {
+template <bool DIRECT, class E>
+cudaError_t launch_pass(const Args<E>& a, int blocks, cudaStream_t stream) {
   constexpr int kSmem = DIRECT ? kSmemDirect : kSmemMma;
   // above 48 KB needs the opt-in: set on every call
-  const cudaError_t err = cudaFuncSetAttribute(abf_block_bwd_pass_kernel<DIRECT>,
+  const cudaError_t err = cudaFuncSetAttribute(abf_block_bwd_pass_kernel<DIRECT, E>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
-  abf_block_bwd_pass_kernel<DIRECT><<<blocks, kThreads, kSmem, stream>>>(a);
+  abf_block_bwd_pass_kernel<DIRECT, E><<<blocks, kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -610,7 +649,7 @@ extern "C" int abf_block_bwd(const void* tap, const void* res, const void* w1a, 
   const long items = work_items(B, Dp, T);
   if (blocks > items) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Args a{static_cast<const float*>(tap), static_cast<const float*>(res),
+  Args<float> a{static_cast<const float*>(tap), static_cast<const float*>(res),
          static_cast<const float*>(w1a), static_cast<const float*>(bvec),
          static_cast<const float*>(wxt), static_cast<const float*>(wy),
          static_cast<const float*>(zoff), static_cast<const float*>(w2f),
@@ -634,4 +673,60 @@ extern "C" int abf_block_bwd(const void* tap, const void* res, const void* w1a, 
   return (int)conv3x3_tiles::wgrad_run(static_cast<const float*>(xf), a.gout,
                                        static_cast<float*>(dw2), static_cast<float*>(wscratch),
                                        B, D, T, M, O, chunks, s);
+}
+
+// The bf16 instantiation: tap, res, w1a, wxt, wy, w2f, xf, g_xf, g_out,
+// g_tap and g_res in bf16; bvec, zoff, grads, the partials, dw2 and dxf
+// float32.  The adjoint takes the bf16 K3f's routes (conv3x3_bf16.cuh's test
+// with O input and M output channels): "mma" (O >= 8 and M >= 8) on its
+// m16n8k16 tile through the packed weights' scratch of
+// abf_block_bwd_bf16_pack_elems(M, O) bf16, with g_xf added in its epilogue
+// into the float32 dxf; else formed in the pass (f32 FMA on the widened
+// values).  dw2 runs on the bf16 K3w's code over the bf16 xf and g_out.
+extern "C" int abf_block_bwd_bf16_route(int M, int O) { return conv3x3_bf16::fwd_route(O, M); }
+
+extern "C" long abf_block_bwd_bf16_pack_elems(int M, int O) {
+  return conv3x3_bf16::fwd_scratch_elems(O, M);
+}
+
+extern "C" int abf_block_bwd_bf16(const void* tap, const void* res, const void* w1a,
+                                  const void* bvec, const void* wxt, const void* wy,
+                                  const void* zoff, const void* w2f, const void* xf,
+                                  const void* gxf, const void* gout, void* gtap, void* gres,
+                                  void* grads, void* partial, void* dw2, void* wscratch, void* dxf,
+                                  void* wpack, int B, int D, int Dp, int T, int Cs, int M, int O,
+                                  int blocks, int chunks, void* stream) {
+  const bool fuse = res != nullptr;
+  const bool mma = conv3x3_bf16::fwd_route(O, M) == 1;
+  if (B < 1 || D < 1 || Dp < 1 || D % Dp || (!fuse && Dp != D) || T < 1 || Cs < 1 ||
+      Cs > kMaxCs || M < 1 || M > kMaxM || O < 1 || blocks < 1 ||
+      (fuse && (!wxt || !wy || !zoff || !gres)) || (mma && (!dxf || !wpack)))
+    return (int)cudaErrorInvalidValue;
+  const long items = work_items(B, Dp, T);
+  if (blocks > items) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Args<bf16> a{static_cast<const bf16*>(tap), static_cast<const bf16*>(res),
+               static_cast<const bf16*>(w1a), static_cast<const float*>(bvec),
+               static_cast<const bf16*>(wxt), static_cast<const bf16*>(wy),
+               static_cast<const float*>(zoff), static_cast<const bf16*>(w2f),
+               static_cast<const bf16*>(gxf), static_cast<const bf16*>(gout),
+               static_cast<const float*>(dxf), static_cast<bf16*>(gtap), static_cast<bf16*>(gres),
+               static_cast<float*>(partial), items, (items + blocks - 1) / blocks, D, D / Dp, T, Cs,
+               M, O};
+  cudaError_t err;
+  if (mma) {
+    err = conv3x3_bf16::fwd_run<true>(a.gout, a.w2f, static_cast<bf16*>(wpack), a.gxf, dxf, B, D,
+                                      T, O, M, s);
+    if (err != cudaSuccess) return (int)err;
+    err = launch_pass<false>(a, blocks, s);
+  } else {
+    err = launch_pass<true>(a, blocks, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  err = conv3x3_tiles::reduce_partials(a.partial, static_cast<float*>(grads), blocks,
+                                       (long)Cs * M + 3 * M + 2 * Cs + 2, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)conv3x3_bf16::wgrad_run(static_cast<const bf16*>(xf), a.gout,
+                                      static_cast<float*>(dw2), static_cast<float*>(wscratch), B,
+                                      D, T, M, O, chunks, s);
 }

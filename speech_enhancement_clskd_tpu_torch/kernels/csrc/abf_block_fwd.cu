@@ -60,17 +60,41 @@
 // every run gives the same bits.  The residual's row is indexed by d / k
 // directly.  Offsets are 64-bit (the mask block's xf has 253 M elements).
 //
+// The bf16 instantiation (abf_block_fwd_bf16: the Pallas kernel on bf16
+// operands, as distill/abf.py hands them over under distill.taps_dtype =
+// bfloat16) takes tap, res, w1a, wxt, wy and w2 in bf16 and bvec and zoff in
+// float32, and writes xf and out in bf16.  It rounds where the Pallas body
+// rounds (abf_block.py:159-178, :216): xhat = bf16(tap . w1a + bvec) (the dot
+// summed from zero, bvec added after), z in float32 rounded to bf16 for the
+// blend, each product of the blend and their sum rounded to bf16, and out
+// rounded once from float32 sums.  The widened weights and maps live in
+// shared memory as float32, every product of two bf16 values is exact in
+// float32, and the sums run in the same fixed orders.  Its routes follow the
+// bf16 tile (conv3x3_bf16.cuh, O >= 8 and M >= 8): "mma" is the xf pass, then
+// the conv on the bf16 K3f's m16n8k16 tensor-core tile (a fresh float32
+// accumulator per 16-channel chunk); "direct" (the mask block, or M < 8) is
+// abf_block_direct_kernel on bf16, whose rows are loaded and widened by the
+// threads (cp.async does not widen), so they are not in flight under the
+// previous row's work.  Bound at the reference block: the bytes, half the
+// f32 ones (tap 31.7 MB + res 63.3 MB read, xf and out 126.6 MB written:
+// 0.104 ms), above the 75.5 GFLOP at the bf16 tensor-core peak (0.076 ms).
+//
 // Interface: plain C, bound with ctypes.  Pointers and the stream are passed
 // as void*; res == NULL means no fuse (wxt, wy, zoff are then not read).  The
 // return value is cudaGetLastError() after the launches.  The caller
 // allocates xf [B, D, T, M], out [B, D, T, O] and, on route "mma", the split
 // weights' scratch of abf_block_fwd_scratch_floats(M, O) floats (16-byte
-// aligned); abf_block_fwd_route(M, O) names the route: 0 direct, 1 mma.
+// aligned); abf_block_fwd_route(M, O) names the route: 0 direct, 1 mma.  The
+// bf16 entries: abf_block_fwd_bf16 (the same arguments, the packed weights'
+// scratch abf_block_fwd_bf16_scratch_elems(M, O) bf16) and
+// abf_block_fwd_bf16_route(M, O).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16_io.cuh"
+#include "conv3x3_bf16.cuh"
 #include "conv3x3_mma.cuh"
 
 namespace {
@@ -108,25 +132,50 @@ struct Layout {
   }
 };
 
+// E: the maps' and the weights' element type (float or bf16); bvec and zoff
+// are float32 either way
+template <class E>
 struct Args {
-  const float* tap;
-  const float* res;
-  const float* w1a;
+  const E* tap;
+  const E* res;
+  const E* w1a;
   const float* bvec;
-  const float* wxt;
-  const float* wy;
+  const E* wxt;
+  const E* wy;
   const float* zoff;
-  const float* w2;
-  float* xf;
-  float* out;
+  const E* w2;
+  E* xf;
+  E* out;
   int D, Dp, k, T, Cs, M, O, t_tiles, d_chunks;
 };
 
 // Row `row` of the strip (pixels ta .. ta + kPix - 1 of batch row b): its
-// tap run into taps[j][c] and its y run into xo[j][m] by cp.async (zeros
-// outside [0, T)); nothing for a row outside the map.
-__device__ __forceinline__ void issue_row(const Args& a, float* taps, float* xo, int ldt, long b,
-                                          int row, int ta) {
+// tap run into taps[j][c] and its y run into xo[j][m] (zeros outside [0,
+// T)), as float32: by cp.async for float maps; bf16 maps are loaded and
+// widened by the threads (cp.async copies, it does not widen), so their
+// loads are not in flight under the previous row's work.  Nothing for a row
+// outside the map.
+__device__ __forceinline__ void issue_row(const Args<bf16_io::bf16>& a, float* taps, float* xo,
+                                          int ldt, long b, int row, int ta) {
+  constexpr int n = Layout::kPix;
+  const int tid = threadIdx.x, Cs = a.Cs, M = a.M, T = a.T;
+  if (row < 0 || row >= a.D) return;
+  const long bd = b * a.D + row;
+  const bf16_io::bf16* tp = a.tap + (bd * T + ta) * (long)Cs;
+  for (int e = tid; e < n * Cs; e += kThreads) {
+    const int j = e / Cs, c = e - j * Cs, t = ta + j;
+    taps[j * ldt + c] = t >= 0 && t < T ? bf16_io::ld1(tp + e) : 0.0f;
+  }
+  if (a.res == nullptr) return;
+  const bf16_io::bf16* yp = a.res + ((b * a.Dp + row / a.k) * T + ta) * (long)M;
+  for (int e = tid; e < n * M; e += kThreads) {
+    const int j = e / M, m = e - j * M, t = ta + j;
+    xo[j * kLd + m] = t >= 0 && t < T ? bf16_io::ld1(yp + e) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void issue_row(const Args<float>& a, float* taps, float* xo, int ldt,
+                                          long b, int row, int ta) {
   constexpr int n = Layout::kPix;
   const int tid = threadIdx.x, Cs = a.Cs, M = a.M, T = a.T;
   if (row < 0 || row >= a.D) return;
@@ -165,10 +214,14 @@ __device__ __forceinline__ void issue_row(const Args& a, float* taps, float* xo,
 // xo[j][m] = xf[b, row, ta + j, m] (zeros outside the map) from the staged
 // tap and y rows, which the caller has waited for and synced; where the pixel
 // is the block's own (row in [own_d0, own_d1), ta + j in [t0, t1)) also into
-// a.xf.  Ends before the caller's barrier.
-__device__ __forceinline__ void finish_row(const Args& a, const Layout& L, float* smem,
+// a.xf.  For bf16 with the xf pass's roundings (abf_block_xf_kernel), so xo
+// holds xf's bf16 values.  Ends before the caller's barrier.
+template <class E>
+__device__ __forceinline__ void finish_row(const Args<E>& a, const Layout& L, float* smem,
                                            const float* taps, float* xo, long b, int row, int ta,
                                            int own_d0, int own_d1, int t0, int t1) {
+  using bf16_io::round_to;
+  constexpr bool kBf = sizeof(E) == 2;
   constexpr int n = Layout::kPix;
   const int tid = threadIdx.x;
   const int Cs = a.Cs, M = a.M, T = a.T, ldt = L.ldt;
@@ -212,7 +265,7 @@ __device__ __forceinline__ void finish_row(const Args& a, const Layout& L, float
     __syncthreads();
   }
   const bool own_row = row >= own_d0 && row < own_d1;
-  float* xg = a.xf + (b * a.D + row) * T * (long)M;
+  E* xg = a.xf + (b * a.D + row) * T * (long)M;
   if (M % 4 == 0) {
     // 4 pixels x 4 mid channels a thread: xhat from w1a's float4s, then the
     // blend over y in place
@@ -220,9 +273,11 @@ __device__ __forceinline__ void finish_row(const Args& a, const Layout& L, float
     for (int it = tid; it < (n + 3) / 4 * quads; it += kThreads) {
       const int j0 = 4 * (it / quads), m0 = 4 * (it % quads);
       const float4 bv = *reinterpret_cast<const float4*>(bvs + m0);
+      // f32: bvec first; bf16: bvec added after the dot and the sum rounded
+      const float4 b0 = kBf ? make_float4(0.0f, 0.0f, 0.0f, 0.0f) : bv;
       float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][0] = bv.x, acc[i][1] = bv.y, acc[i][2] = bv.z, acc[i][3] = bv.w;
+      for (int i = 0; i < 4; ++i) acc[i][0] = b0.x, acc[i][1] = b0.y, acc[i][2] = b0.z, acc[i][3] = b0.w;
 #pragma unroll 4
       for (int c = 0; c < Cs; ++c) {
         const float4 w = *reinterpret_cast<const float4*>(w1s + c * M + m0);
@@ -242,14 +297,22 @@ __device__ __forceinline__ void finish_row(const Args& a, const Layout& L, float
         float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         if (t >= 0 && t < T) {
           v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+          if constexpr (kBf)
+            v = make_float4(round_to<E>(v.x + bv.x), round_to<E>(v.y + bv.y),
+                            round_to<E>(v.z + bv.z), round_to<E>(v.w + bv.w));
           if (fuse) {
-            const float z0 = zs[2 * j], z1 = zs[2 * j + 1];
+            const float z0 = round_to<E>(zs[2 * j]), z1 = round_to<E>(zs[2 * j + 1]);
             const float4 y = *reinterpret_cast<const float4*>(xo + j * kLd + m0);
-            v = make_float4(fmaf(y.x, z1, v.x * z0), fmaf(y.y, z1, v.y * z0),
-                            fmaf(y.z, z1, v.z * z0), fmaf(y.w, z1, v.w * z0));
+            if constexpr (kBf)
+              v = make_float4(round_to<E>(round_to<E>(v.x * z0) + round_to<E>(y.x * z1)),
+                              round_to<E>(round_to<E>(v.y * z0) + round_to<E>(y.y * z1)),
+                              round_to<E>(round_to<E>(v.z * z0) + round_to<E>(y.z * z1)),
+                              round_to<E>(round_to<E>(v.w * z0) + round_to<E>(y.w * z1)));
+            else
+              v = make_float4(fmaf(y.x, z1, v.x * z0), fmaf(y.y, z1, v.y * z0),
+                              fmaf(y.z, z1, v.z * z0), fmaf(y.w, z1, v.w * z0));
           }
-          if (own_row && t >= t0 && t < t1)
-            *reinterpret_cast<float4*>(xg + (long)t * M + m0) = v;
+          if (own_row && t >= t0 && t < t1) bf16_io::st4(xg + (long)t * M + m0, v);
         }
         *reinterpret_cast<float4*>(xo + j * kLd + m0) = v;
       }
@@ -259,10 +322,17 @@ __device__ __forceinline__ void finish_row(const Args& a, const Layout& L, float
       const int j = e / M, m = e - j * M, t = ta + j;
       float v = 0.0f;
       if (t >= 0 && t < T) {
-        v = bvs[m];
+        v = kBf ? 0.0f : bvs[m];
         for (int c = 0; c < Cs; ++c) v = fmaf(taps[j * ldt + c], w1s[c * M + m], v);
-        if (fuse) v = fmaf(xo[j * kLd + m], zs[2 * j + 1], v * zs[2 * j]);
-        if (own_row && t >= t0 && t < t1) xg[(long)t * M + m] = v;
+        if constexpr (kBf) {
+          v = round_to<E>(v + bvs[m]);
+          if (fuse)
+            v = round_to<E>(round_to<E>(v * round_to<E>(zs[2 * j])) +
+                            round_to<E>(xo[j * kLd + m] * round_to<E>(zs[2 * j + 1])));
+        } else if (fuse) {
+          v = fmaf(xo[j * kLd + m], zs[2 * j + 1], v * zs[2 * j]);
+        }
+        if (own_row && t >= t0 && t < t1) bf16_io::st1(xg + (long)t * M + m, v);
       }
       xo[j * kLd + m] = v;
     }
@@ -270,18 +340,26 @@ __device__ __forceinline__ void finish_row(const Args& a, const Layout& L, float
 }
 
 // Route "mma"'s xf pass: kXfLanes lanes a pixel, lane g holding mid channels
-// 4 g + 32 kk .. + 3 (kk < 2; float4s where M allows).  Each lane loads its y
-// first (its latency under the xhat loop), forms xhat for its channels from
-// the pixel's tap row (read by the pixel's lanes through the L1) and w1a in
-// shared memory, and sums its channels' share of the two logits (and tap
-// channels 8 g .. 8 g + 7 of the tap's); the lanes' sums are added by xor
-// shuffles, then the blend is written once.  No barrier in the loop: the
-// block's warps walk pixels on their own, a persistent grid of one wave.
+// 4 g + 32 kk .. + 3 (kk < 2; 4-wide loads and stores where M allows).  Each
+// lane loads its y first (its latency under the xhat loop), forms xhat for
+// its channels from the pixel's tap row (read by the pixel's lanes through
+// the L1) and w1a in shared memory, and sums its channels' share of the two
+// logits (and tap channels 8 g .. 8 g + 7 of the tap's); the lanes' sums are
+// added by xor shuffles, then the blend is written once.  No barrier in the
+// loop: the block's warps walk pixels on their own, a persistent grid of one
+// wave.  E is the maps' and the weights' element type (bvec and zoff are
+// float32 either way); the weights are widened into shared memory, and for
+// bf16 the pass rounds where the Pallas body rounds on bf16 operands: xhat =
+// bf16(tap . w1a + bvec), z in float32 rounded to bf16 for the blend, each
+// product of the blend and their sum rounded to bf16.
 constexpr int kXfLanes = 8;
 constexpr int kXfPix = kThreads / kXfLanes;  // pixels a block takes at a time
 
+template <class E>
 __global__ void __launch_bounds__(kThreads, 4)
-abf_block_xf_kernel(Args a, long pixels) {
+abf_block_xf_kernel(Args<E> a, long pixels) {
+  using namespace bf16_io;
+  constexpr bool kBf = sizeof(E) == 2;
   extern __shared__ __align__(16) float smem[];
   float* w1s = smem;                  // [Cs][M]
   float* bvs = w1s + kMaxCs * kMaxM;  // [M]
@@ -290,11 +368,11 @@ abf_block_xf_kernel(Args a, long pixels) {
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int Cs = a.Cs, M = a.M, T = a.T;
   const bool fuse = a.res != nullptr;
-  for (int e = tid; e < Cs * M; e += kThreads) w1s[e] = __ldg(a.w1a + e);
+  for (int e = tid; e < Cs * M; e += kThreads) w1s[e] = ld1(a.w1a + e);
   for (int e = tid; e < M; e += kThreads) bvs[e] = __ldg(a.bvec + e);
   if (fuse) {
-    for (int e = tid; e < 2 * Cs; e += kThreads) wxs[e] = __ldg(a.wxt + e);
-    for (int e = tid; e < 2 * M; e += kThreads) wys[e] = __ldg(a.wy + e);
+    for (int e = tid; e < 2 * Cs; e += kThreads) wxs[e] = ld1(a.wxt + e);
+    for (int e = tid; e < 2 * M; e += kThreads) wys[e] = ld1(a.wy + e);
   }
   __syncthreads();
   const int g = lane % kXfLanes;
@@ -312,35 +390,36 @@ abf_block_xf_kernel(Args a, long pixels) {
       const int m = 32 * kk + 4 * g;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        acc[kk][e] = m + e < M ? bvs[m + e] : 0.0f;
+        // f32: bvec first, as the f32 design sums; bf16: added after the dot
+        acc[kk][e] = !kBf && m + e < M ? bvs[m + e] : 0.0f;
         y[kk][e] = 0.0f;
       }
     }
     float s0 = 0.0f, s1 = 0.0f;
     if (valid) {
-      const float* tp = a.tap + pix * Cs;
+      const E* tp = a.tap + pix * Cs;
       if (fuse) {
         const long bd = pix / T;
         const int t = (int)(pix - bd * T), d = (int)(bd % a.D);
         const long b = bd / a.D;
-        const float* yp = a.res + ((b * a.Dp + d / a.k) * T + t) * (long)M;
+        const E* yp = a.res + ((b * a.Dp + d / a.k) * T + t) * (long)M;
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
           const int m = 32 * kk + 4 * g;
           if (m >= M) continue;
           if (vec_m) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(yp + m));
+            const float4 v = ld4(yp + m);
             y[kk][0] = v.x, y[kk][1] = v.y, y[kk][2] = v.z, y[kk][3] = v.w;
           } else {
 #pragma unroll
-            for (int q = 0; q < 4; ++q) y[kk][q] = m + q < M ? __ldg(yp + m + q) : 0.0f;
+            for (int q = 0; q < 4; ++q) y[kk][q] = m + q < M ? ld1(yp + m + q) : 0.0f;
           }
         }
       }
       if (vec_c && vec_m) {
 #pragma unroll 2
         for (int c = 0; c < Cs; c += 4) {
-          const float4 t4 = __ldg(reinterpret_cast<const float4*>(tp + c));
+          const float4 t4 = ld4(tp + c);
           const float tv[4] = {t4.x, t4.y, t4.z, t4.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e)
@@ -358,7 +437,7 @@ abf_block_xf_kernel(Args a, long pixels) {
         }
       } else {
         for (int c = 0; c < Cs; ++c) {
-          const float tv = __ldg(tp + c);
+          const float tv = ld1(tp + c);
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
             const int m = 32 * kk + 4 * g;
@@ -381,7 +460,7 @@ abf_block_xf_kernel(Args a, long pixels) {
           }
         }
         for (int c = 8 * g; c < 8 * g + 8 && c < Cs; ++c) {
-          const float tv = __ldg(tp + c);
+          const float tv = ld1(tp + c);
           s0 = fmaf(tv, wxs[2 * c], s0);
           s1 = fmaf(tv, wxs[2 * c + 1], s1);
         }
@@ -395,22 +474,29 @@ abf_block_xf_kernel(Args a, long pixels) {
       }
     }
     if (!valid) continue;
-    const float z0 = fuse ? sigmoid_f32(s0 + zo0) : 1.0f, z1 = fuse ? sigmoid_f32(s1 + zo1) : 0.0f;
-    float* dst = a.xf + pix * M;
+    float z0 = fuse ? sigmoid_f32(s0 + zo0) : 1.0f, z1 = fuse ? sigmoid_f32(s1 + zo1) : 0.0f;
+    if constexpr (kBf) z0 = round_to<E>(z0), z1 = round_to<E>(z1);
+    E* dst = a.xf + pix * M;
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const int m = 32 * kk + 4 * g;
       if (m >= M) continue;
       float v[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        v[q] = fuse ? fmaf(y[kk][q], z1, acc[kk][q] * z0) : acc[kk][q];
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (kBf) {
+          const float xh = round_to<E>(acc[kk][q] + (m + q < M ? bvs[m + q] : 0.0f));
+          v[q] = fuse ? round_to<E>(xh * z0) + round_to<E>(y[kk][q] * z1) : xh;
+        } else {
+          v[q] = fuse ? fmaf(y[kk][q], z1, acc[kk][q] * z0) : acc[kk][q];
+        }
+      }
       if (vec_m) {
-        *reinterpret_cast<float4*>(dst + m) = make_float4(v[0], v[1], v[2], v[3]);
+        st4(dst + m, make_float4(v[0], v[1], v[2], v[3]));
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (m + q < M) dst[m + q] = v[q];
+          if (m + q < M) st1(dst + m + q, v[q]);
       }
     }
   }
@@ -425,8 +511,9 @@ abf_block_xf_kernel(Args a, long pixels) {
 // OC outputs, the mid channels m = q (mod 16): per (row r, channel) 6 staged
 // values serve the 3 time shifts of its 4 pixels; the 16 lanes' partials are
 // added by xor shuffles.
-template <int OC>
-__global__ void __launch_bounds__(kThreads, 2) abf_block_direct_kernel(Args a) {
+template <int OC, class E>
+__global__ void __launch_bounds__(kThreads, 2) abf_block_direct_kernel(Args<E> a) {
+  using bf16_io::ld1;
   extern __shared__ __align__(16) float smem[];
   const Layout L(a.Cs, a.M, OC);
   const int tid = threadIdx.x;
@@ -440,16 +527,16 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_direct_kernel(Args a) {
   const bool fuse = a.res != nullptr;
   const int o0 = blockIdx.y * OC;
 
-  for (int e = tid; e < Cs * M; e += kThreads) smem[L.w1 + e] = __ldg(a.w1a + e);
+  for (int e = tid; e < Cs * M; e += kThreads) smem[L.w1 + e] = ld1(a.w1a + e);
   for (int e = tid; e < M; e += kThreads) smem[L.bv + e] = __ldg(a.bvec + e);
   if (fuse) {
-    for (int e = tid; e < 2 * Cs; e += kThreads) smem[L.wx + e] = __ldg(a.wxt + e);
-    for (int e = tid; e < 2 * M; e += kThreads) smem[L.wy + e] = __ldg(a.wy + e);
+    for (int e = tid; e < 2 * Cs; e += kThreads) smem[L.wx + e] = ld1(a.wxt + e);
+    for (int e = tid; e < 2 * M; e += kThreads) smem[L.wy + e] = ld1(a.wy + e);
   }
   float* w2s = smem + L.w2;  // w2s[(k * M + m) * OC + o] = w2[k, m, o0 + o]
   for (int e = tid; e < 9 * M * OC; e += kThreads) {
     const int o = e % OC, km = e / OC;
-    w2s[e] = o0 + o < a.O ? __ldg(a.w2 + (long)km * a.O + o0 + o) : 0.0f;
+    w2s[e] = o0 + o < a.O ? ld1(a.w2 + (long)km * a.O + o0 + o) : 0.0f;
   }
   const int t1 = t0 + kBT < a.T ? t0 + kBT : a.T;
   const int own0 = blockIdx.y == 0 ? d0 : 0, own1 = blockIdx.y == 0 ? d1 : 0;
@@ -514,46 +601,54 @@ __global__ void __launch_bounds__(kThreads, 2) abf_block_direct_kernel(Args a) {
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int o = 0; o < OC; ++o) acc[i][o] += __shfl_xor_sync(0xffffffffu, acc[i][o], off);
-    float* dst = a.out + ((b * a.D + d) * a.T + t0 + 4 * pq) * (long)a.O + o0;
+    E* dst = a.out + ((b * a.D + d) * a.T + t0 + 4 * pq) * (long)a.O + o0;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int o = 0; o < OC; ++o)
         if ((i * OC + o) % 16 == q && t0 + 4 * pq + i < a.T && o0 + o < a.O)
-          dst[(long)i * a.O + o] = acc[i][o];
+          bf16_io::st1(dst + (long)i * a.O + o, acc[i][o]);
   }
 }
 
-cudaError_t launch_xf(const Args& a, long pixels, cudaStream_t stream) {
+template <class E>
+cudaError_t launch_xf(const Args<E>& a, long pixels, cudaStream_t stream) {
   constexpr int kBytes = (kMaxCs * kMaxM + kMaxM + 2 * kMaxCs + 2 * kMaxM) * (int)sizeof(float);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, abf_block_xf_kernel, kThreads,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, abf_block_xf_kernel<E>, kThreads,
                                                         kBytes);
   if (err != cudaSuccess) return err;
   const long tiles = (pixels + kXfPix - 1) / kXfPix;
   const long most = (long)sms * (per_sm > 0 ? per_sm : 1);  // one wave of blocks
-  abf_block_xf_kernel<<<(unsigned)(tiles < most ? tiles : most), kThreads, kBytes, stream>>>(
+  abf_block_xf_kernel<E><<<(unsigned)(tiles < most ? tiles : most), kThreads, kBytes, stream>>>(
       a, pixels);
   return cudaGetLastError();
 }
 
-template <int OC>
-cudaError_t launch_direct(const Args& a0, int B, cudaStream_t stream) {
-  Args a = a0;
+template <int OC, class E>
+cudaError_t launch_direct(const Args<E>& a0, int B, cudaStream_t stream) {
+  Args<E> a = a0;
   a.t_tiles = (a.T + kBT - 1) / kBT;
   a.d_chunks = (a.D + kRowsConv - 1) / kRowsConv;
   const int bytes = Layout(a.Cs, a.M, OC).floats * (int)sizeof(float);
   // above 48 KB needs the opt-in: set on every call
   const cudaError_t err = cudaFuncSetAttribute(
-      abf_block_direct_kernel<OC>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      abf_block_direct_kernel<OC, E>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((long)B * a.t_tiles * a.d_chunks),
                   (unsigned)((a.O + OC - 1) / OC));
-  abf_block_direct_kernel<OC><<<grid, kThreads, bytes, stream>>>(a);
+  abf_block_direct_kernel<OC, E><<<grid, kThreads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class E>
+cudaError_t launch_direct_for(const Args<E>& a, int B, int O, cudaStream_t s) {
+  if (O <= 2) return launch_direct<2>(a, B, s);
+  if (O <= 4) return launch_direct<4>(a, B, s);
+  return launch_direct<kMaxOC>(a, B, s);
 }
 
 }  // namespace
@@ -572,7 +667,7 @@ extern "C" int abf_block_fwd(const void* tap, const void* res, const void* w1a, 
   if (B < 1 || D < 1 || T < 1 || Cs < 1 || Cs > kMaxCs || M < 1 || M > kMaxM || O < 1 ||
       (fuse && (Dp < 1 || D % Dp)) || (fuse && (!wxt || !wy || !zoff)))
     return (int)cudaErrorInvalidValue;
-  Args a{static_cast<const float*>(tap), static_cast<const float*>(res),
+  Args<float> a{static_cast<const float*>(tap), static_cast<const float*>(res),
          static_cast<const float*>(w1a), static_cast<const float*>(bvec),
          static_cast<const float*>(wxt), static_cast<const float*>(wy),
          static_cast<const float*>(zoff), static_cast<const float*>(w2),
@@ -585,12 +680,43 @@ extern "C" int abf_block_fwd(const void* tap, const void* res, const void* w1a, 
     return (int)conv3x3_mma::fwd_mma_run<false>(a.xf, a.w2, static_cast<float4*>(wscratch),
                                                 nullptr, a.out, B, D, T, M, O, s);
   }
-  cudaError_t err;
-  if (O <= 2)
-    err = launch_direct<2>(a, B, s);
-  else if (O <= 4)
-    err = launch_direct<4>(a, B, s);
-  else
-    err = launch_direct<kMaxOC>(a, B, s);
-  return (int)err;
+  return (int)launch_direct_for(a, B, O, s);
+}
+
+// The bf16 instantiation: tap, res, w1a, wxt, wy, w2, xf and out in bf16,
+// bvec and zoff float32, with the Pallas body's roundings on bf16 operands
+// (abf_block_xf_kernel).  Route "mma" (O >= 8 and M >= 8, the bf16 tile's
+// test): the xf pass writes xf, then the conv over xf runs on the bf16 K3f's
+// m16n8k16 tensor-core tile (conv3x3_bf16.cuh) through the packed weights'
+// scratch of abf_block_fwd_bf16_scratch_elems(M, O) bf16, out rounded once.
+// Route "direct" (the mask block, O = 2; or M < 8): abf_block_direct_kernel
+// on bf16, xf formed in its ring of rows and convolved in f32 FMA.
+extern "C" int abf_block_fwd_bf16_route(int M, int O) { return conv3x3_bf16::fwd_route(M, O); }
+
+extern "C" long abf_block_fwd_bf16_scratch_elems(int M, int O) {
+  return conv3x3_bf16::fwd_scratch_elems(M, O);
+}
+
+extern "C" int abf_block_fwd_bf16(const void* tap, const void* res, const void* w1a,
+                                  const void* bvec, const void* wxt, const void* wy,
+                                  const void* zoff, const void* w2, void* wscratch, void* xf,
+                                  void* out, int B, int D, int Dp, int T, int Cs, int M, int O,
+                                  void* stream) {
+  using bf16_io::bf16;
+  const bool fuse = res != nullptr;
+  if (B < 1 || D < 1 || T < 1 || Cs < 1 || Cs > kMaxCs || M < 1 || M > kMaxM || O < 1 ||
+      (fuse && (Dp < 1 || D % Dp)) || (fuse && (!wxt || !wy || !zoff)))
+    return (int)cudaErrorInvalidValue;
+  const Args<bf16> a{static_cast<const bf16*>(tap), static_cast<const bf16*>(res),
+                     static_cast<const bf16*>(w1a), static_cast<const float*>(bvec),
+                     static_cast<const bf16*>(wxt), static_cast<const bf16*>(wy),
+                     static_cast<const float*>(zoff), static_cast<const bf16*>(w2),
+                     static_cast<bf16*>(xf), static_cast<bf16*>(out),
+                     D, fuse ? Dp : D, fuse ? D / Dp : 1, T, Cs, M, O, 0, 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (conv3x3_bf16::fwd_route(M, O) == 0) return (int)launch_direct_for(a, B, O, s);
+  const cudaError_t err = launch_xf(a, (long)B * D * T, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)conv3x3_bf16::fwd_run<false>(a.xf, a.w2, static_cast<bf16*>(wscratch), nullptr, out,
+                                           B, D, T, M, O, s);
 }

@@ -45,15 +45,26 @@
 // No atomics; the order of every sum depends only on the shape, so repeated
 // runs on any card give the same bits, and the output is exactly symmetric.
 //
+// The bf16 instantiation (gram_pair_fwd_bf16: the Pallas kernel on bf16
+// operands, whose dots multiply bf16 by bf16 into float32 sums) stages bf16
+// rows, half a float32 stage's bytes (the bulk copies where the row length is
+// a multiple of 8 and the base 16-byte aligned; plain loads by the producer
+// warp otherwise, as cp.async does not copy 2-byte elements), widens four
+// columns at a time in registers and sums them on the same f32 FMA tiles in
+// the same order: the products are exact in float32, the Grams float32.
+// Bound: the bytes, 2 B (Ds + Dt) (0.020 ms at B = 32, D = 528,000).
+//
 // Interface: plain C, bound with ctypes.  gram_pair_chunk_cols() and
 // gram_pair_max_batch() give kChunk and kMaxBatch.  The caller allocates one buffer of 2 B^2 + (cdiv(Ds, kChunk) + cdiv(Dt,
 // kChunk)) * B (B + 1) / 2 floats: gs, then gt, then the partials.
-// gram_pair_fwd returns cudaGetLastError() after each launch.
+// gram_pair_fwd (float32 s, t) and gram_pair_fwd_bf16 (bf16 s, t) return
+// cudaGetLastError() after each launch.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "bf16_io.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -65,22 +76,27 @@ constexpr int kSumSpan = 320;   // pass 2: chunks a block stages at a time (655,
 constexpr int kMaxDevices = 64;
 constexpr int kRingBudget = 200 * 1024;  // bytes of shared memory for the ring
 
+using bf16_io::bf16;
+
 // R x R register tiles over NB row blocks, L lanes a unit, KT columns a
-// stage.  Where several units share a warp (L < 32) the diagonal blocks go in
-// pairs, so that the units (off-diagonal tiles, then pairs) fill whole warps
-// of equal work; with a warp a unit, whole tiles keep more warps busy.
-template <int R, int NB, int L, int KT>
+// stage of elements E (float or bf16).  Where several units share a warp (L <
+// 32) the diagonal blocks go in pairs, so that the units (off-diagonal tiles,
+// then pairs) fill whole warps of equal work; with a warp a unit, whole tiles
+// keep more warps busy.
+template <int R, int NB, int L, int KT, class E = float>
 struct Plan {
+  using Elem = E;
   static constexpr int kR = R, kNB = NB, kL = L, kKT = KT;
   static constexpr int kBp = R * NB;
-  static constexpr int kStride = KT + 4;  // floats a staged row (float4 and bulk-copy aligned)
+  static constexpr int kVec = 16 / (int)sizeof(E);  // elements of 16 bytes
+  static constexpr int kStride = KT + kVec;  // elements a staged row (4-wide and bulk-copy aligned)
   static constexpr int kPairs = L < 32 && NB % 2 == 0 ? NB / 2 : 0;
   static constexpr int kOff = kPairs > 0 ? NB * (NB - 1) / 2 : NB * (NB + 1) / 2;  // tile units
   static constexpr int kPerWarp = 32 / L;
   static constexpr int kTileSlots = (kOff + kPerWarp - 1) / kPerWarp * kPerWarp;
   static constexpr int kPairSlots = (kPairs + kPerWarp - 1) / kPerWarp * kPerWarp;
   static constexpr int kWarps = (kTileSlots + kPairSlots) / kPerWarp;
-  static constexpr int kStageBytes = kBp * kStride * 4;
+  static constexpr int kStageBytes = kBp * kStride * (int)sizeof(E);
   static constexpr int kStages = kRingBudget / kStageBytes < 12 ? kRingBudget / kStageBytes : 12;
 };
 
@@ -146,7 +162,7 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // bytes from global src to shared dst, completing as tx bytes on bar
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, uint32_t bytes, uint64_t* bar) {
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
           smem_addr(dst)),
@@ -163,11 +179,22 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The producer warp: fills the ring in the order the consumers read it.
+// four staged columns as floats (a bf16 value widens exactly)
+__device__ __forceinline__ float4 staged4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 staged4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_io::lo(v.x), bf16_io::hi(v.x), bf16_io::lo(v.y), bf16_io::hi(v.y));
+}
+
+// The producer warp: fills the ring in the order the consumers read it.  A
+// staged row is one bulk copy where the row length is whole 16-byte units and
+// the base is 16-byte aligned; otherwise 4-byte cp.async (float) or plain
+// loads and stores (bf16, whose 2-byte elements cp.async does not copy).
 template <class P>
-__device__ void produce(float* ring, uint64_t* full, uint64_t* empty, const float* __restrict__ s,
-                        const float* __restrict__ t, int B, long long Ds, long long Dt, int ns, int nchunks,
-                        int lane) {
+__device__ void produce(typename P::Elem* ring, uint64_t* full, uint64_t* empty,
+                        const typename P::Elem* __restrict__ s, const typename P::Elem* __restrict__ t,
+                        int B, long long Ds, long long Dt, int ns, int nchunks, int lane) {
+  using E = typename P::Elem;
   constexpr int kKT = P::kKT, kStride = P::kStride, kBp = P::kBp, kStages = P::kStages;
   int fill = 0;
   // the slots this warp or its cp.async copies last wrote through the generic
@@ -175,14 +202,14 @@ __device__ void produce(float* ring, uint64_t* full, uint64_t* empty, const floa
   unsigned generic = 0;
   for (int c = blockIdx.x; c < nchunks; c += gridDim.x) {
     const bool is_s = c < ns;
-    const float* __restrict__ z = is_s ? s : t;
+    const E* __restrict__ z = is_s ? s : t;
     const long long D = is_s ? Ds : Dt;
     const long long col0 = (long long)(is_s ? c : c - ns) * kChunk;
-    const bool bulk = (D % 4 == 0) && ((reinterpret_cast<uintptr_t>(z) & 15) == 0);
+    const bool bulk = (D % P::kVec == 0) && ((reinterpret_cast<uintptr_t>(z) & 15) == 0);
     for (long long c0 = col0; c0 < col0 + kChunk && c0 < D; c0 += kKT, ++fill) {
       const int slot = fill % kStages;
       if (fill >= kStages) mbar_wait(&empty[slot], (fill / kStages - 1) & 1);
-      float* dst = ring + slot * kBp * kStride;
+      E* dst = ring + slot * kBp * kStride;
       const int n = (int)(D - c0 < kKT ? D - c0 : kKT);
       if (bulk) {
         if (generic & (1u << slot)) {
@@ -191,23 +218,31 @@ __device__ void produce(float* ring, uint64_t* full, uint64_t* empty, const floa
         }
         if (n < kKT) {
           for (int idx = lane; idx < B * (kKT - n); idx += 32)  // the last stage's columns past D
-            dst[(idx / (kKT - n)) * kStride + n + idx % (kKT - n)] = 0.0f;
+            bf16_io::st1(dst + (idx / (kKT - n)) * kStride + n + idx % (kKT - n), 0.0f);
           generic |= 1u << slot;
         }
         __syncwarp();
         if (lane == 0)
-          mbar_arrive_expect_tx(&full[slot], (uint32_t)(B * n * 4));
+          mbar_arrive_expect_tx(&full[slot], (uint32_t)(B * n * (int)sizeof(E)));
         else
           mbar_arrive(&full[slot]);
         __syncwarp();
-        for (int r = lane; r < B; r += 32) bulk_copy(dst + r * kStride, z + r * D + c0, n * 4, &full[slot]);
-      } else {
+        for (int r = lane; r < B; r += 32)
+          bulk_copy(dst + r * kStride, z + r * D + c0, n * (int)sizeof(E), &full[slot]);
+      } else if constexpr (sizeof(E) == 4) {
         for (int idx = lane; idx < B * kKT; idx += 32) {
           const int r = idx / kKT, cc = idx % kKT;
           const bool valid = c0 + cc < D;
           tf32x3::cp_async<4>(dst + r * kStride + cc, valid ? z + r * D + c0 + cc : z, valid);
         }
         cp_async_arrive(&full[slot]);
+        generic |= 1u << slot;
+      } else {
+        for (int idx = lane; idx < B * kKT; idx += 32) {
+          const int r = idx / kKT, cc = idx % kKT;
+          dst[r * kStride + cc] = c0 + cc < D ? z[r * D + c0 + cc] : __float2bfloat16_rn(0.0f);
+        }
+        mbar_arrive(&full[slot]);  // release: the stores are seen by the consumers' wait
         generic |= 1u << slot;
       }
     }
@@ -305,7 +340,7 @@ __device__ __forceinline__ void pair_fma(float (&acc)[K], const float4 (&v)[2 * 
 // triangle (off the diagonal where NB is even), or (PAIR) the upper triangles
 // of the diagonal blocks 2k and 2k + 1, whose 2R rows it loads once.
 template <class P, bool PAIR>
-__device__ void fma_unit(const float* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial, int B,
+__device__ void fma_unit(const typename P::Elem* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial, int B,
                          long long Ds, long long Dt, int ns, int nchunks, int lane, int unit, int l) {
   constexpr int R = P::kR, L = P::kL, kKT = P::kKT, kStride = P::kStride, kStages = P::kStages;
   constexpr int K = PAIR ? R * (R + 1) : R * R;
@@ -340,21 +375,21 @@ __device__ void fma_unit(const float* ring, uint64_t* full, uint64_t* empty, flo
       const int slot = fill % kStages;
       mbar_wait(&full[slot], (fill / kStages) & 1);
       if (active) {
-        const float* stage = ring + slot * P::kBp * kStride;
+        const typename P::Elem* stage = ring + slot * P::kBp * kStride;
         const int groups = (int)((D - c0 < kKT ? D - c0 : kKT) + 3) / 4;
         for (int gi = l; gi < groups; gi += L) {
           if constexpr (PAIR) {
             float4 v[2 * R];
 #pragma unroll
             for (int p = 0; p < 2 * R; ++p)
-              v[p] = *reinterpret_cast<const float4*>(stage + (2 * R * unit + p) * kStride + 4 * gi);
+              v[p] = staged4(stage + (2 * R * unit + p) * kStride + 4 * gi);
             pair_fma<R, K>(acc, v);
           } else {
             float4 av[R], bv[R];
 #pragma unroll
             for (int p = 0; p < R; ++p) {
-              av[p] = *reinterpret_cast<const float4*>(stage + (R * ta + p) * kStride + 4 * gi);
-              bv[p] = *reinterpret_cast<const float4*>(stage + (R * tb + p) * kStride + 4 * gi);
+              av[p] = staged4(stage + (R * ta + p) * kStride + 4 * gi);
+              bv[p] = staged4(stage + (R * tb + p) * kStride + 4 * gi);
             }
             tile_fma<R, K>(acc, av, bv);
           }
@@ -393,7 +428,7 @@ __device__ void fma_unit(const float* ring, uint64_t* full, uint64_t* empty, flo
 }
 
 template <class P>
-__device__ void consume(const float* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial,
+__device__ void consume(const typename P::Elem* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial,
                             int B, long long Ds, long long Dt, int ns, int nchunks, int warp, int lane) {
   // the tile units first, then the pairs, each rounded up to whole warps
   const int unit = (warp * 32 + lane) / P::kL, l = lane % P::kL;
@@ -405,18 +440,19 @@ __device__ void consume(const float* ring, uint64_t* full, uint64_t* empty, floa
 
 template <class P>
 __global__ void __launch_bounds__(Layout<P>::kThreads, 1)
-gram_partial_kernel(const float* __restrict__ s, const float* __restrict__ t, float* __restrict__ partial,
-                    int B, long long Ds, long long Dt, int ns, int nchunks) {
+gram_partial_kernel(const typename P::Elem* __restrict__ s, const typename P::Elem* __restrict__ t,
+                    float* __restrict__ partial, int B, long long Ds, long long Dt, int ns, int nchunks) {
+  using E = typename P::Elem;
   constexpr int kBp = P::kBp, kStride = P::kStride, kStages = P::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);
+  E* ring = reinterpret_cast<E*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Layout<P>::kRingBytes);
   uint64_t* empty = full + kStages;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int idx = tid; idx < kStages * (kBp - B) * kStride; idx += Layout<P>::kThreads) {
     const int st = idx / ((kBp - B) * kStride), rest = idx % ((kBp - B) * kStride);
-    ring[(st * kBp + B) * kStride + rest] = 0.0f;  // rows past B stay zero
+    bf16_io::st1(ring + (st * kBp + B) * kStride + rest, 0.0f);  // rows past B stay zero
   }
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -482,8 +518,8 @@ int sm_count[kMaxDevices];
 unsigned attr_set[kMaxDevices];
 
 template <class P>
-cudaError_t launch_partial(int plan, const float* s, const float* t, float* partial, int B, long long Ds,
-                           long long Dt, int ns, int nchunks, int dev, cudaStream_t st) {
+cudaError_t launch_partial(int plan, const typename P::Elem* s, const typename P::Elem* t, float* partial,
+                           int B, long long Ds, long long Dt, int ns, int nchunks, int dev, cudaStream_t st) {
   if (!(attr_set[dev] & (1u << plan))) {
     cudaError_t err = cudaFuncSetAttribute(gram_partial_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            Layout<P>::kSmemBytes);
@@ -496,24 +532,21 @@ cudaError_t launch_partial(int plan, const float* s, const float* t, float* part
   return cudaGetLastError();
 }
 
-cudaError_t launch_partial_for(int B, const float* s, const float* t, float* partial, long long Ds,
+// the plans by B; the bf16 ones have their own attribute bits (6 .. 11)
+template <class E>
+cudaError_t launch_partial_for(int B, const E* s, const E* t, float* partial, long long Ds,
                                long long Dt, int ns, int nchunks, int dev, cudaStream_t st) {
-  if (B <= 4) return launch_partial<Plan<4, 1, 32, 512>>(0, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 8) return launch_partial<Plan<4, 2, 32, 512>>(1, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 16) return launch_partial<Plan<4, 4, 32, 512>>(2, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 32) return launch_partial<Plan<8, 4, 32, 512>>(3, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 48) return launch_partial<Plan<8, 6, 8, 256>>(4, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  return launch_partial<Plan<8, 8, 8, 256>>(5, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  const int p0 = sizeof(E) == 2 ? 6 : 0;
+  if (B <= 4) return launch_partial<Plan<4, 1, 32, 512, E>>(p0, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 8) return launch_partial<Plan<4, 2, 32, 512, E>>(p0 + 1, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 16) return launch_partial<Plan<4, 4, 32, 512, E>>(p0 + 2, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 32) return launch_partial<Plan<8, 4, 32, 512, E>>(p0 + 3, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 48) return launch_partial<Plan<8, 6, 8, 256, E>>(p0 + 4, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  return launch_partial<Plan<8, 8, 8, 256, E>>(p0 + 5, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
 }
 
-}  // namespace
-
-extern "C" int gram_pair_chunk_cols() { return kChunk; }
-
-extern "C" int gram_pair_max_batch() { return kMaxBatch; }
-
-extern "C" int gram_pair_fwd(const void* s, const void* t, void* out, int B, long long Ds, long long Dt,
-                             void* stream) {
+template <class E>
+int gram_pair_run(const void* s, const void* t, void* out, int B, long long Ds, long long Dt, void* stream) {
   if (B < 1 || B > kMaxBatch || Ds < 1 || Dt < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int dev;
@@ -528,8 +561,8 @@ extern "C" int gram_pair_fwd(const void* s, const void* t, void* out, int B, lon
   float* gt = gs + B * B;
   float* partial = gt + B * B;
   const int ns = cdiv(Ds, kChunk), nt = cdiv(Dt, kChunk);
-  err = launch_partial_for(B, static_cast<const float*>(s), static_cast<const float*>(t), partial, Ds, Dt, ns,
-                           ns + nt, dev, st);
+  err = launch_partial_for<E>(B, static_cast<const E*>(s), static_cast<const E*>(t), partial, Ds, Dt, ns,
+                              ns + nt, dev, st);
   if (err != cudaSuccess) return (int)err;
 
   cudaLaunchConfig_t cfg = {};
@@ -544,4 +577,21 @@ extern "C" int gram_pair_fwd(const void* s, const void* t, void* out, int B, lon
   err = cudaLaunchKernelEx(&cfg, gram_sum_kernel, static_cast<const float*>(partial), gs, gt, B, ns, nt);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int gram_pair_chunk_cols() { return kChunk; }
+
+extern "C" int gram_pair_max_batch() { return kMaxBatch; }
+
+extern "C" int gram_pair_fwd(const void* s, const void* t, void* out, int B, long long Ds, long long Dt,
+                             void* stream) {
+  return gram_pair_run<float>(s, t, out, B, Ds, Dt, stream);
+}
+
+// The bf16 instantiation: s and t in bf16, the Grams and partials float32.
+extern "C" int gram_pair_fwd_bf16(const void* s, const void* t, void* out, int B, long long Ds,
+                                  long long Dt, void* stream) {
+  return gram_pair_run<bf16>(s, t, out, B, Ds, Dt, stream);
 }

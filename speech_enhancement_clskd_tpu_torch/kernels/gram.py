@@ -8,13 +8,13 @@ Replaces ``speech_enhancement_clskd_tpu/ops/pallas/gram.py``:
 - ``gram_pair(s, t)``: ``[B, *]`` inputs flattened to ``[B, Ds]`` and
   ``[B, Dt]`` (Ds may differ from Dt) give the two ``[B, B]`` Grams in
   float32, differentiable in both.  The backward is ``dZ = (dG + dG^T) Z``,
-  two skinny matrix products left to ``torch.matmul``, as the JAX VJP leaves
-  them to XLA.
+  two skinny matrix products in float32 left to ``torch.matmul``, as the JAX
+  VJP leaves them to XLA, each returned in its input's dtype.
 - ``gram_pair_fwd(s2, t2)`` is the kernel's wrapper.  On CUDA tensors it
   launches the kernel of ``csrc/gram_pair_fwd.cu`` (built at first use) or
   raises; nothing falls back.  On CPU tensors it runs
   ``gram_pair_reference``.  Its ``launches`` counter counts kernel launches
-  only.  One allocation a call holds ``gs``, ``gt`` (returned as views) and
+  only (the bf16 instantiation in ``launches_bf16``).  One allocation a call holds ``gs``, ``gt`` (returned as views) and
   the kernel's partials.
 - ``gram_pair_reference`` sums the Grams of the same ``CHUNK``-column chunks
   the kernel splits D into, in the same order, one matrix product per chunk,
@@ -25,8 +25,12 @@ Replaces ``speech_enhancement_clskd_tpu/ops/pallas/gram.py``:
 - ``spkd_loss_fused`` is the SPKD loss on ``gram_pair``
   (``spkd_loss_pallas``).
 
-Everything is float32; the kernel uses f32 FMA, not TF32.  A bfloat16 input
-raises ``NotImplementedError`` (ROADMAP queue 1 item 10).
+The inputs are float32 or bfloat16 (both of one dtype), the Grams float32.
+The kernel sums in f32 FMA, not TF32; its bf16 instantiation (the Pallas
+kernel on bf16 operands: bf16 products, exact in float32, summed in
+float32) stages bf16 columns, half a float32 stage's bytes, and widens them
+in registers.  The plain version widens bf16 to float32 and sums the same
+chunks in the same order.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from typing import Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors, refuse_bf16
+from . import _build, check_tensors, float_dtype, widened
 
 SOURCE = "gram_pair_fwd.cu"
 SOURCES = (SOURCE,)
@@ -74,9 +78,10 @@ def _chunked_gram(z: torch.Tensor) -> torch.Tensor:
 
 
 def gram_pair_reference(s2: torch.Tensor, t2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch: ``(s2 s2^T, t2 t2^T)``, each the sum over ``CHUNK``-column
-    chunks, in chunk order, of the chunk's product."""
-    return _chunked_gram(s2), _chunked_gram(t2)
+    """Plain PyTorch: ``(s2 s2^T, t2 t2^T)`` in float32 (bf16 inputs widened),
+    each the sum over ``CHUNK``-column chunks, in chunk order, of the chunk's
+    product."""
+    return _chunked_gram(widened(s2)), _chunked_gram(widened(t2))
 
 
 def _check(s2: torch.Tensor, t2: torch.Tensor) -> None:
@@ -88,16 +93,17 @@ def _check(s2: torch.Tensor, t2: torch.Tensor) -> None:
         raise ValueError(f"the Gram pair takes 2 <= B <= {MAX_BATCH} rows, got {B}")
     if s2.shape[1] < 1 or t2.shape[1] < 1:
         raise ValueError(f"empty rows: {tuple(s2.shape)}, {tuple(t2.shape)}")
-    refuse_bf16((("s2", s2), ("t2", t2)), "gram_pair")
-    check_tensors((("s2", s2), ("t2", t2)), s2.device, "gram_pair")
+    check_tensors((("s2", s2), ("t2", t2)), s2.device, "gram_pair",
+                  float_dtype(s2, "gram_pair"))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gram_pair_fwd.argtypes = [ptr] * 3 + [i32, i64, i64, ptr]
-    lib.gram_pair_fwd.restype = i32
+    for fn in (lib.gram_pair_fwd, lib.gram_pair_fwd_bf16):
+        fn.argtypes = [ptr] * 3 + [i32, i64, i64, ptr]
+        fn.restype = i32
     for name in ("gram_pair_chunk_cols", "gram_pair_max_batch"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i32
@@ -109,10 +115,12 @@ def _library() -> ctypes.CDLL:
 
 
 def gram_pair_fwd(s2: torch.Tensor, t2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(s2 s2^T, t2 t2^T)`` for ``[B, Ds]`` and ``[B, Dt]``: the K2 kernel on
-    CUDA tensors (counted in ``gram_pair_fwd.launches``; partial Grams per
-    chunk, added in chunk order, so repeated runs give the same bits and the
-    output is exactly symmetric), ``gram_pair_reference`` on CPU tensors."""
+    """``(s2 s2^T, t2 t2^T)`` in float32 for ``[B, Ds]`` and ``[B, Dt]``
+    (float32 or bfloat16): the K2 kernel on CUDA tensors (counted in
+    ``gram_pair_fwd.launches``, the bf16 instantiation in
+    ``gram_pair_fwd.launches_bf16``; partial Grams per chunk, added in chunk
+    order, so repeated runs give the same bits and the output is exactly
+    symmetric), ``gram_pair_reference`` on CPU tensors."""
     _check(s2, t2)
     if s2.device.type == "cpu":
         return gram_pair_reference(s2, t2)
@@ -122,16 +130,22 @@ def gram_pair_fwd(s2: torch.Tensor, t2: torch.Tensor) -> Tuple[torch.Tensor, tor
     # gs, gt, then each chunk's packed upper triangle, in one allocation
     partial = (-(-ds // CHUNK) + -(-dt // CHUNK)) * (B * (B + 1) // 2)
     out = torch.empty(2 + -(-partial // (B * B)), B, B, device=s2.device, dtype=torch.float32)
+    bf16 = s2.dtype == torch.bfloat16
     with torch.cuda.device(s2.device):
-        err = lib.gram_pair_fwd(s2.data_ptr(), t2.data_ptr(), out.data_ptr(), B, ds, dt,
-                                torch.cuda.current_stream().cuda_stream)
+        err = (lib.gram_pair_fwd_bf16 if bf16 else lib.gram_pair_fwd)(
+            s2.data_ptr(), t2.data_ptr(), out.data_ptr(), B, ds, dt,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gram_pair_fwd launch failed: CUDA error {err}")
-    gram_pair_fwd.launches += 1
+        raise RuntimeError(f"gram_pair_fwd launch failed ({s2.dtype}): CUDA error {err}")
+    if bf16:
+        gram_pair_fwd.launches_bf16 += 1
+    else:
+        gram_pair_fwd.launches += 1
     return out[0], out[1]
 
 
 gram_pair_fwd.launches = 0
+gram_pair_fwd.launches_bf16 = 0
 
 
 class _GramPair(torch.autograd.Function):
@@ -144,9 +158,9 @@ class _GramPair(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dgs, dgt):
         s2, t2 = ctx.saved_tensors
-        # G = Z Z^T  =>  dZ = (dG + dG^T) Z
-        ds = (dgs + dgs.T) @ s2 if ctx.needs_input_grad[0] else None
-        dt = (dgt + dgt.T) @ t2 if ctx.needs_input_grad[1] else None
+        # G = Z Z^T  =>  dZ = (dG + dG^T) Z, in float32, cast to Z's dtype
+        ds = ((dgs + dgs.T) @ widened(s2)).to(s2.dtype) if ctx.needs_input_grad[0] else None
+        dt = ((dgt + dgt.T) @ widened(t2)).to(t2.dtype) if ctx.needs_input_grad[1] else None
         return ds, dt
 
 

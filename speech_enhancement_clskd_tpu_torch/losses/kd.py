@@ -27,7 +27,8 @@ Grams, summed slice by slice as ``_grams`` sums.
 bf16 taps (``distill.taps_dtype``): the Grams and HCL's terms are summed in
 float32 from the upcast taps (a bf16 product is exact in float32, as in the
 JAX ``dot_general(..., preferred_element_type=float32)``), and every loss is
-float32.  The fused Gram pair has no bf16 instantiation yet and raises.
+float32.  The fused Gram pair takes bf16 inputs as float32 ones (its bf16
+instantiation) and returns float32 Grams.
 """
 
 from __future__ import annotations
@@ -129,7 +130,6 @@ def spkd_loss(
                 raise ValueError(
                     f"the fused Gram pair flattens [B, *] inputs: batch_axis must be 0, "
                     f"got {batch_axis}")
-            # float32 inputs; a bf16 input raises there (bf16 K2 is not ported)
             return spkd_loss_fused(student, teacher, reduction)
     g_s = _grouped_gram_l1(student, batch_axis, groups)
     g_t = _grouped_gram_l1(teacher, batch_axis, groups)

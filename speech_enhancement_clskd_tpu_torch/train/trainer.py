@@ -52,10 +52,11 @@ computes in bf16 (``models.dccrn``), and ``distill.taps_dtype="bfloat16"``
 casts both models' feature taps to bf16 after the forwards, so the ABF
 chains run in bf16 (their BN statistics and folded affines in float32; with
 ``abf_conv_pallas`` and ``abf_attfuse_pallas`` the bf16 instantiations of K3
-and K4) and the KD losses take bf16 taps, their Grams summed in float32.
-The losses are float32, and the parameters, gradients and optimizer state
-stay float32.  ``abf_block_pallas`` on bf16 taps raises
-``NotImplementedError`` here (the bf16 K5 is ROADMAP queue 1 item 10).
+and K4, with ``abf_block_pallas`` that of K5, whose maps, ``xf`` and conv2
+output are bf16) and the KD losses take bf16 taps, their Grams float32
+(summed in float32, on K2's bf16 instantiation where the fused pair is
+taken).  The losses are float32, and the parameters, gradients and optimizer
+state stay float32.
 
 Around the step, the fit loop of the JAX trainer (``fit``, ``validate``,
 ``eval_step``, ``make_datasets``): epochs over the seeded loader
@@ -91,7 +92,6 @@ from ..distill.strategies import (
     needs_fusion,
     needs_teacher_taps,
 )
-from ..kernels import BF16_ITEM
 from ..losses.pit import pit_reorder
 from ..losses.signal import si_sdr
 from ..metrics.stoi import stoi_batch
@@ -126,10 +126,6 @@ def _check_supported(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             f"distill.taps_dtype={d.taps_dtype!r}: the port casts taps to bfloat16 or "
             "leaves them")
-    if needs_fusion(d.strategy) and d.abf_block_pallas and _abf_dtype(cfg) == torch.bfloat16:
-        raise NotImplementedError(
-            f"distill.abf_block_pallas on bfloat16 taps (the whole-block kernel K5 in "
-            f"bf16): {BF16_ITEM}")
 
 
 def _taps_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
@@ -137,11 +133,6 @@ def _taps_dtype(cfg: TrainConfig) -> Optional[torch.dtype]:
     their models' compute dtype), as the JAX step casts for a taps_dtype
     other than float32."""
     return None if cfg.distill.taps_dtype == "float32" else getattr(torch, cfg.distill.taps_dtype)
-
-
-def _abf_dtype(cfg: TrainConfig) -> torch.dtype:
-    """The dtype the ABF chains run in: the student's taps' after the cast."""
-    return _taps_dtype(cfg) or getattr(torch, cfg.student.compute_dtype)
 
 
 def _cast_taps(taps: FeatureTaps, dtype: torch.dtype) -> FeatureTaps:

@@ -4,9 +4,11 @@
 - The bf16 plain versions of K3f (and its dx pass), K3w, K4f and K4b
   against the Pallas kernels in interpret mode on the same bf16 inputs.
 - The bf16 model forward, the K1 wrapper's dtypes, one bf16 ``clskd`` step
-  (default and with the K3/K4 flags) against the JAX bf16 step, the port's
-  bf16-vs-float32 loss parity, the bf16 refusals of K5 and K2, and a bf16
-  bundle served by ``StreamingEnhancer``.
+  (default, with the K3/K4 flags and with the whole-block K5) against the
+  JAX bf16 step, the port's bf16-vs-float32 loss parity, every strategy and
+  option under bf16, and a bf16 bundle served by ``StreamingEnhancer``.
+  The bf16 K5 and K2 modules are held to the Pallas kernels in
+  ``tests/test_torch_bf16_block.py``.
 
 The JAX LSTM layers take a bf16 ``lax.scan`` on the CPU and the Pallas
 sequence kernel on a TPU; the port follows the TPU path (the recurrence in
@@ -65,15 +67,12 @@ from speech_enhancement_clskd_tpu_torch.config import (
 from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
 from speech_enhancement_clskd_tpu_torch.eval.streaming import StreamingEnhancer
 from speech_enhancement_clskd_tpu_torch.kernels import SUM_REL, bf16_check
-from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block
 from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
     attention_fuse_bwd,
     attention_fuse_fwd,
 )
 from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_wgrad
-from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair
 from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq
-from speech_enhancement_clskd_tpu_torch.losses.kd import spkd_loss
 from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
 from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 from speech_enhancement_clskd_tpu_torch.utils.bridge import load_train_state, torch_state_from_flax
@@ -108,7 +107,12 @@ PARITY_RTOL, PARITY_ATOL = 0.05, 5e-3
 # a bf16 bundle served by the port against the JAX StreamingEnhancer of the
 # same bundle: max abs on the waveform (measured 1.05e-3 on a peak of 0.44)
 STREAM_ATOL = 4e-3
-KERNEL_FLAGS = {"default": {}, "kernels": dict(abf_conv_pallas=True, abf_attfuse_pallas=True)}
+# the step's paths: the default chain, the K3/K4 kernels', and the whole-block
+# kernel's (K5; the JAX gate is closed off the TPU, so the JAX step is the
+# same snapshot, on its default chain, and the port's plain K5 rounds as the
+# Pallas block does: measured logs <= 2.0e-3, gradient norms <= 2.4e-2)
+KERNEL_FLAGS = {"default": {}, "kernels": dict(abf_conv_pallas=True, abf_attfuse_pallas=True),
+                "block": dict(abf_block_pallas=True)}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -331,8 +335,8 @@ def _cfg(dtype=BF16, **distill):
 
 @pytest.mark.parametrize("flags", list(KERNEL_FLAGS.values()), ids=list(KERNEL_FLAGS))
 def test_bf16_step_matches_jax(jax_step, flags):
-    """One bf16 step from the JAX state, default and on the K3/K4 paths
-    (their bf16 plain versions here): the same dtypes of every tap, fused
+    """One bf16 step from the JAX state, default, on the K3/K4 paths and on
+    the K5 path (their bf16 plain versions here): the same dtypes of every tap, fused
     map and loss (bf16 taps, float32 losses), and the logs to
     ``LOSS_RTOL`` and ``GRAD_NORM_RTOL``."""
     mix, clean = _batch()
@@ -371,25 +375,6 @@ def test_bf16_tracks_float32_over_four_steps():
     assert bf16[-1] < bf16[0] + 1e-3
 
 
-def test_bf16_refused_where_not_ported():
-    """The whole-block kernel K5 and the fused Gram pair K2 have no bf16
-    instantiation: their wrappers raise naming the ROADMAP item, on the CPU
-    too, as does a trainer with ``abf_block_pallas`` on bf16 taps."""
-    item = "ROADMAP queue 1 item 10"
-    s = torch.randn(4, 64, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=item):
-        gram_pair(s, s)
-    with pytest.raises(NotImplementedError, match=item):
-        spkd_loss(s, s, use_pallas=True)
-    tap = torch.randn(2, 8, 37, 8, dtype=torch.bfloat16)
-    w2 = torch.randn(3, 3, 64, 32, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match=item):
-        abf_block(tap, None, torch.randn(8, 64, dtype=torch.bfloat16),
-                  torch.zeros(64, dtype=torch.bfloat16), None, None, None, w2)
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer(_cfg(abf_block_pallas=True), device="cpu")
-
-
 # every strategy, and each float32 option of training, under bf16
 BF16_RUNS = {
     "reviewkd": (dict(strategy="reviewkd"), {}),
@@ -398,6 +383,7 @@ BF16_RUNS = {
     "stft": (dict(strategy="stft"), {}),
     "remat_fold_kernels": (dict(abf_remat=True, spkd_bn2_fold=True, abf_conv_pallas=True,
                                 abf_attfuse_pallas=True), {}),
+    "block_remat_fold": (dict(abf_block_pallas=True, abf_remat=True, spkd_bn2_fold=True), {}),
     "ninedot_reinit": (dict(abf_conv_ninedot=True, abf_reinit_each_step=True), {}),
     "adamw_clip_cosine": ({}, dict(optimizer="adamw", weight_decay=1e-2, grad_clip=0.5,
                                    lr_schedule="cosine", warmup_steps=1)),

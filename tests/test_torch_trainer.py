@@ -445,19 +445,6 @@ def test_init_state_is_seeded():
     assert all(p.requires_grad for m in a.trainable().values() for p in m.parameters())
 
 
-# bf16 taps run since the bf16 slice but for the whole-block kernel K5,
-# whose bf16 instantiation is not ported
-UNPORTED = {
-    "taps_bf16": dict(distill=DistillConfig(taps_dtype="bfloat16", abf_block_pallas=True)),
-}
-
-
-@pytest.mark.parametrize("change", list(UNPORTED.values()), ids=list(UNPORTED))
-def test_unported_options_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        Trainer(_cfg(**change), device="cpu")
-
-
 # -------------------------------------------- the options of the rest of training
 
 # the optimizer options and their steps: 3 where the clip or the schedule
@@ -689,14 +676,20 @@ def test_abf_reinit_each_step_equals_a_normal_step():
                            draws[1]["abf_enc"]["abf0.conv1.kernel"])
 
 
-@pytest.mark.parametrize("path", ["default", "block"])
+# the ABF paths under remat: the default chain, the whole-block kernel's,
+# and the whole-block kernel's on bf16 taps
+REMAT_FLAGS = {"default": {}, "block": KERNEL_FLAGS["block"],
+               "block_bf16": dict(KERNEL_FLAGS["block"], taps_dtype="bfloat16")}
+
+
+@pytest.mark.parametrize("path", list(REMAT_FLAGS))
 def test_abf_remat_is_bit_exact(path):
     """``abf_remat`` against no remat over two steps, on the default ABF
-    path and on the whole-block kernel's (its autograd function recomputed
-    under the checkpoint): the same bits in every log, gradient, parameter
-    and running statistic (a recomputed block does not move its BN
-    statistics a second time)."""
-    flags = KERNEL_FLAGS.get(path, {})
+    path and on the whole-block kernel's, in float32 and on bf16 taps (its
+    autograd function recomputed under the checkpoint): the same bits in
+    every log, gradient, parameter and running statistic (a recomputed block
+    does not move its BN statistics a second time)."""
+    flags = REMAT_FLAGS[path]
     a = Trainer(_cfg(distill=DistillConfig(**flags)), device="cpu").init_state(0)
     b = Trainer(_cfg(distill=DistillConfig(abf_remat=True, **flags)), device="cpu").init_state(0)
     for mix, clean in _short_batches(2):
@@ -713,13 +706,14 @@ def test_abf_remat_is_bit_exact(path):
 
 def test_bf16_compute_raises():
     """bf16 compute with float32 taps leaves the taps in bf16 (as the JAX step
-    does), so the ABF chains run in bf16: the whole-block kernel, not ported
-    in bf16, raises naming its item; the per-op chain builds."""
+    does), so the ABF chains run in bf16: since the bf16 whole-block kernel
+    was ported, nothing raises; the per-op chain and the whole-block
+    kernel's both build and leave the taps uncast."""
     student = DCCRNConfig(**TINY_S, compute_dtype="bfloat16")
     cfg = TrainConfig(teacher=DCCRNConfig(**TINY_T), student=student)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-        Trainer(dataclasses.replace(cfg, distill=DistillConfig(abf_block_pallas=True)),
-                device="cpu")
+    block = Trainer(dataclasses.replace(cfg, distill=DistillConfig(abf_block_pallas=True)),
+                    device="cpu")
+    assert block.taps_dtype is None and block.abf_enc.abf0.block_pallas
     assert Trainer(cfg, device="cpu").taps_dtype is None
 
 
