@@ -11,9 +11,10 @@ card, then drives both paths through their entry points:
    (left alone: the float32 model and trainer turn TF32 off for their own
    calls);
 2. build: one ``nvcc`` per CUDA source, all started together, and the
-   tensor-core instructions in the mma kernels of K3f's, K3w's, K5f's and
-   K5b's libraries (``cuobjdump -sass``, or the PTX where the toolkit has no
-   cuobjdump);
+   tensor-core instructions in the mma kernels of K3f's, K3w's, the bf16
+   K3's, K5f's and K5b's libraries, with HGMMA in the bf16 conv tile's TMA
+   kernels (``*wgmma_kernel*``) of the bf16 K3's and K5's
+   (``cuobjdump -sass``, or the PTX where the toolkit has no cuobjdump);
 3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
    the shapes the serving and training paths give it, each with the plan
    K1f takes, with times, the bound and a one-call PyTorch yardstick
@@ -116,7 +117,9 @@ card, then drives both paths through their entry points:
     float32 rounding of their terms where a sum cancels; float32 outputs to
     1e-5 relative L2), two runs giving the same bits; times at the
     reference shapes, the bound (bf16 tensor-core peak or bytes) and cuDNN's
-    bf16 ``F.conv2d`` and ``conv2d_weight``;
+    bf16 ``F.conv2d`` and ``conv2d_weight``; the bf16 K3f, its dx pass and
+    K3w at each distinct step shape (kernel, cuDNN's bf16, bound, route:
+    "wgmma" wherever C and O >= 8) and summed by the step's launches;
 18. bf16 training: teacher and student ``compute_dtype`` and
     ``distill.taps_dtype`` bfloat16 (``bench.py``'s headline form) as phase
     9 at 32 x 3 s beside phase 7's step, with its card-vs-CPU step (the
@@ -130,8 +133,9 @@ card, then drives both paths through their entry points:
     K5b on bf16 maps and weights (bvec, zoff float32) at the reference
     block (timed, with the plain versions and the bound) and at each
     distinct block shape of the block-config step (the mask block among
-    them; kernel times summed by blocks a step), the backward on the
-    kernel's own xf: xf, out, g_tap and g_res by ``kernels.bf16_check``
+    them; kernel times summed by blocks a step; their 3x3 convs on the
+    bf16 K3's tile, route "wgmma" but at the mask block), the backward on
+    the kernel's own xf: xf, out, g_tap and g_res by ``kernels.bf16_check``
     with ``abf_block_bf16_scales``, the float32 parameter gradients by
     relative L2 (dw1a, dwxt and dwy, sums of values rounded to bf16 inside
     the kernel, to 1e-4; the others to 1e-5), two runs giving the same bits;
@@ -269,7 +273,9 @@ BF16_SERVING_ATOL = 5e-3
 
 
 # Each kernel's design: K1f, K1b, K2, K3f, K3w, K5f and K5b are in their
-# second, K4f and K4b in their first (PERF.md section 6 keeps each design's times).
+# second, K4f and K4b in their first, and of the bf16 instantiations K3f,
+# K3w, K5f and K5b in their second (the bf16 conv tile on TMA and wgmma)
+# (PERF.md section 6 keeps each design's times).
 DESIGNS = {
     "lstm_seq_fwd": "register-cluster",
     "lstm_seq_bwd": "gate-prepass-register-chain",
@@ -280,12 +286,12 @@ DESIGNS = {
     "abf_block_fwd": "xf-pass-3xtf32-mma",
     "abf_block_bwd": "mma-adjoint-pixel-pass",
     "gram_pair_fwd": "bulk-copy-ring-fma-tiles",
-    "conv3x3_fwd_bf16": "bf16-mma-m16n8k16",
-    "conv3x3_wgrad_bf16": "bf16-mma-m16n8k16",
+    "conv3x3_fwd_bf16": "tma-ring-resident-weights-wgmma",
+    "conv3x3_wgrad_bf16": "tma-ring-wgmma",
     "attfuse_fwd_bf16": "warp-row",
     "attfuse_bwd_bf16": "warp-row",
-    "abf_block_fwd_bf16": "xf-pass-bf16-mma",
-    "abf_block_bwd_bf16": "bf16-mma-adjoint-pixel-pass",
+    "abf_block_fwd_bf16": "xf-pass-bf16-wgmma",
+    "abf_block_bwd_bf16": "bf16-wgmma-adjoint-pixel-pass",
     "gram_pair_fwd_bf16": "bulk-copy-ring-fma-tiles",
 }
 
@@ -333,6 +339,7 @@ def phase_build():
     tensor_cores = {name: _tensor_core_check(paths[sources.index(source)], source)
                     for name, source in (("k3f", conv3x3.FWD_SOURCE),
                                          ("k3w", conv3x3.WGRAD_SOURCE),
+                                         ("k3_bf16", conv3x3.BF16_SOURCE),
                                          ("k5f", abf_block.FWD_SOURCE),
                                          ("k5b", abf_block.BWD_SOURCE))}
     say("build", seconds=round(seconds, 3),
@@ -341,13 +348,18 @@ def phase_build():
     for name, found in tensor_cores.items():
         if found["count"] == 0:
             raise RuntimeError(f"{name}'s mma kernels use no tensor-core instruction: {found}")
+        # the bf16 conv tile's TMA route (in K3's bf16 library and K5's) on wgmma
+        if name in ("k3_bf16", "k5f", "k5b") and found["wgmma_count"] == 0:
+            raise RuntimeError(f"{name}'s wgmma kernels use no wgmma instruction: {found}")
 
 
 def _tensor_core_check(library: Path, source: str) -> dict:
     """The tensor-core instructions in the mma kernels (``*mma_kernel*``) of
-    ``source``'s library (K3f's, K3w's, K5f's, K5b's): HMMA/HGMMA in
-    ``cuobjdump -sass`` of the built library where the toolkit has
-    cuobjdump, else mma/wgmma in the PTX that nvcc gives for the source."""
+    ``source``'s library (K3f's, K3w's, the bf16 K3's, K5f's, K5b's): HMMA or
+    HGMMA in ``cuobjdump -sass`` of the built library where the toolkit has
+    cuobjdump (``count``), and HGMMA alone in the bf16 tile's TMA kernels
+    (``*wgmma_kernel*``, ``wgmma_count``); else mma/wgmma in the PTX that
+    nvcc gives for the source."""
     import os
     import re
     import shutil
@@ -362,15 +374,19 @@ def _tensor_core_check(library: Path, source: str) -> dict:
         funcs = re.split(r"\n\s*Function : ", sass)
         count = sum(len(re.findall(r"\bH(?:G)?MMA\b", f)) for f in funcs
                     if "mma_kernel" in f.split("\n", 1)[0])
-        return {"checked": "sass (cuobjdump)", "instruction": "HMMA/HGMMA", "count": count}
+        wgmma = sum(len(re.findall(r"\bHGMMA\b", f)) for f in funcs
+                    if "wgmma_kernel" in f.split("\n", 1)[0])
+        return {"checked": "sass (cuobjdump)", "instruction": "HMMA/HGMMA", "count": count,
+                "wgmma_count": wgmma}
     ptx = _build.BUILD_DIR / (Path(source).stem + ".ptx")
     subprocess.run([_build._nvcc(), "-gencode", "arch=compute_90a,code=compute_90a",
                     "-std=c++17", "-O3", "-ptx", "-o", str(ptx),
                     str(_build.CSRC_DIR / source)], check=True, capture_output=True,
                    text=True, timeout=300)
-    count = len(re.findall(r"\b(?:mma|wgmma)\.", ptx.read_text()))
+    text = ptx.read_text()
     return {"checked": "ptx (nvcc -ptx; no cuobjdump)", "instruction": "mma/wgmma",
-            "count": count}
+            "count": len(re.findall(r"\b(?:mma|wgmma)\.", text)),
+            "wgmma_count": len(re.findall(r"\bwgmma\.mma_async\b", text))}
 
 
 def _time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -2086,14 +2102,16 @@ def _bound_bf16(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _bf16_conv_case(B, D, T, C, O, timed: bool, dx: bool = False) -> dict:
+def _bf16_conv_case(B, D, T, C, O, timed: bool, dx: bool = False,
+                    step: bool = False) -> dict:
     """The bf16 K3f (or its dx pass, ``dx``: the same kernel, C and O of the
     incoming gradient and the block's input) and K3w at x [B, D, T, C] -> O
     against their plain bf16 versions: the bf16 output by ``bf16_check``
     (one bf16 spacing, or ``SUM_REL`` of the sum of the products' magnitudes
     where the sum cancels), dw by relative L2, two runs' bits; timed: the
     kernels, their plain versions, the bound and cuDNN's bf16
-    ``F.conv2d``/``conv2d_weight``."""
+    ``F.conv2d``/``conv2d_weight``; ``step`` (a shape of the kernel-config
+    step): the kernels, the bound and cuDNN's, without the plain versions."""
     import torch
     import torch.nn.functional as F
 
@@ -2132,27 +2150,31 @@ def _bf16_conv_case(B, D, T, C, O, timed: bool, dx: bool = False) -> dict:
            "fwd_check": check, "fwd_max_abs_err": check["max_abs_err"],
            "fwd_bitwise_repeat": repeat, "wgrad_rel_l2": err_dw,
            "wgrad_bitwise_repeat": dw_repeat, "wgrad_tol": BF16_KERNEL_REL_L2}
-    if timed:
+    if timed or step:
         rows = B * D * T
         flops = 2.0 * rows * 9 * C * O
         fwd_bytes = 2.0 * (rows * C + 9 * C * O + rows * O)
         wgrad_bytes = 2.0 * (rows * C + rows * O) + 4.0 * 9 * C * O
-        fwd_bound = (_bound_bf16 if rec["fwd_route"] == "mma" else _bound)(fwd_bytes, flops)
-        wgrad_bound = (_bound_bf16 if rec["wgrad_route"] == "mma" else _bound)(wgrad_bytes,
-                                                                              flops)
+        tensor_cores = ("mma", "wgmma")
+        fwd_bound = (_bound_bf16 if rec["fwd_route"] in tensor_cores else _bound)(fwd_bytes,
+                                                                                 flops)
+        wgrad_bound = (_bound_bf16 if rec["wgrad_route"] in tensor_cores else _bound)(
+            wgrad_bytes, flops)
         x_nchw, gy_nchw = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         with float32_math():
             rec.update(
                 fwd_ms=_time_ms(lambda: conv3x3_fwd(x, w), iters=10),
-                fwd_plain_ms=_time_ms(lambda: conv3x3_reference(x, w), iters=2),
                 fwd_library_ms=_time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), iters=10),
                 fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
                 wgrad_ms=_time_ms(lambda: conv3x3_wgrad(x, gy), iters=10),
-                wgrad_plain_ms=_time_ms(lambda: conv3x3_wgrad_reference(x, gy), iters=2),
                 wgrad_library_ms=_time_ms(lambda: torch.nn.grad.conv2d_weight(
                     x_nchw, w_oihw.shape, gy_nchw, padding=1), iters=10),
                 wgrad_bound_ms=wgrad_bound[0], wgrad_bound_by=wgrad_bound[1])
+            if timed:
+                rec.update(
+                    fwd_plain_ms=_time_ms(lambda: conv3x3_reference(x, w), iters=2),
+                    wgrad_plain_ms=_time_ms(lambda: conv3x3_wgrad_reference(x, gy), iters=2))
     return rec
 
 
@@ -2235,11 +2257,35 @@ def _bf16_fuse_case(B, D, Dp, T, C, timed: bool) -> dict:
     return rec
 
 
+def _bf16_conv_step_sums(conv: list) -> dict:
+    """The bf16 K3f, its dx pass and K3w summed over the kernel-config step's
+    launches (each conv of ``STEP_CONV_FWD`` a forward, a dx pass and a weight
+    gradient): the kernels, cuDNN's bf16 and the bounds, from ``conv``'s
+    timed records at each step shape."""
+    def rec_of(D, C, O, dx):
+        return next(r for r in conv if (r["B"], r["D"], r["T"], r["C"], r["O"]) == (
+            TEACHER_BATCH, D, 483, C, O) and (r["pass"] == "dx") == dx and "fwd_ms" in r)
+
+    sums = {}
+    for name, pick in (("fwd", lambda D, C, O: (rec_of(D, C, O, False), "fwd")),
+                       ("dx", lambda D, C, O: (rec_of(D, O, C, True), "fwd")),
+                       ("wgrad", lambda D, C, O: (rec_of(D, C, O, False), "wgrad"))):
+        parts = [pick(D, C, O) for D, C, O in STEP_CONV_FWD]
+        sums[name] = {k: sum(r[f"{key}_{k}"] for r, key in parts)
+                      for k in ("ms", "library_ms", "bound_ms")}
+        sums[name]["launches"] = len(parts)
+        sums[name]["routes"] = {route: sum(1 for r, key in parts if r[f"{key}_route"] == route)
+                                for route in ("wgmma", "mma", "fma", "narrow")}
+    return sums
+
+
 def phase_bf16_kernels_vs_plain():
     """Phase 17: the bf16 K3f (and its dx pass), K3w, K4f and K4b against
     their plain bf16 versions at phase 8's shapes and at each distinct conv
     shape of the kernel-config step (forward and dx), with times at the
-    reference shapes."""
+    reference shapes and at each step shape (kernel, cuDNN's bf16, bound,
+    route; the step's sums by launches); every step shape with C and O >= 8
+    takes route "wgmma" (the weight gradient where O > 8)."""
     import torch
 
     conv, fuse = [], []
@@ -2247,10 +2293,12 @@ def phase_bf16_kernels_vs_plain():
     for D, C, O in STEP_CONV_FWD:
         step.setdefault((TEACHER_BATCH, D, 483, C, O, False, False), None)
         step.setdefault((TEACHER_BATCH, D, 483, O, C, False, True), None)
-    cases = [(*shape, False, False) for *shape, _ in CONV_CASES if tuple(shape) != CONV_REF]
-    cases = [(*CONV_REF, True, False)] + cases + [c for c in step if c[:5] != CONV_REF]
-    for B, D, T, C, O, timed, dx in cases:
-        rec = _bf16_conv_case(B, D, T, C, O, timed, dx)
+    cases = [(*shape, False, False, False) for *shape, _ in CONV_CASES
+             if tuple(shape) != CONV_REF]
+    cases = ([(*CONV_REF, True, False, True), (*CONV_REF, False, True, True)] + cases
+             + [(*c, True) for c in step if c[:5] != CONV_REF])
+    for B, D, T, C, O, timed, dx, on_step in cases:
+        rec = _bf16_conv_case(B, D, T, C, O, timed, dx, step=on_step)
         say("bf16_kernels_vs_plain", kernel="conv3x3_bf16", **rec)
         conv.append(rec)
         torch.cuda.empty_cache()
@@ -2258,6 +2306,11 @@ def phase_bf16_kernels_vs_plain():
                 and rec["wgrad_rel_l2"] <= BF16_KERNEL_REL_L2 and rec["wgrad_bitwise_repeat"]):
             raise RuntimeError(f"the bf16 conv3x3 kernels disagree with their plain versions: "
                                f"{rec}")
+        if on_step and min(C, O) >= 8 and (rec["fwd_route"] != "wgmma" or (
+                O > 8 and not dx and rec["wgrad_route"] != "wgmma")):
+            raise RuntimeError(f"a step shape off route wgmma: {rec}")
+    sums = _bf16_conv_step_sums(conv)
+    say("bf16_kernels_vs_plain", kernel="conv3x3_bf16", step_sums=sums)
     for *shape, timed in FUSE_CASES:
         rec = _bf16_fuse_case(*shape, timed=timed)
         say("bf16_kernels_vs_plain", kernel="attention_fuse_bf16", **rec)
@@ -2267,7 +2320,7 @@ def phase_bf16_kernels_vs_plain():
                 and rec["fwd_bitwise_repeat"] and rec["bwd_bitwise_repeat"]):
             raise RuntimeError(f"the bf16 attention fuse kernels disagree with their plain "
                                f"versions: {rec}")
-    return conv, fuse
+    return conv, fuse, sums
 
 
 def bf16_parity() -> dict:
@@ -2674,7 +2727,7 @@ def main() -> None:
     fit = phase_fit(training["step_ms_median"], training["audio_s_per_s"])
     reviewkd_training = phase_training_reviewkd(training)
     option_training = phase_training_options(block_training)
-    bf16_conv_shapes, bf16_fuse_shapes = phase_bf16_kernels_vs_plain()
+    bf16_conv_shapes, bf16_fuse_shapes, bf16_conv_sums = phase_bf16_kernels_vs_plain()
     bf16 = phase_training_bf16(training)
     bf16_teacher = phase_serving_teacher_bf16(teacher)
     bf16_kernels_k5_k2 = phase_bf16_block_kernels_vs_plain()
@@ -2881,7 +2934,7 @@ def main() -> None:
             "library_ms": None,
             "step_ms": bf16_kernels_k5_k2["block_step_sums"][f"{key}_ms"],
             "routes": {r: sum(c["count"] for c in bf16_kernels_k5_k2["block_steps"]
-                              if c[f"{key}_route"] == r) for r in ("mma", "direct")},
+                              if c[f"{key}_route"] == r) for r in ("wgmma", "mma", "direct")},
             "max_ulps": max(c["max_ulps"] for c in checks),
             "share_differ": max(c["share_differ"] for c in checks),
             "share_over_1ulp": max(c["share_over_1ulp"] for c in checks),
@@ -2921,6 +2974,13 @@ def main() -> None:
             k.update(bound_f32_ms=conv["wgrad_bound_f32_ms"],
                      routes={r: sum(1 for c in conv_shapes if c.get("wgrad_route") == r)
                              for r in ("mma", "narrow")})
+        # the bf16 conv tile's routes at the step's launches and the step's sums
+        if k["name"] == "conv3x3_fwd_bf16":
+            k.update(routes={"fwd": bf16_conv_sums["fwd"]["routes"],
+                             "dx": bf16_conv_sums["dx"]["routes"]},
+                     step=bf16_conv_sums["fwd"], step_dx=bf16_conv_sums["dx"])
+        if k["name"] == "conv3x3_wgrad_bf16":
+            k.update(routes=bf16_conv_sums["wgrad"]["routes"], step=bf16_conv_sums["wgrad"])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

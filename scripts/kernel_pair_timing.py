@@ -23,6 +23,14 @@ prints one JSON line per shape, then writes them all to ``--out``:
   shape of the block-config step (``chip_smoke.STEP_BLOCKS``: B=32, T=483,
   M=64), each with a hash of its outputs' bits (K5b's xf from the tree's
   own K5f);
+- the bf16 K3f (``conv3x3_fwd`` on bf16 maps) at each distinct (D, C, O)
+  of the kernel-config step's forwards (B=32, T=483, C=64) and of their dx
+  passes (C and O swapped), and the bf16 K3w (``conv3x3_wgrad``) at each
+  forward's (D, C, O), each with the route its tree reports, a hash of its
+  output's bits, and cuDNN's bf16 ``F.conv2d`` / ``conv2d_weight`` on the
+  same inputs;
+- the bf16 K5f and K5b at each block of ``chip_smoke.STEP_BLOCKS`` (maps and
+  weights in bf16, bvec and zoff float32), with hashes of their outputs;
 - K2 (``gram_pair_fwd``) at B in {8, 16, 32, 64} x 528,000 columns (the
   spkd step's 33 s waveforms), with ``gram_times`` of this script's own
   tree's ``chip_smoke.py`` (loaded by path, so both trees are timed with the
@@ -33,7 +41,8 @@ prints one JSON line per shape, then writes them all to ``--out``:
 
 Except K2's device times, each time is CUDA events over repeated launches
 after a warm-up; inputs come from seeded generators, so both trees see the
-same data.  Needs CUDA.
+same data.  ``--kernels`` names the groups to time (``k1b k3f k3w k5 k2
+bf16_conv bf16_k5``; all by default).  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -58,6 +67,10 @@ K3F_SHAPES = [(64, 64, 64), (4, 64, 256)]
 # M=64, k=2 where a block fuses), as chip_smoke.STEP_BLOCKS
 K5_SHAPES = [(False, 4, 64, 256), (True, 8, 64, 256), (True, 16, 64, 256), (True, 32, 32, 128),
              (True, 64, 16, 64), (True, 128, 8, 32), (False, 8, 64, 256), (True, 256, 2, 2)]
+# (D, C, O) of the bf16 K3f's forwards at batch 32, T=483 (the dx passes
+# swap C and O; the weight gradients run at the forwards' shapes)
+BF16_CONV_SHAPES = [(4, 64, 256), (8, 64, 256), (16, 64, 256), (32, 64, 128), (64, 64, 64),
+                    (128, 64, 32), (256, 64, 2)]
 # K2's batches on the spkd step's 33 s waveforms
 K2_BATCHES = [8, 16, 32, 64]
 K2_COLUMNS = 528000
@@ -145,9 +158,11 @@ def k3f(emit) -> None:
 
 
 def _bits(*tensors) -> str:
-    """A hash of the tensors' bits (``None`` skipped)."""
-    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in tensors
-                                   if t is not None)).hexdigest()[:16]
+    """A hash of the tensors' bits (``None`` skipped; bf16 as its bytes)."""
+    import torch
+
+    return hashlib.sha256(b"".join(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes()
+                                   for t in tensors if t is not None)).hexdigest()[:16]
 
 
 def k5(emit) -> None:
@@ -180,6 +195,74 @@ def k5(emit) -> None:
         torch.cuda.empty_cache()
 
 
+def bf16_conv(emit) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
+        conv3x3_fwd,
+        conv3x3_fwd_route,
+        conv3x3_wgrad,
+        conv3x3_wgrad_route,
+    )
+
+    B, T = 32, 483
+    for D, C, O in BF16_CONV_SHAPES:
+        for pass_, (ci, co) in (("fwd", (C, O)), ("dx", (O, C))):
+            g = torch.Generator(device="cuda").manual_seed(D + ci + 3 * co)
+            x = torch.randn(B, D, T, ci, device="cuda", generator=g).bfloat16()
+            w = (torch.randn(3, 3, ci, co, device="cuda", generator=g) / (3 * ci ** 0.5)).bfloat16()
+            shape = dict(B=B, D=D, T=T, C=ci, O=co)
+            ms = _time_ms(lambda: conv3x3_fwd(x, w), 20)
+            x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+            library_ms = _time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1), 20)
+            emit(kernel="conv3x3_fwd_bf16", pass_=pass_, **shape,
+                 route=conv3x3_fwd_route(ci, co, torch.bfloat16), ms=ms, library_ms=library_ms,
+                 sha256_out=_bits(conv3x3_fwd(x, w)))
+            if pass_ == "fwd":
+                gy = torch.randn(B, D, T, co, device="cuda", generator=g).bfloat16()
+                ms = _time_ms(lambda: conv3x3_wgrad(x, gy), 20)
+                library_ms = _time_ms(lambda: torch.nn.grad.conv2d_weight(
+                    x_nchw, (co, ci, 3, 3), gy.permute(0, 3, 1, 2), padding=1), 20)
+                emit(kernel="conv3x3_wgrad_bf16", **shape,
+                     route=conv3x3_wgrad_route(ci, co, torch.bfloat16), ms=ms,
+                     library_ms=library_ms, sha256_dw=_bits(conv3x3_wgrad(x, gy)))
+                del gy
+            del x, w
+            torch.cuda.empty_cache()
+
+
+def bf16_k5(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_bwd, abf_block_fwd
+
+    B, T, M = 32, 483, 64
+    for fuse, D, Cs, O in K5_SHAPES:
+        k = 2 if fuse else 1
+        g = torch.Generator(device="cuda").manual_seed(B * D + k + Cs + O + 1)
+
+        def r(*shape, scale=1.0, dtype=torch.bfloat16):
+            return (scale * torch.randn(*shape, device="cuda", generator=g)).to(dtype)
+
+        kw = dict(tap=r(B, D, T, Cs), res=r(B, D // k, T, M) if fuse else None,
+                  w1a=r(Cs, M, scale=Cs ** -0.5), bvec=r(M, scale=0.2, dtype=torch.float32),
+                  wxt=r(Cs, 2, scale=0.3), wy=r(M, 2, scale=0.3),
+                  zoff=r(2, scale=0.1, dtype=torch.float32),
+                  w2=r(3, 3, M, O, scale=1 / (3 * M ** 0.5)))
+        gxf, gout = r(B, D, T, M), r(B, D, T, O)
+        shape = dict(fuse=fuse, B=B, D=D, k=k, T=T, Cs=Cs, M=M, O=O)
+        ms = _time_ms(lambda: abf_block_fwd(**kw), 10)
+        xf, out = abf_block_fwd(**kw)
+        emit(kernel="abf_block_fwd_bf16", **shape, ms=ms, sha256_xf_out=_bits(xf, out))
+        del out
+        ms = _time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout), 10)
+        emit(kernel="abf_block_bwd_bf16", **shape, ms=ms,
+             sha256_grads=_bits(*abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)))
+        del kw, gxf, gout, xf
+        torch.cuda.empty_cache()
+
+
 def k2(emit) -> None:
     import torch
 
@@ -205,11 +288,17 @@ def k2(emit) -> None:
         torch.cuda.empty_cache()
 
 
+GROUPS = {"k1b": k1b, "k3f": k3f, "k3w": k3w, "k5": k5, "k2": k2, "bf16_conv": bf16_conv,
+          "bf16_k5": bf16_k5}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(HERE), help="the source tree to time")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--kernels", nargs="+", default=list(GROUPS), choices=list(GROUPS),
+                    help="the groups of kernels to time")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -226,11 +315,8 @@ def main() -> None:
         print(json.dumps(rec), flush=True)
         records.append(rec)
 
-    k1b(emit)
-    k3f(emit)
-    k3w(emit)
-    k5(emit)
-    k2(emit)
+    for name in args.kernels:
+        GROUPS[name](emit)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(records, indent=1))

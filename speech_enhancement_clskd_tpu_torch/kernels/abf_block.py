@@ -60,12 +60,14 @@ products a pair ("3xTF32", within f32 rounding of an f32 sum).  ``"direct"``
 conv in f32 FMA inside the kernel's own pass.  The 1x1 conv, the attention
 and their gradients are f32 FMA; K5b's dw2 is K3w's split-TF32 reduction
 (f32 FMA for O <= 8).  In bf16 the 3x3 convs run on the bf16 K3f's and K3w's
-code (``csrc/conv3x3_bf16.cuh``): K5f's xf pass, then the conv on the
-m16n8k16 bf16 tensor-core tile (route ``"mma"``, O >= 8 and M >= 8), or the
-direct kernel on bf16 loads (``"direct"``: the mask block); K5b's adjoint on
-the same tile into a float32 scratch ``dxf`` (``"mma"``, O >= 8 and M >= 8)
-or in the pixel pass (``"direct"``), the pass on bf16 loads in float32
-arithmetic, dw2 on the bf16 K3w's routes.
+code (``csrc/conv3x3_bf16.cuh``): K5f's xf pass, then the conv on the bf16
+K3f's TMA and wgmma tile (route ``"wgmma"``: M and O multiples of 8, M <=
+256) or its m16n8k16 tile (``"mma"``: the other shapes with O >= 8 and M >=
+8), or the direct kernel on bf16 loads (``"direct"``: the mask block); K5b's
+adjoint on the same tiles into a float32 scratch ``dxf`` (``"wgmma"`` or
+``"mma"`` by the same test with O input channels) or in the pixel pass
+(``"direct"``), the pass on bf16 loads in float32 arithmetic, dw2 on the
+bf16 K3w's routes.
 """
 
 from __future__ import annotations
@@ -320,15 +322,16 @@ def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor,
 abf_block_fwd.launches = 0
 abf_block_fwd.launches_bf16 = 0
 
-ROUTES = ("direct", "mma")
+ROUTES = ("direct", "mma", "wgmma")
 
 
 def abf_block_fwd_route(M: int, O: int, dtype: torch.dtype = torch.float32) -> str:
     """The route K5f takes for M mid and O output channels in ``dtype``, as
     its C entry chooses it: ``"mma"`` (xf pass, then the conv on K3f's
-    tensor-core tile, split TF32 or bf16) or ``"direct"`` (xf and the conv in
-    one f32 FMA pass).  Asks the built library, so it needs the CUDA
-    toolkit."""
+    tensor-core tile, split TF32 or bf16 m16n8k16), in bf16 ``"wgmma"`` (the
+    conv on the bf16 K3f's TMA and wgmma tile, where M and O are multiples
+    of 8 and M <= 256) or ``"direct"`` (xf and the conv in one f32 FMA
+    pass).  Asks the built library, so it needs the CUDA toolkit."""
     lib = _library(FWD_SOURCE)
     if dtype == torch.bfloat16:
         return ROUTES[lib.abf_block_fwd_bf16_route(M, O)]
@@ -338,9 +341,10 @@ def abf_block_fwd_route(M: int, O: int, dtype: torch.dtype = torch.float32) -> s
 def abf_block_bwd_route(M: int, O: int, dtype: torch.dtype = torch.float32) -> str:
     """The route of K5b's conv adjoint for M mid and O output channels in
     ``dtype``, as its C entry chooses it: ``"mma"`` (K3f's tensor-core tile,
-    split TF32 or bf16, into a scratch dxf) or ``"direct"`` (formed in the
-    pixel pass, f32 FMA).  Asks the built library, so it needs the CUDA
-    toolkit."""
+    split TF32 or bf16 m16n8k16, into a scratch dxf), in bf16 ``"wgmma"``
+    (the bf16 K3f's TMA and wgmma tile, where M and O are multiples of 8 and
+    O <= 256) or ``"direct"`` (formed in the pixel pass, f32 FMA).  Asks the
+    built library, so it needs the CUDA toolkit."""
     lib = _library(BWD_SOURCE)
     if dtype == torch.bfloat16:
         return ROUTES[lib.abf_block_bwd_bf16_route(M, O)]

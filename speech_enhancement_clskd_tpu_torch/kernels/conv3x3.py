@@ -24,9 +24,11 @@ Each wrapper runs in its input's dtype, float32 or bfloat16 (``x`` and
 ``w`` of one dtype).  The bf16 instantiations (``csrc/conv3x3_bf16.cu``,
 counted in ``launches_bf16``) are the Pallas kernels on bf16 operands: the
 products of bf16 values, exact in float32, summed in float32, the forward's
-output rounded once to bf16 and ``dw`` left in float32; ``m16n8k16`` bf16
-tensor-core products (route ``"mma"``, O >= 8 and C >= 8) or f32 FMA (route
-``"fma"``; the weight gradient's ``"narrow"`` for O <= 8).  The plain
+output rounded once to bf16 and ``dw`` left in float32; TMA-fed ``wgmma``
+bf16 tensor-core products (route ``"wgmma"``: C and O multiples of 8, the
+forward's C <= 256, the maps 16-byte aligned), ``m16n8k16`` ``mma.sync``
+ones (route ``"mma"``: the other shapes with O >= 8 and C >= 8) or f32 FMA
+(route ``"fma"``; the weight gradient's ``"narrow"`` for O <= 8).  The plain
 versions do the same in float32 and round where the kernels round.  The
 differentiable ``conv3x3`` returns the weight gradient in the weight's
 dtype, as the JAX custom VJP does.
@@ -113,7 +115,7 @@ def _library(source: str) -> ctypes.CDLL:
         lib.conv3x3_bf16_fwd_scratch_elems.argtypes = [i32] * 2
         lib.conv3x3_bf16_fwd_scratch_elems.restype = ctypes.c_long
         for name in ("conv3x3_bf16_fwd_route", "conv3x3_bf16_wgrad_route"):
-            getattr(lib, name).argtypes = [i32] * 2
+            getattr(lib, name).argtypes = [i32] * 3
             getattr(lib, name).restype = i32
         lib.conv3x3_bf16_wgrad_chunks.argtypes = [i32] * 3
         lib.conv3x3_bf16_wgrad_chunks.restype = i32
@@ -183,17 +185,20 @@ def _fwd_bf16(x, w, B, D, T, C, O):
 conv3x3_fwd.launches = 0
 conv3x3_fwd.launches_bf16 = 0
 
-FWD_ROUTES = ("fma", "mma")
+FWD_ROUTES = ("fma", "mma", "wgmma")
 
 
-def conv3x3_fwd_route(C: int, O: int, dtype: torch.dtype = torch.float32) -> str:
+def conv3x3_fwd_route(C: int, O: int, dtype: torch.dtype = torch.float32,
+                      aligned: bool = True) -> str:
     """The route K3f takes for C input and O output channels in ``dtype``,
     as its C entry chooses it: ``"mma"`` (split TF32, or bf16 m16n8k16, on
-    the tensor cores) or ``"fma"`` (f32 FMA, where a tensor-core tile would
-    be mostly padding).  Asks the built library, so it needs the CUDA
-    toolkit."""
+    the tensor cores), ``"fma"`` (f32 FMA, where a tensor-core tile would be
+    mostly padding) or, in bf16 only, ``"wgmma"`` (TMA and wgmma, where C
+    and O are multiples of 8, C <= 256 and the maps start on 16 bytes;
+    ``aligned`` false: x does not, and the route is ``"mma"``).  Asks the
+    built library, so it needs the CUDA toolkit."""
     if dtype == torch.bfloat16:
-        return FWD_ROUTES[_library(BF16_SOURCE).conv3x3_bf16_fwd_route(C, O)]
+        return FWD_ROUTES[_library(BF16_SOURCE).conv3x3_bf16_fwd_route(C, O, int(aligned))]
     return FWD_ROUTES[_library(FWD_SOURCE).conv3x3_fwd_route(C, O)]
 
 
@@ -234,17 +239,20 @@ def conv3x3_wgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 conv3x3_wgrad.launches = 0
 conv3x3_wgrad.launches_bf16 = 0
 
-WGRAD_ROUTES = ("narrow", "mma")
+WGRAD_ROUTES = ("narrow", "mma", "wgmma")
 
 
-def conv3x3_wgrad_route(C: int, O: int, dtype: torch.dtype = torch.float32) -> str:
+def conv3x3_wgrad_route(C: int, O: int, dtype: torch.dtype = torch.float32,
+                        aligned: bool = True) -> str:
     """The route K3w takes for C input and O output channels in ``dtype``,
     as its C entry chooses it: ``"mma"`` (split TF32, or bf16 m16n8k16, on
-    the tensor cores) or ``"narrow"`` (f32 FMA, where an n8 tile of output
-    channels would be mostly padding).  Asks the built library, so it needs
-    the CUDA toolkit."""
+    the tensor cores), ``"narrow"`` (f32 FMA, where an n8 tile of output
+    channels would be mostly padding) or, in bf16 only, ``"wgmma"`` (TMA and
+    wgmma, where C and O are multiples of 8 and x and g start on 16 bytes;
+    ``aligned`` false: one does not, and the route is ``"mma"``).  Asks the
+    built library, so it needs the CUDA toolkit."""
     if dtype == torch.bfloat16:
-        return WGRAD_ROUTES[_library(BF16_SOURCE).conv3x3_bf16_wgrad_route(C, O)]
+        return WGRAD_ROUTES[_library(BF16_SOURCE).conv3x3_bf16_wgrad_route(C, O, int(aligned))]
     return WGRAD_ROUTES[_library(WGRAD_SOURCE).conv3x3_wgrad_route(C, O)]
 
 

@@ -697,7 +697,7 @@ extern "C" int abf_block_bwd_bf16(const void* tap, const void* res, const void* 
                                   void* wpack, int B, int D, int Dp, int T, int Cs, int M, int O,
                                   int blocks, int chunks, void* stream) {
   const bool fuse = res != nullptr;
-  const bool mma = conv3x3_bf16::fwd_route(O, M) == 1;
+  const bool mma = conv3x3_bf16::fwd_route(O, M) != 0;  // "mma" or "wgmma"
   if (B < 1 || D < 1 || Dp < 1 || D % Dp || (!fuse && Dp != D) || T < 1 || Cs < 1 ||
       Cs > kMaxCs || M < 1 || M > kMaxM || O < 1 || blocks < 1 ||
       (fuse && (!wxt || !wy || !zoff || !gres)) || (mma && (!dxf || !wpack)))

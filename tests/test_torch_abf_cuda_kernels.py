@@ -329,11 +329,17 @@ def test_k3w_route_by_shape(cuda, C, O, route):
 # (kernels.BLEND_REL).  float32 outputs (dw, the fuse's parameter gradients)
 # by float32 rounding.
 BF16_REL_L2 = 1e-5
-# every route of both bf16 conv kernels: mma forward with whole and ragged
-# tiles, C off the 16-byte copies (12) and below 8 (the FMA route), O = 2
-# (FMA forward, narrow weight gradient), O = 12 (mma weight gradient off the
-# 16-byte copies), and the dx pass's C = 256 -> 64
-BF16_CONV_SHAPES = CONV_SHAPES + [(2, 3, 20, 12, 8), (2, 4, 40, 8, 24)]
+# every route of both bf16 conv kernels: the wgmma forward and weight
+# gradient at every (C, O) pair of the training step's convs and dx passes
+# (64 -> 256, 256 -> 64, 64 -> 128, 128 -> 64, 64 -> 32, 32 -> 64) with T off
+# the 64-step tile, D = 1 (both halo rows outside the map) and C = 192 (three
+# resident 64-channel chunks), C = 8 and O = 8, 24, 40 (tiles mostly zeros
+# from TMA); the mma forward and weight gradient off wgmma (C = 12, O = 12),
+# C below 8 (the FMA route), O = 2 (FMA forward, narrow weight gradient)
+BF16_CONV_SHAPES = CONV_SHAPES + [(2, 3, 20, 12, 8), (2, 4, 40, 8, 24),
+                                  (2, 3, 130, 64, 128), (2, 5, 61, 128, 64),
+                                  (2, 6, 77, 32, 64), (1, 1, 64, 64, 64), (1, 1, 100, 256, 64),
+                                  (1, 3, 50, 192, 40)]
 # the bf16 K5b's dw1a, dwxt and dwy: float32 sums of g_xhat and dp rounded to
 # bf16 inside the kernel, where a float32 value near a rounding midpoint may
 # round the other way on the two sides and move its term by one bf16 spacing
@@ -382,11 +388,44 @@ def test_bf16_conv_autograd_launches_its_kernels(cuda):
     assert bf16_check(w_mod.grad, want)["within"]
 
 
-@pytest.mark.parametrize("C, O, fwd, wgrad", [(64, 64, "mma", "mma"), (8, 8, "mma", "narrow"),
-                                              (4, 64, "fma", "mma"), (64, 2, "fma", "narrow")])
+@pytest.mark.parametrize("C, O, fwd, wgrad", [(64, 64, "wgmma", "wgmma"), (8, 8, "wgmma", "narrow"),
+                                              (4, 64, "fma", "mma"), (64, 2, "fma", "narrow"),
+                                              (12, 64, "mma", "mma"), (64, 12, "mma", "mma"),
+                                              (256, 64, "wgmma", "wgmma"),
+                                              (512, 64, "mma", "wgmma")])
 def test_bf16_conv_route_by_shape(cuda, C, O, fwd, wgrad):
     assert conv3x3_fwd_route(C, O, torch.bfloat16) == fwd
     assert conv3x3_wgrad_route(C, O, torch.bfloat16) == wgrad
+    # a map off 16 bytes takes the m16n8k16 tile in place of TMA's
+    assert conv3x3_fwd_route(C, O, torch.bfloat16, aligned=False) == fwd.replace("wgmma", "mma")
+    assert conv3x3_wgrad_route(C, O, torch.bfloat16, aligned=False) == wgrad.replace("wgmma",
+                                                                                    "mma")
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 70, 64, 64), (1, 2, 37, 256, 64)], ids=str)
+def test_bf16_conv_unaligned_input_takes_mma(cuda, shape):
+    """x one element into a larger buffer (2 bytes off TMA's 16-byte
+    alignment): both kernels run on the m16n8k16 tile, match their plain
+    versions as on the aligned maps, and give the same bits twice."""
+    x, w, gy = _bf16(*_conv_inputs(shape, sum(shape) + 1, cuda))
+    buf = torch.empty(x.numel() + 1, device=cuda, dtype=torch.bfloat16)
+    xo = buf[1:].view(x.shape)
+    xo.copy_(x)
+    assert xo.data_ptr() % 16 != 0
+    C, O = shape[3], shape[4]
+    assert conv3x3_fwd_route(C, O, torch.bfloat16, aligned=False) == "mma"
+    assert conv3x3_wgrad_route(C, O, torch.bfloat16, aligned=False) == "mma"
+    before = (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16)
+    out = conv3x3_fwd(xo, w)
+    dw = conv3x3_wgrad(xo, gy)
+    torch.cuda.synchronize()
+    assert (conv3x3_fwd.launches_bf16, conv3x3_wgrad.launches_bf16) == (before[0] + 1,
+                                                                         before[1] + 1)
+    scale = conv3x3_reference(x.abs().float(), w.abs().float())
+    assert bf16_check(out, conv3x3_reference(x, w), scale, SUM_REL)["within"]
+    assert _rel_l2(dw, conv3x3_wgrad_reference(x, gy)) <= BF16_REL_L2
+    assert torch.equal(out, conv3x3_fwd(xo, w))
+    assert torch.equal(dw, conv3x3_wgrad(xo, gy))
 
 
 @pytest.mark.parametrize("shape", BF16_FUSE_SHAPES, ids=str)
@@ -499,10 +538,11 @@ def test_bf16_block_autograd_launches_its_kernels(cuda):
 
 
 @pytest.mark.parametrize("M, O, fwd_route, bwd_route",
-                         [(64, 256, "mma", "mma"), (64, 8, "mma", "mma"),
+                         [(64, 256, "wgmma", "wgmma"), (64, 8, "wgmma", "wgmma"),
                           (64, 4, "direct", "direct"), (64, 2, "direct", "direct"),
-                          (8, 16, "mma", "mma"), (7, 16, "direct", "direct"),
-                          (3, 20, "direct", "direct")])
+                          (8, 16, "wgmma", "wgmma"), (7, 16, "direct", "direct"),
+                          (3, 20, "direct", "direct"), (12, 16, "mma", "mma"),
+                          (64, 20, "mma", "mma")])
 def test_bf16_block_route_by_shape(cuda, M, O, fwd_route, bwd_route):
     assert (abf_block_fwd_route(M, O, torch.bfloat16),
             abf_block_bwd_route(M, O, torch.bfloat16)) == (fwd_route, bwd_route)

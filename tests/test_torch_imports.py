@@ -1,5 +1,5 @@
-"""The port, its chip_smoke.py and its profiling script import nothing of JAX or of the JAX package,
-and the package needs no yaml when imported."""
+"""The port, its chip_smoke.py and its profiling and kernel-timing scripts import nothing of JAX or
+of the JAX package, and the package needs no yaml when imported."""
 
 import ast
 import subprocess
@@ -12,7 +12,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "speech_enhancement_clskd_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "speech_enhancement_clskd_tpu"}
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "scripts" / "profile_serving_torch.py"]
+                                      ROOT / "scripts" / "profile_serving_torch.py",
+                                      ROOT / "scripts" / "kernel_pair_timing.py",
+                                      ROOT / "scripts" / "conv_bf16_variants.py"]
 
 
 def _imported_roots(path: Path):
