@@ -133,9 +133,12 @@ card, then drives both paths through their entry points:
     K5b on bf16 maps and weights (bvec, zoff float32) at the reference
     block (timed, with the plain versions and the bound) and at each
     distinct block shape of the block-config step (the mask block among
-    them; kernel times summed by blocks a step; their 3x3 convs on the
-    bf16 K3's tile, route "wgmma" but at the mask block), the backward on
-    the kernel's own xf: xf, out, g_tap and g_res by ``kernels.bf16_check``
+    them), each on route "fused" (csrc/abf_block_bf16.cu; kernel times
+    and each pass's summed by blocks a step, each pass beside its bytes
+    bound), and with the tap one element into its buffer at the reference
+    block and the mask block (the earlier routes "wgmma" and "direct"), the
+    backward on the kernel's own xf: xf, out, g_tap and g_res by
+    ``kernels.bf16_check``
     with ``abf_block_bf16_scales``, the float32 parameter gradients by
     relative L2 (dw1a, dwxt and dwy, sums of values rounded to bf16 inside
     the kernel, to 1e-4; the others to 1e-5), two runs giving the same bits;
@@ -273,9 +276,11 @@ BF16_SERVING_ATOL = 5e-3
 
 
 # Each kernel's design: K1f, K1b, K2, K3f, K3w, K5f and K5b are in their
-# second, K4f and K4b in their first, and of the bf16 instantiations K3f,
-# K3w, K5f and K5b in their second (the bf16 conv tile on TMA and wgmma)
-# (PERF.md section 6 keeps each design's times).
+# second, K4f and K4b in their first, and of the bf16 instantiations K3f
+# and K3w in their second (the bf16 conv tile on TMA and wgmma), K5f and K5b
+# in their third (csrc/abf_block_bf16.cu: K5b's adjoint consumed in the same
+# kernel, K5f's xf formed in shared memory and convolved there) (PERF.md
+# section 6 keeps each design's times).
 DESIGNS = {
     "lstm_seq_fwd": "register-cluster",
     "lstm_seq_bwd": "gate-prepass-register-chain",
@@ -290,8 +295,8 @@ DESIGNS = {
     "conv3x3_wgrad_bf16": "tma-ring-wgmma",
     "attfuse_fwd_bf16": "warp-row",
     "attfuse_bwd_bf16": "warp-row",
-    "abf_block_fwd_bf16": "xf-pass-bf16-wgmma",
-    "abf_block_bwd_bf16": "bf16-wgmma-adjoint-pixel-pass",
+    "abf_block_fwd_bf16": "xf-formed-in-smem-ring-wgmma-conv",
+    "abf_block_bwd_bf16": "fused-wgmma-adjoint-register-pass",
     "gram_pair_fwd_bf16": "bulk-copy-ring-fma-tiles",
 }
 
@@ -341,15 +346,17 @@ def phase_build():
                                          ("k3w", conv3x3.WGRAD_SOURCE),
                                          ("k3_bf16", conv3x3.BF16_SOURCE),
                                          ("k5f", abf_block.FWD_SOURCE),
-                                         ("k5b", abf_block.BWD_SOURCE))}
+                                         ("k5b", abf_block.BWD_SOURCE),
+                                         ("k5_bf16", abf_block.BF16_SOURCE))}
     say("build", seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas,
         tensor_cores=tensor_cores)
     for name, found in tensor_cores.items():
         if found["count"] == 0:
             raise RuntimeError(f"{name}'s mma kernels use no tensor-core instruction: {found}")
-        # the bf16 conv tile's TMA route (in K3's bf16 library and K5's) on wgmma
-        if name in ("k3_bf16", "k5f", "k5b") and found["wgmma_count"] == 0:
+        # the bf16 conv tile's TMA route (in K3's bf16 library and K5's) and
+        # the fused bf16 K5b's adjoint on wgmma
+        if name in ("k3_bf16", "k5f", "k5b", "k5_bf16") and found["wgmma_count"] == 0:
             raise RuntimeError(f"{name}'s wgmma kernels use no wgmma instruction: {found}")
 
 
@@ -2475,14 +2482,137 @@ def _bf16_block_bounds(fuse, B, D, k, T, Cs, M, O) -> dict:
     return {"fwd": _bound_bf16(fwd_bytes, fwd_ops), "bwd": _bound_bf16(bwd_bytes, bwd_ops)}
 
 
-def _bf16_block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
+# Phase 20's passes of the bf16 K5f and K5b, by the device kernels' names (a
+# prefix after any namespace); the rest (w2's flip, copies) is "other"
+K5_PASSES = {"fwd": (("abf_block_bf16_fwd_fused", "fused"), ("abf_block_bf16_xf", "xf"),
+                     ("abf_block_xf", "xf"), ("abf_block_direct", "direct"),
+                     ("abf_block_bf16_conv", "conv"), ("conv3x3_bf16_pack", "pack"),
+                     ("conv3x3_bf16_fwd", "conv")),
+             "bwd": (("abf_block_bf16_bwd", "pass"), ("abf_block_bwd_pass", "pass"),
+                     ("conv3x3_bf16_pack", "adjoint"), ("conv3x3_bf16_fwd", "adjoint"),
+                     ("conv3x3_bf16_wgrad", "dw2"), ("reduce_partials", "reductions"))}
+
+
+def _k5_pass_of(kernel: str, key: str) -> str:
+    """The phase-20 pass of the device kernel named ``kernel`` in the bf16
+    K5f (``key`` "fwd") or K5b ("bwd")."""
+    name = kernel.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    name = name.split("::")[-1].split()[-1]
+    return next((p for prefix, p in K5_PASSES[key] if name.startswith(prefix)), "other")
+
+
+def _k5_pass_times(fn, key: str, iters: int = 5) -> dict:
+    """The device ms a call of ``fn`` spends in each pass (``_k5_pass_of``),
+    from the profiler's device events over ``iters`` calls after a warm-up.
+    The profiler loses kernel records now and then (see ``gram_times``): a
+    profile in which some kernel's records are not a whole multiple of the
+    calls is taken again, up to ``PROFILE_ATTEMPTS`` times; if none is
+    whole, each kernel's mean time is counted once for each of its launches
+    a call, and ``"whole"`` is False."""
+    import math
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        count, total = {}, {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                count[e.name] = count.get(e.name, 0) + 1
+                total[e.name] = total.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+        whole = bool(count) and all(c % iters == 0 for c in count.values())
+        if best is None or whole or sum(count.values()) > sum(best[0].values()):
+            best = (count, total, whole)
+        if whole:
+            break
+    count, total, whole = best
+    if not count:
+        raise RuntimeError("the profiler recorded no device events for the bf16 K5")
+    out = {"whole": whole}
+    for name, us in total.items():
+        p = _k5_pass_of(name, key)
+        per_call = us / 1e3 / iters if whole else us / 1e3 / count[name] * math.ceil(
+            count[name] / iters)
+        out[p] = out.get(p, 0.0) + per_call
+    return out
+
+
+# csrc/abf_block_bf16.cu's K5f forms xf and convolves it in one kernel up
+# to this many output channels (kFfMaxO), in two passes above
+K5F_FUSED_MAX_O = 64
+
+
+def _bf16_block_pass_bounds(fuse, B, D, k, T, Cs, M, O) -> dict:
+    """Each pass's bytes bound (ms) on route "fused" as the shape takes it:
+    every map the pass must read once and write once, 2 bytes an element
+    (dw2 4).  K5f: for 8 <= O <= ``K5F_FUSED_MAX_O`` one kernel ("fused":
+    tap, res, w2 -> xf, out), else the xf pass (tap, res -> xf) and the conv
+    (xf, w2 -> out).  K5b: the pass (tap, res, g_xf, g_out -> g_tap, g_res)
+    and dw2 (xf, g_out -> dw2); on the narrow route (the mask block, O < 8)
+    dw2 is folded into the pass, which also reads xf and writes dw2, and has
+    no pass of its own."""
+    rows, res_rows = B * D * T, (B * D * T // k if fuse else 0)
+    ms = lambda nbytes: nbytes / PEAK_BYTES_S * 1e3  # noqa: E731
+    xf_in = rows * Cs + res_rows * M
+    pass_b = 2.0 * (2 * rows * Cs + 2 * res_rows * M + rows * M + rows * O)
+    dw2_b = 2.0 * (rows * M + rows * O) + 4.0 * 9 * M * O
+    if 8 <= O <= K5F_FUSED_MAX_O:
+        fwd = {"fused": ms(2.0 * (xf_in + rows * M + rows * O + 9 * M * O))}
+    else:
+        fwd = {"xf": ms(2.0 * (xf_in + rows * M)), "conv": ms(2.0 * (rows * M + rows * O
+                                                                  + 9 * M * O))}
+    if O < 8:
+        bwd = {"pass": ms(pass_b + 2.0 * rows * M + 4.0 * 9 * M * O)}
+    else:
+        bwd = {"pass": ms(pass_b), "dw2": ms(dw2_b)}
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _bf16_block_step_sums(steps: list) -> dict:
+    """The bf16 K5f and K5b summed over the block-config step's blocks
+    (``STEP_BLOCKS``, each distinct shape weighted by its blocks): the
+    kernels' times, their bounds, each pass's time and bytes bound, and the
+    routes by launches, from ``steps``' records at each step shape."""
+    def rec_of(fuse, D, Cs, O):
+        return next(r for r in steps if (r["fuse"], r["D"], r["Cs"], r["O"]) == (fuse, D, Cs, O)
+                    and "fwd_passes" in r)
+
+    parts = [rec_of(*shape) for shape in STEP_BLOCKS]
+    sums = {}
+    for key in ("fwd", "bwd"):
+        names = sorted({p for r in parts for p in r[f"{key}_passes"] if p != "whole"})
+        sums[key] = {"ms": sum(r[f"{key}_ms"] for r in parts),
+                     "bound_ms": sum(r[f"{key}_bound_ms"] for r in parts),
+                     "launches": len(parts),
+                     "passes_ms": {p: sum(r[f"{key}_passes"].get(p, 0.0) for r in parts)
+                                   for p in names},
+                     "pass_bounds_ms": {p: sum(r[f"{key}_pass_bounds"].get(p, 0.0)
+                                               for r in parts)
+                                        for p in sorted({p for r in parts
+                                                         for p in r[f"{key}_pass_bounds"]})},
+                     "routes": {route: sum(1 for r in parts if r[f"{key}_route"] == route)
+                                for route in ("fused", "wgmma", "mma", "direct")}}
+    return sums
+
+
+def _bf16_block_case(fuse, B, D, k, T, Cs, M, O, timed: bool, unaligned: bool = False) -> dict:
     """The bf16 K5f and K5b against their plain bf16 versions on the same
     inputs (the backward on the kernel's own xf): xf, g_tap and g_res by
     ``bf16_check`` with ``abf_block_bf16_scales``, out against the plain conv
     on the kernel's own xf; the float32 parameter gradients by relative L2
     (``BLOCK_ROUNDED`` to ``BF16_ROUNDED_REL_L2``, the others to
-    ``BF16_KERNEL_REL_L2``); two runs' bits; the kernels' times, and timed:
-    the plain versions' and the bound."""
+    ``BF16_KERNEL_REL_L2``); two runs' bits; the kernels' times, each pass's
+    (route "fused") and timed: the plain versions' and the bound.
+    ``unaligned``: the tap one element into its buffer (off the 16 bytes TMA
+    needs), which sends both kernels to the earlier routes."""
     import torch
 
     from speech_enhancement_clskd_tpu_torch.kernels import bf16_check
@@ -2499,6 +2629,9 @@ def _bf16_block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
     from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
 
     kw, gxf, gout = _bf16_block_inputs(fuse, B, D, k, T, Cs, M, O)
+    if unaligned:
+        buf = torch.empty(kw["tap"].numel() + 1, device="cuda", dtype=torch.bfloat16)
+        kw["tap"] = buf[1:].view(kw["tap"].shape).copy_(kw["tap"])
     before = (abf_block_fwd.launches_bf16, abf_block_bwd.launches_bf16)
     xf, out = abf_block_fwd(**kw)
     xf_again, out_again = abf_block_fwd(**kw)
@@ -2526,9 +2659,12 @@ def _bf16_block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
                if b is not None}
     del want, grads
     tols = {n: BF16_ROUNDED_REL_L2 if n in BLOCK_ROUNDED else BF16_KERNEL_REL_L2 for n in rel}
+    route_of = dict(Cs=Cs, D=D, k=k, fuse=fuse, aligned=not unaligned)
     rec = {"fuse": fuse, "B": B, "D": D, "k": k, "T": T, "Cs": Cs, "M": M, "O": O,
-           "fwd_route": abf_block_fwd_route(M, O, torch.bfloat16),
-           "bwd_route": abf_block_bwd_route(M, O, torch.bfloat16),
+           "unaligned": unaligned,
+           "fwd_route": abf_block_fwd_route(M, O, torch.bfloat16, **route_of),
+           "bwd_route": abf_block_bwd_route(M, O, torch.bfloat16, **route_of),
+           "routes_taken": {"fwd": abf_block_fwd.route, "bwd": abf_block_bwd.route},
            "checks": checks, "fwd_max_abs_err": max(checks[n]["max_abs_err"] for n in ("xf", "out")),
            "bwd_max_abs_err_g_tap_g_res": max(c["max_abs_err"] for n, c in checks.items()
                                               if n.startswith("g_")),
@@ -2536,18 +2672,24 @@ def _bf16_block_case(fuse, B, D, k, T, Cs, M, O, timed: bool) -> dict:
            "bwd_bitwise_repeat": bwd_repeat,
            "within": all(c["within"] for c in checks.values())
            and all(rel[n] <= tols[n] for n in rel)}
+    bounds = _bf16_block_bounds(fuse, B, D, k, T, Cs, M, O)
     with float32_math():
         rec.update(fwd_ms=_time_ms(lambda: abf_block_fwd(**kw), iters=5),
                    bwd_ms=_time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout),
-                                   iters=5))
+                                   iters=5),
+                   fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
+                   bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1])
+        if not unaligned:
+            passes = _bf16_block_pass_bounds(fuse, B, D, k, T, Cs, M, O)
+            rec.update(fwd_passes=_k5_pass_times(lambda: abf_block_fwd(**kw), "fwd"),
+                       bwd_passes=_k5_pass_times(
+                           lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout), "bwd"),
+                       fwd_pass_bounds=passes["fwd"], bwd_pass_bounds=passes["bwd"])
         if timed:
-            bounds = _bf16_block_bounds(fuse, B, D, k, T, Cs, M, O)
             rec.update(
                 fwd_plain_ms=_time_ms(lambda: abf_block_reference(**kw), iters=2),
-                fwd_bound_ms=bounds["fwd"][0], fwd_bound_by=bounds["fwd"][1],
                 bwd_plain_ms=_time_ms(lambda: abf_block_bwd_reference(
-                    **kw, xf=xf, gxf=gxf, gout=gout), iters=2),
-                bwd_bound_ms=bounds["bwd"][0], bwd_bound_by=bounds["bwd"][1])
+                    **kw, xf=xf, gxf=gxf, gout=gout), iters=2))
     return rec
 
 
@@ -2636,12 +2778,20 @@ def _bf16_spkd_entry() -> dict:
     return rec
 
 
+# Phase 20's blocks off route "fused": a tap one element into its buffer
+# sends the reference block to the earlier "wgmma" routes and the mask block
+# to the earlier "direct" kernels, which are held to their plain versions too
+OFF_ROUTE_BLOCKS = [(BLOCK_REF, "wgmma"),
+                    ((True, TEACHER_BATCH, 256, 2, 483, 2, 64, 2), "direct")]
+
+
 def phase_bf16_block_kernels_vs_plain() -> dict:
     """Phase 20: the bf16 K5f and K5b against their plain bf16 versions at
     the reference block (timed, with plain times and the bound) and at each
     distinct block shape of the block-config step (the mask block among
-    them), their kernel times summed by blocks a step; the bf16 K2 at B = 32
-    and 64 x 528,000; and K2's bf16 entry path (``_bf16_spkd_entry``)."""
+    them), their kernel times summed by blocks a step, and on the earlier
+    routes (``OFF_ROUTE_BLOCKS``); the bf16 K2 at B = 32 and 64 x 528,000;
+    and K2's bf16 entry path (``_bf16_spkd_entry``)."""
     import torch
 
     ref = _bf16_block_case(*BLOCK_REF, timed=True)
@@ -2656,12 +2806,29 @@ def phase_bf16_block_kernels_vs_plain() -> dict:
         cases.append(rec)
         steps.append(rec)
         torch.cuda.empty_cache()
+    off_route = []
+    for shape, route in OFF_ROUTE_BLOCKS:
+        rec = _bf16_block_case(*shape, timed=False, unaligned=True)
+        say("bf16_block_kernels_vs_plain", off_route=True, **rec)
+        off_route.append(rec)
+        torch.cuda.empty_cache()
+        if (rec["fwd_route"], rec["bwd_route"]) != (route, route) or rec["routes_taken"] != {
+                "fwd": route, "bwd": route}:
+            raise RuntimeError(f"an unaligned block off the route {route}: {rec}")
+    for rec in cases:
+        # every block of the step (the mask block too) on route "fused"
+        if (rec["fwd_route"], rec["bwd_route"]) != ("fused", "fused") or rec["routes_taken"] != {
+                "fwd": "fused", "bwd": "fused"}:
+            raise RuntimeError(f"a block shape of the step off route fused: {rec}")
+    cases += off_route
     for rec in cases:
         if not (rec["within"] and rec["fwd_bitwise_repeat"] and rec["bwd_bitwise_repeat"]):
             raise RuntimeError(f"the bf16 abf_block kernels disagree with their plain versions: "
                                f"{rec}")
     per_step = {key: sum(r["count"] * r[key] for r in steps) for key in ("fwd_ms", "bwd_ms")}
-    say("bf16_block_kernels_vs_plain", step_sums_ms=per_step, blocks_a_step=len(STEP_BLOCKS))
+    detail = _bf16_block_step_sums(steps)
+    say("bf16_block_kernels_vs_plain", step_sums_ms=per_step, blocks_a_step=len(STEP_BLOCKS),
+        step_sums=detail)
     grams = []
     for shape in BF16_GRAM_CASES:
         rec = _bf16_gram_case(*shape)
@@ -2674,7 +2841,7 @@ def phase_bf16_block_kernels_vs_plain() -> dict:
     entry = _bf16_spkd_entry()
     say("bf16_gram_entry", **entry)
     return {"blocks": cases, "block_steps": steps, "block_step_sums": per_step,
-            "grams": grams, "gram_entry": entry}
+            "block_step_detail": detail, "grams": grams, "gram_entry": entry}
 
 
 def phase_training_bf16_block(bf16_phase: dict, block: dict) -> dict:
@@ -2907,10 +3074,10 @@ def main() -> None:
             "per_shape": cases,
         })
     bf16_block_ref = bf16_kernels_k5_k2["blocks"][0]
-    for name, source, line, key in (("abf_block_fwd_bf16", "abf_block_fwd.cu", "abf_block.py:196",
-                                     "fwd"),
-                                    ("abf_block_bwd_bf16", "abf_block_bwd.cu", "abf_block.py:220",
-                                     "bwd")):
+    for name, source, line, key in (("abf_block_fwd_bf16", "abf_block_bf16.cu",
+                                     "abf_block.py:196", "fwd"),
+                                    ("abf_block_bwd_bf16", "abf_block_bf16.cu",
+                                     "abf_block.py:220", "bwd")):
         cases = bf16_kernels_k5_k2["blocks"]
         outs = ("xf", "out") if key == "fwd" else ("g_tap", "g_res")
         checks = [r["checks"][c] for r in cases for c in outs if c in r["checks"]]
@@ -2933,8 +3100,10 @@ def main() -> None:
             "bound_by": bf16_block_ref[f"{key}_bound_by"],
             "library_ms": None,
             "step_ms": bf16_kernels_k5_k2["block_step_sums"][f"{key}_ms"],
-            "routes": {r: sum(c["count"] for c in bf16_kernels_k5_k2["block_steps"]
-                              if c[f"{key}_route"] == r) for r in ("wgmma", "mma", "direct")},
+            "routes": bf16_kernels_k5_k2["block_step_detail"][key]["routes"],
+            "passes_ms": bf16_block_ref[f"{key}_passes"],
+            "pass_bounds_ms": bf16_block_ref[f"{key}_pass_bounds"],
+            "step": bf16_kernels_k5_k2["block_step_detail"][key],
             "max_ulps": max(c["max_ulps"] for c in checks),
             "share_differ": max(c["share_differ"] for c in checks),
             "share_over_1ulp": max(c["share_over_1ulp"] for c in checks),

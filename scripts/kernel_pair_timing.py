@@ -30,7 +30,9 @@ prints one JSON line per shape, then writes them all to ``--out``:
   output's bits, and cuDNN's bf16 ``F.conv2d`` / ``conv2d_weight`` on the
   same inputs;
 - the bf16 K5f and K5b at each block of ``chip_smoke.STEP_BLOCKS`` (maps and
-  weights in bf16, bvec and zoff float32), with hashes of their outputs;
+  weights in bf16, bvec and zoff float32), with hashes of their outputs and
+  the route each took where the tree records it (``abf_block_fwd.route``,
+  ``abf_block_bwd.route``);
 - K2 (``gram_pair_fwd``) at B in {8, 16, 32, 64} x 528,000 columns (the
   spkd step's 33 s waveforms), with ``gram_times`` of this script's own
   tree's ``chip_smoke.py`` (loaded by path, so both trees are timed with the
@@ -254,11 +256,14 @@ def bf16_k5(emit) -> None:
         shape = dict(fuse=fuse, B=B, D=D, k=k, T=T, Cs=Cs, M=M, O=O)
         ms = _time_ms(lambda: abf_block_fwd(**kw), 10)
         xf, out = abf_block_fwd(**kw)
-        emit(kernel="abf_block_fwd_bf16", **shape, ms=ms, sha256_xf_out=_bits(xf, out))
+        emit(kernel="abf_block_fwd_bf16", **shape, ms=ms, route=getattr(abf_block_fwd, "route", None),
+             sha256_xf_out=_bits(xf, out))
         del out
         ms = _time_ms(lambda: abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout), 10)
+        grads = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
         emit(kernel="abf_block_bwd_bf16", **shape, ms=ms,
-             sha256_grads=_bits(*abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)))
+             route=getattr(abf_block_bwd, "route", None), sha256_grads=_bits(*grads))
+        del grads
         del kw, gxf, gout, xf
         torch.cuda.empty_cache()
 

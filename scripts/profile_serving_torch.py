@@ -2,9 +2,10 @@
 """Device-time breakdown of the PyTorch port's serving and training paths on
 one NVIDIA GPU.
 
-    python3 scripts/profile_serving_torch.py [--trace-dir DIR]
+    python3 scripts/profile_serving_torch.py [--trace-dir DIR] [--root DIR]
+                                             [--configs NAME ...]
 
-Six configurations, built as ``chip_smoke.py`` builds them:
+Nine configurations, built as ``chip_smoke.py`` builds them:
 
 - student streaming: the r4 bundle, batch 1, one fixed-shape chunk step
   (chunk 48, context 64) repeated 40 times;
@@ -17,7 +18,19 @@ Six configurations, built as ``chip_smoke.py`` builds them:
   ``DistillConfig(abf_block_pallas=True)``;
 - spkd train step: ``DistillConfig(strategy="spkd")`` on 33 s clips (the
   fused Gram pair K2 on the waveforms), at the batch ``chip_smoke.py``'s
-  phase 13 settles on (the largest from 32, halving, that fits).
+  phase 13 settles on (the largest from 32, halving, that fits);
+- the bf16 clskd step (``chip_smoke.bf16_models()``: both models computing
+  in bf16, ``BF16_DISTILL``: bf16 taps) at 32 x 3 s;
+- the bf16 block-config step (``BF16_BLOCK_DISTILL``: the whole-block
+  kernels K5f and K5b on bf16) at 32 x 3 s;
+- the bf16 block step at ``bench.py``'s batch 64 with ``abf_remat`` and
+  ``spkd_bn2_fold`` (``BF16_BENCH_DISTILL``; K5f runs twice a block).
+
+``--root DIR`` imports the package from another tree (e.g. a parent commit
+unpacked with ``git archive HEAD speech_enhancement_clskd_tpu_torch | tar -x
+-C DIR``), so that two trees' steps are profiled with the same script; the
+configurations are this tree's ``chip_smoke.py``'s.  ``--configs`` names the
+configurations to run (all by default).
 
 For each it prints one JSON line: wall ms per step (host clock around
 synchronised steps, profiler off); from one profiled run of the same steps,
@@ -109,35 +122,78 @@ def breakdown(label: str, step, iters: int, trace_dir: str | None) -> dict:
     }
 
 
+CONFIGS = ("student_stream_chunk", "teacher_offline_32x3s", "clskd_train_step",
+           "clskd_train_step_abf_kernels", "clskd_train_step_abf_block", "spkd_train_step",
+           "clskd_train_step_bf16", "clskd_train_step_bf16_block",
+           "clskd_train_step_bf16_block_remat_fold_b64")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--root", default=None, help="the tree whose package to import")
+    ap.add_argument("--configs", nargs="+", default=list(CONFIGS), choices=CONFIGS)
     args = ap.parse_args()
+    run = set(args.configs)
 
     sys.path.insert(0, str(ROOT))
-    import numpy as np
+    if args.root:
+        sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
 
     from chip_smoke import (
         ABF_BLOCK_FLAGS,
         ABF_KERNEL_FLAGS,
+        BF16_BATCH,
+        BF16_BENCH_DISTILL,
+        BF16_BLOCK_DISTILL,
+        BF16_DISTILL,
         SPKD_SECONDS,
         TEACHER_BATCH,
-        TRAIN_SECONDS,
+        bf16_models,
         fitting_trainer,
-        train_config,
-        student_engine,
-        teacher_batch,
-        train_batch,
     )
-    from speech_enhancement_clskd_tpu_torch.config import TEACHER
-    from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
-    from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
-    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
-    print(torch.cuda.get_device_name(0), flush=True)
+    import speech_enhancement_clskd_tpu_torch as pkg
+
+    print(torch.cuda.get_device_name(0), Path(pkg.__file__).parent, flush=True)
+
+    if "student_stream_chunk" in run:
+        _student(args.trace_dir)
+    if "teacher_offline_32x3s" in run:
+        _teacher(args.trace_dir)
+    for label, distill in (("clskd_train_step", {}),
+                           ("clskd_train_step_abf_kernels", ABF_KERNEL_FLAGS),
+                           ("clskd_train_step_abf_block", ABF_BLOCK_FLAGS)):
+        if label in run:
+            _train(label, distill, TEACHER_BATCH, None, args.trace_dir)
+    if "spkd_train_step" in run:
+        trainer, batch, _, mix, clean = fitting_trainer(dict(strategy="spkd"), SPKD_SECONDS)
+        mix, clean = torch.from_numpy(mix).cuda(), torch.from_numpy(clean).cuda()
+
+        def spkd_step():
+            trainer.train_step(mix, clean)
+
+        rec = breakdown("spkd_train_step", spkd_step, TRAIN_ITERS, args.trace_dir)
+        print(json.dumps(dict(rec, batch=batch, seconds=SPKD_SECONDS)), flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    for label, distill, batch in (
+            ("clskd_train_step_bf16", BF16_DISTILL, TEACHER_BATCH),
+            ("clskd_train_step_bf16_block", BF16_BLOCK_DISTILL, TEACHER_BATCH),
+            ("clskd_train_step_bf16_block_remat_fold_b64", BF16_BENCH_DISTILL, BF16_BATCH)):
+        if label in run:
+            _train(label, distill, batch, bf16_models(), args.trace_dir)
+
+
+def _student(trace_dir) -> None:
+    import numpy as np
+    import torch
+
+    from chip_smoke import student_engine
+    from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
 
     eng = student_engine("cuda")
     wav = SyntheticEnhancementDataset(size=1, segment=1.0, seed=0)[0][0]
@@ -148,7 +204,15 @@ def main() -> None:
         eng.step(torch.from_numpy(window[None]).cuda()).cpu()
 
     print(json.dumps(breakdown("student_stream_chunk", student_step, STUDENT_CHUNKS,
-                               args.trace_dir)), flush=True)
+                               trace_dir)), flush=True)
+
+
+def _teacher(trace_dir) -> None:
+    import torch
+
+    from chip_smoke import teacher_batch
+    from speech_enhancement_clskd_tpu_torch.config import TEACHER
+    from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
 
     batch = torch.from_numpy(teacher_batch()).cuda()
     model = make_model(TEACHER, device="cuda", seed=0)
@@ -158,32 +222,31 @@ def main() -> None:
             model(batch)
 
     print(json.dumps(breakdown("teacher_offline_32x3s", teacher_step, TEACHER_ITERS,
-                               args.trace_dir)), flush=True)
-    del model, batch
+                               trace_dir)), flush=True)
 
-    for label, distill in (("clskd_train_step", {}),
-                           ("clskd_train_step_abf_kernels", ABF_KERNEL_FLAGS),
-                           ("clskd_train_step_abf_block", ABF_BLOCK_FLAGS)):
-        cfg = train_config(TEACHER_BATCH, TRAIN_SECONDS, distill)
-        trainer = Trainer(cfg, device="cuda").init_state(0)
-        mix, clean = (torch.from_numpy(a).cuda()
-                      for a in train_batch(cfg.data.batch_size, TRAIN_SECONDS))
 
-        def train_step():
-            trainer.train_step(mix, clean)
+def _train(label: str, distill: dict, batch: int, models, trace_dir) -> None:
+    """A train step at ``batch`` x 3 s with ``distill`` (and the ``models``
+    of ``chip_smoke.bf16_models`` for the bf16 steps), profiled; the peak
+    device memory of the profiled steps beside it."""
+    import torch
 
-        print(json.dumps(breakdown(label, train_step, TRAIN_ITERS, args.trace_dir)), flush=True)
-        del trainer
-        torch.cuda.empty_cache()
+    from chip_smoke import TRAIN_SECONDS, train_batch, train_config
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 
-    trainer, batch, _, mix, clean = fitting_trainer(dict(strategy="spkd"), SPKD_SECONDS)
-    mix, clean = torch.from_numpy(mix).cuda(), torch.from_numpy(clean).cuda()
+    cfg = train_config(batch, TRAIN_SECONDS, distill, **(models or {}))
+    trainer = Trainer(cfg, device="cuda").init_state(0)
+    mix, clean = (torch.from_numpy(a).cuda() for a in train_batch(batch, TRAIN_SECONDS))
 
-    def spkd_step():
+    def train_step():
         trainer.train_step(mix, clean)
 
-    rec = breakdown("spkd_train_step", spkd_step, TRAIN_ITERS, args.trace_dir)
-    print(json.dumps(dict(rec, batch=batch, seconds=SPKD_SECONDS)), flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    rec = breakdown(label, train_step, TRAIN_ITERS, trace_dir)
+    print(json.dumps(dict(rec, batch=batch, seconds=TRAIN_SECONDS,
+                          peak_mem_bytes=torch.cuda.max_memory_allocated())), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -22,12 +22,12 @@ residual (``y[:, d] = res[:, d // k]``, ``k = D / Dp``):
   Callers gate on ``abf_block_dispatchable``.
 - ``abf_block_fwd`` and ``abf_block_bwd`` are the kernels' wrappers.  On a
   CUDA tensor they launch the kernels of ``csrc/abf_block_fwd.cu`` and
-  ``csrc/abf_block_bwd.cu`` (built at first use) or raise; nothing falls
-  back.  On a CPU tensor they run ``abf_block_reference`` and
-  ``abf_block_bwd_reference``.  Their ``launches`` counters count calls that
-  launched the kernels (K5f's xf pass and conv, K5b's adjoint, pixel pass,
-  reduction and dw2 passes count as one; the bf16 instantiation in
-  ``launches_bf16``).
+  ``csrc/abf_block_bwd.cu``, or on bf16 those of ``csrc/abf_block_bf16.cu``
+  (built at first use), or raise; nothing falls back.  On a CPU tensor they
+  run ``abf_block_reference`` and ``abf_block_bwd_reference``.  Their
+  ``launches`` counters count calls that launched the kernels (K5f's xf pass
+  and conv, K5b's adjoint, pixel pass, reduction and dw2 passes count as
+  one; the bf16 instantiation in ``launches_bf16``).
 
 The wrappers run in the tap's dtype, float32 or bfloat16 (``kernels.
 float_dtype``): the maps (tap, res, xf, the incoming gradients) and ``w1a``,
@@ -59,15 +59,37 @@ products a pair ("3xTF32", within f32 rounding of an f32 sum).  ``"direct"``
 (K5f: O < 8 or M < 4, the decoder's mask block; K5b: O < 4 or M < 8): the
 conv in f32 FMA inside the kernel's own pass.  The 1x1 conv, the attention
 and their gradients are f32 FMA; K5b's dw2 is K3w's split-TF32 reduction
-(f32 FMA for O <= 8).  In bf16 the 3x3 convs run on the bf16 K3f's and K3w's
-code (``csrc/conv3x3_bf16.cuh``): K5f's xf pass, then the conv on the bf16
-K3f's TMA and wgmma tile (route ``"wgmma"``: M and O multiples of 8, M <=
-256) or its m16n8k16 tile (``"mma"``: the other shapes with O >= 8 and M >=
-8), or the direct kernel on bf16 loads (``"direct"``: the mask block); K5b's
-adjoint on the same tiles into a float32 scratch ``dxf`` (``"wgmma"`` or
-``"mma"`` by the same test with O input channels) or in the pixel pass
-(``"direct"``), the pass on bf16 loads in float32 arithmetic, dw2 on the
-bf16 K3w's routes.
+(f32 FMA for O <= 8).
+
+The bf16 routes, by shape (the rules stated once, here; the route
+functions and ``csrc/abf_block_bf16.cu``'s ``route_of`` apply them):
+
+- ``"fused"`` (``csrc/abf_block_bf16.cu``) where TMA takes every map (each
+  on 16 bytes) and either M is a multiple of 8 up to 64, k is 1 or even,
+  and Cs and O are multiples of 8 ("wide"), or the mask block's Cs <= 4,
+  O = 2, k <= 2 with D a multiple of 8 ("narrow").  Every block of the
+  block-config step takes it.  K5b: one persistent kernel forms the conv
+  adjoint a 64-step tile at a time on the tensor cores (wgmma; on the
+  narrow route ``mma.sync``, dw2 folded in) and consumes it from registers
+  in the pixel pass, the 1x1 products on ``mma.sync``: no ``dxf`` reaches
+  device memory; then the blocks' partials in block order and, wide, dw2
+  on the bf16 K3w's wgmma route.  K5f: for O <= 64 one kernel forms xf in
+  shared memory, writes it once and convolves it there on wgmma; for O >
+  64 an xf pass on the tensor cores, then the conv over xf on the bf16
+  K3f's wgmma tile (measured faster than forming xf again in each block of
+  64 output channels); narrow, the xf pass and a conv that walks the freq
+  rows with a ring of xf rows.
+- Otherwise (other shapes, or a map off 16 bytes, which is copied onto 16
+  bytes first) the earlier routes of ``csrc/abf_block_fwd.cu``/
+  ``abf_block_bwd.cu``: K5f's xf pass, then the conv on the bf16 K3f's TMA
+  and wgmma tile (``"wgmma"``: M and O multiples of 8, M <= 256) or its
+  m16n8k16 tile (``"mma"``: the other shapes with O >= 8 and M >= 8), or
+  the direct kernel on bf16 loads (``"direct"``); K5b's adjoint on the same
+  tiles into a float32 scratch ``dxf`` (``"wgmma"`` or ``"mma"`` by the
+  same test with O input channels) or in the pixel pass (``"direct"``), the
+  pass on bf16 loads in float32 arithmetic, dw2 on the bf16 K3w's routes.
+
+Each wrapper records the route it took in its ``route`` attribute.
 """
 
 from __future__ import annotations
@@ -84,7 +106,8 @@ from .conv3x3 import conv3x3_reference, conv3x3_wgrad_reference
 
 FWD_SOURCE = "abf_block_fwd.cu"
 BWD_SOURCE = "abf_block_bwd.cu"
-SOURCES = (FWD_SOURCE, BWD_SOURCE)
+BF16_SOURCE = "abf_block_bf16.cu"
+SOURCES = (FWD_SOURCE, BWD_SOURCE, BF16_SOURCE)
 # the kernels stage all of w1a in shared memory, and K5b holds all mid
 # channels of a pixel in one block
 MAX_TAP_CHANNELS = 64
@@ -246,6 +269,20 @@ def _check_inputs(tap, res, w1a, bvec, wxt, wy, zoff, w2, op: str) -> Tuple[int,
 def _library(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    if source == BF16_SOURCE:
+        lib.abf_block_bf16_route.argtypes = [i32] * 6
+        lib.abf_block_bf16_route.restype = i32
+        lib.abf_block_bf16_bwd_blocks.argtypes = [i32] * 5
+        lib.abf_block_bf16_bwd_blocks.restype = i32
+        lib.abf_block_bf16_bwd_floats.argtypes = [i32] * 4
+        lib.abf_block_bf16_bwd_floats.restype = i32
+        lib.abf_block_bf16_bwd.argtypes = [ptr] * 17 + [i32] * 9 + [ptr]
+        lib.abf_block_bf16_bwd.restype = i32
+        lib.abf_block_bf16_fwd.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
+        lib.abf_block_bf16_fwd.restype = i32
+        lib.abf_block_bf16_fwd_scratch_elems.argtypes = [i32] * 2
+        lib.abf_block_bf16_fwd_scratch_elems.restype = ctypes.c_long
+        return lib
     if source == FWD_SOURCE:
         for fn in (lib.abf_block_fwd, lib.abf_block_fwd_bf16):
             fn.argtypes = [ptr] * 11 + [i32] * 7 + [ptr]
@@ -275,6 +312,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _on16(*ts: Optional[torch.Tensor]) -> bool:
+    """Every tensor given starts on 16 bytes (TMA's base alignment)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
 def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     """``t``, or a copy of it that starts on 16 bytes (the kernels read the
     maps as float4s where the widths allow; a view into a larger tensor may
@@ -292,10 +334,14 @@ def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor,
         return abf_block_reference(tap, res, w1a, bvec, wxt, wy, zoff, w2)
     if res is None:
         wxt = wy = zoff = None
-    tap, res = _aligned(tap), _aligned(res)
     B, D, T, _ = tap.shape
     dt = tap.dtype
     bf16 = dt == torch.bfloat16
+    Dp = D if res is None else res.shape[1]
+    if bf16 and _on16(tap, res) and _bf16_fused_route(Cs, D, M, O, D // Dp, res is not None):
+        return _fwd_fused(tap, res, w1a, bvec, wxt, wy, zoff, w2)
+    abf_block_fwd.route = abf_block_fwd_route(M, O, dt)
+    tap, res = _aligned(tap), _aligned(res)
     lib = _library(FWD_SOURCE)
     xf = torch.empty(B, D, T, M, device=tap.device, dtype=dt)
     out = torch.empty(B, D, T, O, device=tap.device, dtype=dt)
@@ -321,34 +367,76 @@ def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor,
 
 abf_block_fwd.launches = 0
 abf_block_fwd.launches_bf16 = 0
+abf_block_fwd.route = None
 
-ROUTES = ("direct", "mma", "wgmma")
+
+def _fwd_fused(tap, res, w1a, bvec, wxt, wy, zoff, w2):
+    """The bf16 K5f on route ``"fused"`` (``csrc/abf_block_bf16.cu``; its
+    kernels by shape as the module's docstring states)."""
+    B, D, T, Cs = tap.shape
+    M, O = w2.shape[2], w2.shape[3]
+    lib = _library(BF16_SOURCE)
+    xf = torch.empty(B, D, T, M, device=tap.device, dtype=tap.dtype)
+    out = torch.empty(B, D, T, O, device=tap.device, dtype=tap.dtype)
+    scratch = torch.empty(lib.abf_block_bf16_fwd_scratch_elems(M, O), device=tap.device,
+                          dtype=tap.dtype)
+    with torch.cuda.device(tap.device):
+        err = lib.abf_block_bf16_fwd(
+            tap.data_ptr(), _ptr(res), w1a.data_ptr(), bvec.data_ptr(), _ptr(wxt), _ptr(wy),
+            _ptr(zoff), w2.data_ptr(), scratch.data_ptr(), xf.data_ptr(), out.data_ptr(), B, D,
+            D if res is None else res.shape[1], T, Cs, M, O,
+            torch.cuda.current_stream(tap.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"abf_block_fwd launch failed (bfloat16, route fused): CUDA error {err}")
+    abf_block_fwd.launches_bf16 += 1
+    abf_block_fwd.route = "fused"
+    return xf, out
 
 
-def abf_block_fwd_route(M: int, O: int, dtype: torch.dtype = torch.float32) -> str:
-    """The route K5f takes for M mid and O output channels in ``dtype``, as
-    its C entry chooses it: ``"mma"`` (xf pass, then the conv on K3f's
-    tensor-core tile, split TF32 or bf16 m16n8k16), in bf16 ``"wgmma"`` (the
-    conv on the bf16 K3f's TMA and wgmma tile, where M and O are multiples
-    of 8 and M <= 256) or ``"direct"`` (xf and the conv in one f32 FMA
-    pass).  Asks the built library, so it needs the CUDA toolkit."""
+ROUTES = ("direct", "mma", "wgmma", "fused")
+
+
+def abf_block_fwd_route(M: int, O: int, dtype: torch.dtype = torch.float32,
+                        Cs: Optional[int] = None, D: Optional[int] = None, k: int = 1,
+                        fuse: bool = True, aligned: bool = True) -> str:
+    """The route K5f takes for Cs tap, M mid and O output channels (k-fold
+    ``k``, with or without the fuse; ``aligned``: every map on 16 bytes) in
+    ``dtype``, as its C entries choose it.  In float32 ``"mma"`` or
+    ``"direct"`` by M and O; in bf16 ``"fused"`` where Cs and D are given
+    and the shape takes it, else ``"wgmma"``, ``"mma"`` or ``"direct"`` by M
+    and O (the rules in the module's docstring).  Asks the built library, so
+    it needs the CUDA toolkit."""
+    if dtype == torch.bfloat16 and aligned and _bf16_fused_route(Cs, D, M, O, k, fuse):
+        return "fused"
     lib = _library(FWD_SOURCE)
     if dtype == torch.bfloat16:
         return ROUTES[lib.abf_block_fwd_bf16_route(M, O)]
     return ROUTES[lib.abf_block_fwd_route(M, O)]
 
 
-def abf_block_bwd_route(M: int, O: int, dtype: torch.dtype = torch.float32) -> str:
-    """The route of K5b's conv adjoint for M mid and O output channels in
-    ``dtype``, as its C entry chooses it: ``"mma"`` (K3f's tensor-core tile,
-    split TF32 or bf16 m16n8k16, into a scratch dxf), in bf16 ``"wgmma"``
-    (the bf16 K3f's TMA and wgmma tile, where M and O are multiples of 8 and
-    O <= 256) or ``"direct"`` (formed in the pixel pass, f32 FMA).  Asks the
-    built library, so it needs the CUDA toolkit."""
-    lib = _library(BWD_SOURCE)
+def _bf16_fused_route(Cs: Optional[int], D: Optional[int], M: int, O: int, k: int,
+                      fuse: bool) -> int:
+    """``csrc/abf_block_bf16.cu``'s route of a shape, for K5f and K5b alike:
+    1 wide, 2 narrow (the mask block), 0 neither (Cs or D not given)."""
+    if Cs is None or D is None:
+        return 0
+    return _library(BF16_SOURCE).abf_block_bf16_route(Cs, M, O, k if fuse else 1, int(fuse), D)
+
+
+def abf_block_bwd_route(M: int, O: int, dtype: torch.dtype = torch.float32,
+                        Cs: Optional[int] = None, D: Optional[int] = None, k: int = 1,
+                        fuse: bool = True, aligned: bool = True) -> str:
+    """The route K5b takes, as ``abf_block_fwd_route`` for K5f: in bf16
+    ``"fused"`` where Cs and D are given and the shape takes it, else the
+    route of its conv adjoint into a scratch dxf, ``"wgmma"``, ``"mma"`` or
+    ``"direct"`` (formed in the pixel pass) by M and O; in float32 ``"mma"``
+    or ``"direct"``.  Asks the built library, so it needs the CUDA
+    toolkit."""
     if dtype == torch.bfloat16:
-        return ROUTES[lib.abf_block_bwd_bf16_route(M, O)]
-    return ROUTES[lib.abf_block_bwd_route(M, O)]
+        if aligned and _bf16_fused_route(Cs, D, M, O, k, fuse):
+            return "fused"
+        return ROUTES[_library(BWD_SOURCE).abf_block_bwd_bf16_route(M, O)]
+    return ROUTES[_library(BWD_SOURCE).abf_block_bwd_route(M, O)]
 
 
 def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
@@ -373,10 +461,14 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
     fuse = res is not None
     if not fuse:
         wxt = wy = zoff = None
-    tap, res, xf, gxf, gout = (_aligned(t) for t in (tap, res, xf, gxf, gout))
     Dp = res.shape[1] if fuse else D
     dt = tap.dtype
     bf16 = dt == torch.bfloat16
+    if (bf16 and _on16(tap, res, xf, gxf, gout)
+            and _bf16_fused_route(Cs, D, M, O, D // Dp, fuse)):
+        return _bwd_fused(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout)
+    abf_block_bwd.route = abf_block_bwd_route(M, O, dt)
+    tap, res, xf, gxf, gout = (_aligned(t) for t in (tap, res, xf, gxf, gout))
     lib = _library(BWD_SOURCE)
     blocks = lib.abf_block_bwd_blocks(B, Dp, T)
     chunks = lib.abf_block_bwd_wgrad_chunks(M, O, B * D)
@@ -408,17 +500,66 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
         abf_block_bwd.launches_bf16 += 1
     else:
         abf_block_bwd.launches += 1
-    dw1a = grads[:Cs * M].view(Cs, M)
-    dbvec = grads[Cs * M:Cs * M + M]
-    if not fuse:
-        return gtap, None, dw1a, dbvec, None, None, None, dw2
-    rest = grads[Cs * M + M:]
-    return (gtap, gres, dw1a, dbvec, rest[:2 * Cs].view(Cs, 2),
-            rest[2 * Cs:2 * Cs + 2 * M].view(M, 2), rest[2 * Cs + 2 * M:], dw2)
+    return (gtap, gres) + _grads_out(grads, Cs, M, fuse) + (dw2,)
 
 
 abf_block_bwd.launches = 0
 abf_block_bwd.launches_bf16 = 0
+abf_block_bwd.route = None
+
+
+def _grads_out(grads, Cs, M, fuse):
+    """``(dw1a, dbvec, dwxt, dwy, dzoff)`` views of the reduced partial
+    ``[dw1a | dbvec | dwxt | dwy | dzoff ...]`` (without a residual the
+    last three ``None``)."""
+    dw1a = grads[:Cs * M].view(Cs, M)
+    dbvec = grads[Cs * M:Cs * M + M]
+    if not fuse:
+        return dw1a, dbvec, None, None, None
+    rest = grads[Cs * M + M:]
+    return (dw1a, dbvec, rest[:2 * Cs].view(Cs, 2), rest[2 * Cs:2 * Cs + 2 * M].view(M, 2),
+            rest[2 * Cs + 2 * M:2 * Cs + 2 * M + 2])
+
+
+def _bwd_fused(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
+    """The bf16 K5b on route ``"fused"`` (``csrc/abf_block_bf16.cu``): one
+    kernel for the adjoint and the pixel pass (no dxf scratch), the blocks'
+    partials added in order, then dw2 (the bf16 K3w's wgmma route; on the
+    narrow route folded into the kernel's partials)."""
+    B, D, T, Cs = tap.shape
+    M, O = w2.shape[2], w2.shape[3]
+    fuse = res is not None
+    Dp = res.shape[1] if fuse else D
+    k = D // Dp
+    dev = tap.device
+    lib = _library(BF16_SOURCE)
+    narrow = lib.abf_block_bf16_route(Cs, M, O, k, int(fuse), D) == 2
+    blocks = lib.abf_block_bf16_bwd_blocks(B, D, k, T, int(fuse))
+    n = lib.abf_block_bf16_bwd_floats(Cs, M, O, int(narrow))
+    chunks = 1 if narrow else _library(BWD_SOURCE).abf_block_bwd_wgrad_chunks(M, O, B * D)
+    gtap = torch.empty_like(tap)
+    gres = torch.empty_like(res) if fuse else None
+    grads = torch.empty(n, device=dev, dtype=torch.float32)
+    partial = torch.empty(blocks, n, device=dev, dtype=torch.float32)
+    # the narrow route folds dw2 into the partials
+    dw2 = None if narrow else torch.empty(3, 3, M, O, device=dev, dtype=torch.float32)
+    wscratch = None if narrow else torch.empty(chunks, 9 * M * O, device=dev,
+                                               dtype=torch.float32)
+    w2f = _flip(w2)
+    with torch.cuda.device(dev):
+        err = lib.abf_block_bf16_bwd(
+            tap.data_ptr(), _ptr(res), w1a.data_ptr(), bvec.data_ptr(), _ptr(wxt), _ptr(wy),
+            _ptr(zoff), w2f.data_ptr(), xf.data_ptr(), gxf.data_ptr(), gout.data_ptr(),
+            gtap.data_ptr(), _ptr(gres), grads.data_ptr(), partial.data_ptr(), _ptr(dw2),
+            _ptr(wscratch), B, D, Dp, T, Cs, M, O, blocks, chunks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"abf_block_bwd launch failed (bfloat16, route fused): CUDA error {err}")
+    abf_block_bwd.launches_bf16 += 1
+    abf_block_bwd.route = "fused"
+    if narrow:
+        dw2 = grads[Cs * M + 3 * M + 2 * Cs + 2:].view(3, 3, M, O)
+    return (gtap, gres) + _grads_out(grads, Cs, M, fuse) + (dw2,)
 
 
 class _ABFBlock(torch.autograd.Function):

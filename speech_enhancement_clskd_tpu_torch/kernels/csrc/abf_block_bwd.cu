@@ -82,7 +82,10 @@
 // pass ("direct"); the pass loads bf16 and computes in float32 in the same
 // order as the float32 pass; dw2 runs on the bf16 K3w's routes from the bf16
 // xf and g_out, its chunks' partials added in chunk order.  Bound at the
-// reference block: the bytes, ~570 MB (0.170 ms).
+// reference block: the bytes, ~570 MB (0.170 ms).  The block-config step's
+// shapes take route "fused" of abf_block_bf16.cu instead (no dxf scratch);
+// this instantiation keeps the other bf16 shapes (M off a multiple of 8, Cs
+// off one above 4, odd k > 1, maps off 16 bytes).
 //
 // Interface: plain C, bound with ctypes.  res == NULL means no fuse (wxt, wy,
 // zoff, g_res are then not touched, and the dwxt/dwy/dzoff slots come out 0).

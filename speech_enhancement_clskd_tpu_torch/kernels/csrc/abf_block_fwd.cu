@@ -78,6 +78,9 @@
 // previous row's work.  Bound at the reference block: the bytes, half the
 // f32 ones (tap 31.7 MB + res 63.3 MB read, xf and out 126.6 MB written:
 // 0.104 ms), above the 75.5 GFLOP at the bf16 tensor-core peak (0.076 ms).
+// The block-config step's shapes take route "fused" of abf_block_bf16.cu
+// instead (its xf pass on the tensor cores); this instantiation keeps the
+// other bf16 shapes.
 //
 // Interface: plain C, bound with ctypes.  Pointers and the stream are passed
 // as void*; res == NULL means no fuse (wxt, wy, zoff are then not read).  The

@@ -72,6 +72,24 @@ BLOCK_SHAPES = [(True, 2, 8, 2, 483, 16, 64, 64), (True, 2, 16, 2, 70, 64, 64, 2
                 (True, 2, 6, 2, 19, 4, 8, 4), (True, 1, 3, 1, 21, 5, 3, 20),
                 (True, 2, 4, 2, 30, 5, 6, 16), (True, 2, 40, 4, 130, 12, 64, 32)]
 BLOCK_GRADS = ("g_tap", "g_res", "dw1a", "dbvec", "dwxt", "dwy", "dzoff", "dw2")
+# The bf16 K5f and K5b's route "fused" (csrc/abf_block_bf16.cu): every block
+# shape of the block-config step (chip_smoke.STEP_BLOCKS: D 4 .. 256, Cs 64 ..
+# 2, O 256 .. 2, the mask block last) at batch 2 and the step's T = 483; then
+# ragged shapes: T off the 64-step strips, D of one row (with and without the
+# fuse), k = 1 over an odd D (a pair's second row past the map), k = 4, M =
+# 8 and 32, O = 72 (w2f streamed, a chunk of one group; K5f's two passes),
+# the mask block's narrow route over a ragged T and without the fuse, and
+# K5f's one-kernel forward (O <= 64) over D = 40 (its 32-row chunks, the
+# last short) and T = 124 (two whole 62-step strips)
+BF16_FUSED_SHAPES = [(False, 2, 4, 1, 483, 64, 64, 256), (True, 2, 8, 2, 483, 64, 64, 256),
+                     (True, 2, 16, 2, 483, 64, 64, 256), (True, 2, 32, 2, 483, 32, 64, 128),
+                     (True, 2, 64, 2, 483, 16, 64, 64), (True, 2, 128, 2, 483, 8, 64, 32),
+                     (False, 2, 8, 1, 483, 64, 64, 256), (True, 2, 256, 2, 483, 2, 64, 2),
+                     (False, 2, 1, 1, 100, 16, 64, 64), (True, 3, 1, 1, 37, 8, 64, 32),
+                     (True, 2, 5, 1, 65, 16, 64, 16), (True, 2, 16, 4, 130, 8, 64, 32),
+                     (True, 2, 4, 2, 19, 8, 8, 8), (True, 2, 6, 2, 90, 64, 32, 64),
+                     (True, 1, 4, 2, 50, 8, 64, 72), (True, 2, 16, 2, 37, 2, 64, 2),
+                     (False, 2, 8, 1, 70, 2, 64, 2), (True, 2, 40, 2, 124, 8, 64, 64)]
 
 
 @pytest.fixture
@@ -487,7 +505,12 @@ def test_bf16_block_kernels_match_plain(cuda, shape):
     ``bf16_check`` with ``abf_block_bf16_scales``, the float32 parameter
     gradients by relative L2; every route of both kernels (BLOCK_SHAPES),
     Cs and M off the 4-wide loads; two runs give the same bits."""
-    kw, gxf, gout = _bf16_block(*_block_inputs(shape, sum(shape), cuda))
+    _bf16_block_holds(*_bf16_block(*_block_inputs(shape, sum(shape), cuda)))
+
+
+def _bf16_block_holds(kw, gxf, gout):
+    """The bf16 K5f and K5b on ``kw``'s inputs against their plain bf16
+    versions, and a second run's bits against the first's."""
     before = (abf_block_fwd.launches_bf16, abf_block_bwd.launches_bf16)
     xf, out = abf_block_fwd(**kw)
     grads = abf_block_bwd(**kw, xf=xf, gxf=gxf, gout=gout)
@@ -518,6 +541,36 @@ def test_bf16_block_kernels_match_plain(cuda, shape):
     assert all(a is None or torch.equal(a, b) for a, b in zip(grads, again))
 
 
+@pytest.mark.parametrize("shape", BF16_FUSED_SHAPES, ids=str)
+def test_bf16_block_fused_route_matches_plain(cuda, shape):
+    """Route "fused" at each step shape and the ragged ones: both kernels
+    take it (by shape, as their route functions state) and hold to their
+    plain versions with the tolerances above, the same bits twice."""
+    fuse, B, D, k, T, Cs, M, O = shape
+    assert abf_block_fwd_route(M, O, torch.bfloat16, Cs=Cs, D=D, k=k, fuse=fuse) == "fused"
+    assert abf_block_bwd_route(M, O, torch.bfloat16, Cs=Cs, D=D, k=k, fuse=fuse) == "fused"
+    _bf16_block_holds(*_bf16_block(*_block_inputs(shape, sum(shape), cuda)))
+    assert (abf_block_fwd.route, abf_block_bwd.route) == ("fused", "fused")
+
+
+@pytest.mark.parametrize("shape, route", [((True, 2, 8, 2, 70, 16, 64, 64), "wgmma"),
+                                          ((True, 2, 32, 2, 100, 2, 64, 2), "direct")], ids=str)
+def test_bf16_block_unaligned_takes_the_old_route(cuda, shape, route):
+    """A map one element into its buffer (not on 16 bytes, which TMA needs)
+    takes the earlier routes (the maps copied onto 16 bytes): "wgmma" at
+    M = O = 64, "direct" at the mask block's widths; it holds the same; the
+    aligned call of the same shape takes route "fused"."""
+    kw, gxf, gout = _bf16_block(*_block_inputs(shape, 11, cuda))
+    buf = torch.empty(kw["tap"].numel() + 1, device=cuda, dtype=torch.bfloat16)
+    tap = buf[1:].view(kw["tap"].shape)
+    tap.copy_(kw["tap"])
+    assert tap.data_ptr() % 16 != 0
+    _bf16_block_holds(dict(kw, tap=tap), gxf, gout)
+    assert (abf_block_fwd.route, abf_block_bwd.route) == (route, route)
+    _bf16_block_holds(kw, gxf, gout)
+    assert (abf_block_fwd.route, abf_block_bwd.route) == ("fused", "fused")
+
+
 def test_bf16_block_autograd_launches_its_kernels(cuda):
     """``abf_block`` on bf16 launches the bf16 K5f and K5b and nothing else,
     and returns each gradient in its input's dtype, as the JAX VJP casts."""
@@ -537,12 +590,30 @@ def test_bf16_block_autograd_launches_its_kernels(cuda):
         assert t.grad.dtype == t.dtype and t.grad.shape == t.shape, n
 
 
-@pytest.mark.parametrize("M, O, fwd_route, bwd_route",
-                         [(64, 256, "wgmma", "wgmma"), (64, 8, "wgmma", "wgmma"),
-                          (64, 4, "direct", "direct"), (64, 2, "direct", "direct"),
-                          (8, 16, "wgmma", "wgmma"), (7, 16, "direct", "direct"),
-                          (3, 20, "direct", "direct"), (12, 16, "mma", "mma"),
-                          (64, 20, "mma", "mma")])
-def test_bf16_block_route_by_shape(cuda, M, O, fwd_route, bwd_route):
-    assert (abf_block_fwd_route(M, O, torch.bfloat16),
-            abf_block_bwd_route(M, O, torch.bfloat16)) == (fwd_route, bwd_route)
+# (M, O, fwd route, bwd route, shape of the block or None): route "fused"
+# for the step's shapes (Cs, D, k, fuse given), the mask block included; off
+# it (Cs 12, k 3, O 4 with Cs 2, M 6, D 12 at the mask block's widths, an
+# unaligned map) the earlier routes by M and O
+@pytest.mark.parametrize("M, O, fwd_route, bwd_route, block",
+                         [(64, 256, "wgmma", "wgmma", None), (64, 8, "wgmma", "wgmma", None),
+                          (64, 4, "direct", "direct", None), (64, 2, "direct", "direct", None),
+                          (8, 16, "wgmma", "wgmma", None), (7, 16, "direct", "direct", None),
+                          (3, 20, "direct", "direct", None), (12, 16, "mma", "mma", None),
+                          (64, 20, "mma", "mma", None),
+                          (64, 256, "fused", "fused", dict(Cs=64, D=4, k=1, fuse=False)),
+                          (64, 128, "fused", "fused", dict(Cs=32, D=32, k=2, fuse=True)),
+                          (64, 64, "fused", "fused", dict(Cs=16, D=64, k=2, fuse=True)),
+                          (64, 32, "fused", "fused", dict(Cs=8, D=128, k=2, fuse=True)),
+                          (64, 2, "fused", "fused", dict(Cs=2, D=256, k=2, fuse=True)),
+                          (64, 64, "fused", "fused", dict(Cs=16, D=64, k=4, fuse=True)),
+                          (64, 64, "wgmma", "wgmma", dict(Cs=12, D=64, k=2, fuse=True)),
+                          (64, 64, "wgmma", "wgmma", dict(Cs=16, D=63, k=3, fuse=True)),
+                          (64, 4, "direct", "direct", dict(Cs=2, D=256, k=2, fuse=True)),
+                          (6, 16, "direct", "direct", dict(Cs=16, D=64, k=2, fuse=True)),
+                          (64, 2, "direct", "direct", dict(Cs=2, D=12, k=2, fuse=True)),
+                          (64, 64, "wgmma", "wgmma", dict(Cs=16, D=64, k=2, fuse=True,
+                                                          aligned=False))])
+def test_bf16_block_route_by_shape(cuda, M, O, fwd_route, bwd_route, block):
+    block = block or {}
+    assert (abf_block_fwd_route(M, O, torch.bfloat16, **block),
+            abf_block_bwd_route(M, O, torch.bfloat16, **block)) == (fwd_route, bwd_route)
