@@ -276,11 +276,13 @@ BF16_SERVING_ATOL = 5e-3
 
 
 # Each kernel's design: K1f, K1b, K2, K3f, K3w, K5f and K5b are in their
-# second, K4f and K4b in their first, and of the bf16 instantiations K3f
-# and K3w in their second (the bf16 conv tile on TMA and wgmma), K5f and K5b
-# in their third (csrc/abf_block_bf16.cu: K5b's adjoint consumed in the same
-# kernel, K5f's xf formed in shared memory and convolved there) (PERF.md
-# section 6 keeps each design's times).
+# second, K4f and K4b in their first, and of the bf16 kernels K3f and K3w in
+# their second (the bf16 conv tile on TMA and wgmma), K4f and K4b in their
+# second (csrc/attfuse_bf16.cu: a persistent block walks residual strips,
+# bulk-copied into a ring of stages on mbarriers, 8 channels a lane), K5f
+# and K5b in their third (csrc/abf_block_bf16.cu: K5b's adjoint consumed in
+# the same kernel, K5f's xf formed in shared memory and convolved there)
+# (PERF.md section 6 keeps each design's times).
 DESIGNS = {
     "lstm_seq_fwd": "register-cluster",
     "lstm_seq_bwd": "gate-prepass-register-chain",
@@ -293,8 +295,8 @@ DESIGNS = {
     "gram_pair_fwd": "bulk-copy-ring-fma-tiles",
     "conv3x3_fwd_bf16": "tma-ring-resident-weights-wgmma",
     "conv3x3_wgrad_bf16": "tma-ring-wgmma",
-    "attfuse_fwd_bf16": "warp-row",
-    "attfuse_bwd_bf16": "warp-row",
+    "attfuse_fwd_bf16": "residual-strip-items-bulk-copy-ring-16-byte-lanes",
+    "attfuse_bwd_bf16": "residual-strip-items-bulk-copy-ring-16-byte-lanes",
     "abf_block_fwd_bf16": "xf-formed-in-smem-ring-wgmma-conv",
     "abf_block_bwd_bf16": "fused-wgmma-adjoint-register-pass",
     "gram_pair_fwd_bf16": "bulk-copy-ring-fma-tiles",
@@ -1419,6 +1421,10 @@ STEP_BLOCKS = [(False, 4, 64, 256), (True, 8, 64, 256), (True, 16, 64, 256),
                (True, 32, 32, 128), (True, 64, 16, 64), (True, 128, 8, 32),
                (False, 8, 64, 256), (True, 16, 64, 256), (True, 32, 32, 128),
                (True, 64, 16, 64), (True, 128, 8, 32), (True, 256, 2, 2)]
+# The attention fuses of the kernel-config step at 32 x 3 s: one a fusing
+# block of STEP_BLOCKS, x [32, D, 483, 64] with the residual at D / 2 (k =
+# 2): D 8 .. 128 in the encoder chain, 16 .. 256 in the decoder's.
+STEP_FUSE_D = [D for fuse, D, _, _ in STEP_BLOCKS if fuse]
 
 
 def phase_abf_block_vs_plain():
@@ -2185,13 +2191,26 @@ def _bf16_conv_case(B, D, T, C, O, timed: bool, dx: bool = False,
     return rec
 
 
-def _bf16_fuse_case(B, D, Dp, T, C, timed: bool) -> dict:
+def _bf16_fuse_bounds(B, D, Dp, T, C):
+    """The bf16 K4f's and K4b's bounds, ``(ms, "bytes" or "operations")``
+    each: K4f reads x, res, the parameters and writes out and z; K4b reads
+    x, res, z, g and the weights and writes dx, dres and the float32
+    parameter gradients; about 8C and 14C operations a row."""
+    rows, res_rows = B * D * T, B * Dp * T
+    return (_bound(2.0 * (2 * rows * C + res_rows * C + 4 * C + 2 + 2 * rows),
+                   rows * (8.0 * C + 10)),
+            _bound(2.0 * (3 * rows * C + 2 * res_rows * C + 2 * rows + 4 * C)
+                   + 4.0 * (4 * C + 2), rows * (14.0 * C + 10)))
+
+
+def _bf16_fuse_case(B, D, Dp, T, C, timed: bool, step: bool = False) -> dict:
     """The bf16 K4f and K4b against their plain bf16 versions at x [B, D, T,
     C] with the residual [B, Dp, T, C]: out by ``bf16_check`` with
     ``BLEND_REL`` of the blend's terms (one bf16 spacing of z carried
     through), z by one spacing, dx and dres with ``SUM_REL`` of their terms'
     magnitudes, the float32 parameter gradients by relative L2, two runs'
-    bits; timed: the kernels, their plain versions and the bound."""
+    bits; timed or a step shape: the kernels and the bound; timed: their
+    plain versions too."""
     import torch
 
     from speech_enhancement_clskd_tpu_torch.kernels import BLEND_REL, SUM_REL, bf16_check
@@ -2245,22 +2264,20 @@ def _bf16_fuse_case(B, D, Dp, T, C, timed: bool) -> dict:
            "bwd_rel_l2_dwx_dwy_db": err_params, "fwd_bitwise_repeat": fwd_repeat,
            "bwd_bitwise_repeat": bwd_repeat, "params_tol": BF16_KERNEL_REL_L2,
            "within": all(c["within"] for c in [out_check, z_check] + map_checks)}
-    if timed:
-        rows, res_rows = B * D * T, B * Dp * T
-        fwd_bound = _bound(2.0 * (2 * rows * C + res_rows * C + 4 * C + 2 + 2 * rows),
-                           rows * (8.0 * C + 10))
-        bwd_bound = _bound(2.0 * (3 * rows * C + 2 * res_rows * C + 2 * rows + 4 * C)
-                           + 4.0 * (4 * C + 2), rows * (14.0 * C + 10))
+    if timed or step:
+        fwd_bound, bwd_bound = _bf16_fuse_bounds(B, D, Dp, T, C)
         with float32_math():
             rec.update(
                 fwd_ms=_time_ms(lambda: attention_fuse_fwd(x, res, wx, wy, bias), iters=10),
-                fwd_plain_ms=_time_ms(lambda: attention_fuse_reference(x, res, wx, wy, bias),
-                                      iters=3),
                 fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
                 bwd_ms=_time_ms(lambda: attention_fuse_bwd(x, res, z, gy, wx, wy), iters=10),
-                bwd_plain_ms=_time_ms(
-                    lambda: attention_fuse_bwd_reference(x, res, z, gy, wx, wy), iters=3),
                 bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1])
+            if timed:
+                rec.update(
+                    fwd_plain_ms=_time_ms(
+                        lambda: attention_fuse_reference(x, res, wx, wy, bias), iters=3),
+                    bwd_plain_ms=_time_ms(
+                        lambda: attention_fuse_bwd_reference(x, res, z, gy, wx, wy), iters=3))
     return rec
 
 
@@ -2286,13 +2303,28 @@ def _bf16_conv_step_sums(conv: list) -> dict:
     return sums
 
 
+def _bf16_fuse_step_sums(fuse: list) -> dict:
+    """The bf16 K4f and K4b summed over the kernel-config step's launches
+    (one of each for each D of ``STEP_FUSE_D``): the kernels and their bounds,
+    from ``fuse``'s timed records at each step shape."""
+    def rec_of(D):
+        return next(r for r in fuse if (r["B"], r["D"], r["Dp"], r["T"], r["C"]) == (
+            TEACHER_BATCH, D, D // 2, 483, 64) and "fwd_ms" in r)
+
+    parts = [rec_of(D) for D in STEP_FUSE_D]
+    return {key: {"ms": sum(r[f"{key}_ms"] for r in parts),
+                  "bound_ms": sum(r[f"{key}_bound_ms"] for r in parts),
+                  "launches": len(parts)} for key in ("fwd", "bwd")}
+
+
 def phase_bf16_kernels_vs_plain():
     """Phase 17: the bf16 K3f (and its dx pass), K3w, K4f and K4b against
     their plain bf16 versions at phase 8's shapes and at each distinct conv
-    shape of the kernel-config step (forward and dx), with times at the
-    reference shapes and at each step shape (kernel, cuDNN's bf16, bound,
-    route; the step's sums by launches); every step shape with C and O >= 8
-    takes route "wgmma" (the weight gradient where O > 8)."""
+    and fuse shape of the kernel-config step (the conv's forward and dx),
+    with times at the reference shapes and at each step shape (kernel,
+    cuDNN's bf16 for the conv, bound, route; the step's sums by launches);
+    every step shape with C and O >= 8 takes route "wgmma" (the weight
+    gradient where O > 8)."""
     import torch
 
     conv, fuse = [], []
@@ -2318,8 +2350,12 @@ def phase_bf16_kernels_vs_plain():
             raise RuntimeError(f"a step shape off route wgmma: {rec}")
     sums = _bf16_conv_step_sums(conv)
     say("bf16_kernels_vs_plain", kernel="conv3x3_bf16", step_sums=sums)
-    for *shape, timed in FUSE_CASES:
-        rec = _bf16_fuse_case(*shape, timed=timed)
+    step_fuse = [(TEACHER_BATCH, D, D // 2, 483, 64) for D in dict.fromkeys(STEP_FUSE_D)]
+    for *shape, timed, on_step in ([(*c, False) for c in FUSE_CASES]
+                                   + [(*c, False, True) for c in step_fuse if c != FUSE_REF]):
+        rec = _bf16_fuse_case(*shape, timed=timed, step=on_step)
+        if tuple(shape) in step_fuse:
+            rec["step_launches"] = STEP_FUSE_D.count(shape[1])
         say("bf16_kernels_vs_plain", kernel="attention_fuse_bf16", **rec)
         fuse.append(rec)
         torch.cuda.empty_cache()
@@ -2327,7 +2363,9 @@ def phase_bf16_kernels_vs_plain():
                 and rec["fwd_bitwise_repeat"] and rec["bwd_bitwise_repeat"]):
             raise RuntimeError(f"the bf16 attention fuse kernels disagree with their plain "
                                f"versions: {rec}")
-    return conv, fuse, sums
+    fuse_sums = _bf16_fuse_step_sums(fuse)
+    say("bf16_kernels_vs_plain", kernel="attention_fuse_bf16", step_sums=fuse_sums)
+    return conv, fuse, sums, fuse_sums
 
 
 def bf16_parity() -> dict:
@@ -2894,7 +2932,8 @@ def main() -> None:
     fit = phase_fit(training["step_ms_median"], training["audio_s_per_s"])
     reviewkd_training = phase_training_reviewkd(training)
     option_training = phase_training_options(block_training)
-    bf16_conv_shapes, bf16_fuse_shapes, bf16_conv_sums = phase_bf16_kernels_vs_plain()
+    bf16_conv_shapes, bf16_fuse_shapes, bf16_conv_sums, bf16_fuse_sums = (
+        phase_bf16_kernels_vs_plain())
     bf16 = phase_training_bf16(training)
     bf16_teacher = phase_serving_teacher_bf16(teacher)
     bf16_kernels_k5_k2 = phase_bf16_block_kernels_vs_plain()
@@ -3048,9 +3087,9 @@ def main() -> None:
              bf16_conv, "fwd", "fwd_max_abs_err", ("fwd_check",)),
             ("conv3x3_wgrad_bf16", "conv3x3_bf16.cu", "conv3x3.py:135", bf16_conv_shapes,
              bf16_conv, "wgrad", "wgrad_rel_l2", ()),
-            ("attfuse_fwd_bf16", "attfuse_fwd.cu", "attfuse.py:99", bf16_fuse_shapes,
+            ("attfuse_fwd_bf16", "attfuse_bf16.cu", "attfuse.py:99", bf16_fuse_shapes,
              bf16_fuse, "fwd", "fwd_max_abs_err", ("out_check", "z_check")),
-            ("attfuse_bwd_bf16", "attfuse_bwd.cu", "attfuse.py:113", bf16_fuse_shapes,
+            ("attfuse_bwd_bf16", "attfuse_bf16.cu", "attfuse.py:113", bf16_fuse_shapes,
              bf16_fuse, "bwd", "bwd_max_abs_err_dx_dres", ("dx_check", "dres_check"))):
         # the bf16 outputs' distance from the plain version (dw is float32)
         checks = [r[c] for r in cases for c in outs]
@@ -3150,6 +3189,9 @@ def main() -> None:
                      step=bf16_conv_sums["fwd"], step_dx=bf16_conv_sums["dx"])
         if k["name"] == "conv3x3_wgrad_bf16":
             k.update(routes=bf16_conv_sums["wgrad"]["routes"], step=bf16_conv_sums["wgrad"])
+        # the bf16 K4's sums over the kernel-config step's fuses
+        if k["name"] in ("attfuse_fwd_bf16", "attfuse_bwd_bf16"):
+            k.update(step=bf16_fuse_sums[k["name"].split("_")[1]])
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,11 @@ prints one JSON line per shape, then writes them all to ``--out``:
   weights in bf16, bvec and zoff float32), with hashes of their outputs and
   the route each took where the tree records it (``abf_block_fwd.route``,
   ``abf_block_bwd.route``);
+- the bf16 K4f and K4b (``attention_fuse_fwd`` / ``attention_fuse_bwd`` on
+  bf16 maps) at each distinct fuse of the kernel-config step (x [32, D,
+  483, 64] with the residual at D / 2, ``chip_smoke.STEP_FUSE_D``), beside
+  their bytes bounds (this script's own tree's ``chip_smoke.py``), with
+  hashes of their outputs' bits;
 - K2 (``gram_pair_fwd``) at B in {8, 16, 32, 64} x 528,000 columns (the
   spkd step's 33 s waveforms), with ``gram_times`` of this script's own
   tree's ``chip_smoke.py`` (loaded by path, so both trees are timed with the
@@ -44,7 +49,7 @@ prints one JSON line per shape, then writes them all to ``--out``:
 Except K2's device times, each time is CUDA events over repeated launches
 after a warm-up; inputs come from seeded generators, so both trees see the
 same data.  ``--kernels`` names the groups to time (``k1b k3f k3w k5 k2
-bf16_conv bf16_k5``; all by default).  Needs CUDA.
+bf16_conv bf16_k5 bf16_k4``; all by default).  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -268,16 +273,55 @@ def bf16_k5(emit) -> None:
         torch.cuda.empty_cache()
 
 
+def _smoke():
+    """This script's own tree's ``chip_smoke.py``, loaded by path (so both
+    trees are timed and bounded with the same code)."""
+    spec = importlib.util.spec_from_file_location("pair_timing_chip_smoke", HERE / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def bf16_k4(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
+        attention_fuse_bwd,
+        attention_fuse_fwd,
+    )
+
+    smoke = _smoke()
+    B, T, C = 32, 483, 64
+    for D in dict.fromkeys(smoke.STEP_FUSE_D):
+        Dp = D // 2
+        g = torch.Generator(device="cuda").manual_seed(B * D + C)
+        x, res, wx, wy, bias, gy = (t.bfloat16() for t in (
+            torch.randn(B, D, T, C, device="cuda", generator=g),
+            torch.randn(B, Dp, T, C, device="cuda", generator=g),
+            0.3 * torch.randn(C, 2, device="cuda", generator=g),
+            0.3 * torch.randn(C, 2, device="cuda", generator=g),
+            0.1 * torch.randn(2, device="cuda", generator=g),
+            torch.randn(B, D, T, C, device="cuda", generator=g)))
+        shape = dict(B=B, D=D, Dp=Dp, T=T, C=C, launches=smoke.STEP_FUSE_D.count(D))
+        fwd_bound, bwd_bound = smoke._bf16_fuse_bounds(B, D, Dp, T, C)
+        ms = _time_ms(lambda: attention_fuse_fwd(x, res, wx, wy, bias), 20)
+        out, z = attention_fuse_fwd(x, res, wx, wy, bias)
+        emit(kernel="attfuse_fwd_bf16", **shape, ms=ms, bound_ms=fwd_bound[0],
+             sha256_out_z=_bits(out, z))
+        ms = _time_ms(lambda: attention_fuse_bwd(x, res, z, gy, wx, wy), 20)
+        emit(kernel="attfuse_bwd_bf16", **shape, ms=ms, bound_ms=bwd_bound[0],
+             sha256_grads=_bits(*attention_fuse_bwd(x, res, z, gy, wx, wy)))
+        del x, res, gy, out, z
+        torch.cuda.empty_cache()
+
+
 def k2(emit) -> None:
     import torch
 
     from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair_fwd
     from speech_enhancement_clskd_tpu_torch.utils.device import float32_math
 
-    spec = importlib.util.spec_from_file_location("pair_timing_chip_smoke", HERE / "chip_smoke.py")
-    timing = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(timing)
-
+    timing = _smoke()
     for B in K2_BATCHES:
         g = torch.Generator(device="cuda").manual_seed(B)
         s = (0.3 * torch.randn(B, K2_COLUMNS, device="cuda", generator=g)).clamp(-1, 1)
@@ -294,7 +338,7 @@ def k2(emit) -> None:
 
 
 GROUPS = {"k1b": k1b, "k3f": k3f, "k3w": k3w, "k5": k5, "k2": k2, "bf16_conv": bf16_conv,
-          "bf16_k5": bf16_k5}
+          "bf16_k5": bf16_k5, "bf16_k4": bf16_k4}
 
 
 def main() -> None:

@@ -5,7 +5,7 @@ one NVIDIA GPU.
     python3 scripts/profile_serving_torch.py [--trace-dir DIR] [--root DIR]
                                              [--configs NAME ...]
 
-Nine configurations, built as ``chip_smoke.py`` builds them:
+Ten configurations, built as ``chip_smoke.py`` builds them:
 
 - student streaming: the r4 bundle, batch 1, one fixed-shape chunk step
   (chunk 48, context 64) repeated 40 times;
@@ -21,6 +21,8 @@ Nine configurations, built as ``chip_smoke.py`` builds them:
   phase 13 settles on (the largest from 32, halving, that fits);
 - the bf16 clskd step (``chip_smoke.bf16_models()``: both models computing
   in bf16, ``BF16_DISTILL``: bf16 taps) at 32 x 3 s;
+- the bf16 kernel-config step (``BF16_KERNEL_DISTILL``: the bf16 K3f, K3w,
+  K4f and K4b) at 32 x 3 s;
 - the bf16 block-config step (``BF16_BLOCK_DISTILL``: the whole-block
   kernels K5f and K5b on bf16) at 32 x 3 s;
 - the bf16 block step at ``bench.py``'s batch 64 with ``abf_remat`` and
@@ -124,7 +126,8 @@ def breakdown(label: str, step, iters: int, trace_dir: str | None) -> dict:
 
 CONFIGS = ("student_stream_chunk", "teacher_offline_32x3s", "clskd_train_step",
            "clskd_train_step_abf_kernels", "clskd_train_step_abf_block", "spkd_train_step",
-           "clskd_train_step_bf16", "clskd_train_step_bf16_block",
+           "clskd_train_step_bf16", "clskd_train_step_bf16_kernels",
+           "clskd_train_step_bf16_block",
            "clskd_train_step_bf16_block_remat_fold_b64")
 
 
@@ -148,6 +151,7 @@ def main() -> None:
         BF16_BENCH_DISTILL,
         BF16_BLOCK_DISTILL,
         BF16_DISTILL,
+        BF16_KERNEL_DISTILL,
         SPKD_SECONDS,
         TEACHER_BATCH,
         bf16_models,
@@ -182,6 +186,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     for label, distill, batch in (
             ("clskd_train_step_bf16", BF16_DISTILL, TEACHER_BATCH),
+            ("clskd_train_step_bf16_kernels", BF16_KERNEL_DISTILL, TEACHER_BATCH),
             ("clskd_train_step_bf16_block", BF16_BLOCK_DISTILL, TEACHER_BATCH),
             ("clskd_train_step_bf16_block_remat_fold_b64", BF16_BENCH_DISTILL, BF16_BATCH)):
         if label in run:

@@ -80,3 +80,16 @@ def widened(t: torch.Tensor) -> torch.Tensor:
     """A plain version's working copy of ``t``: bfloat16 upcast to float32
     (where a bf16 kernel sums in float32), any other dtype as it is."""
     return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def on16(*ts: Optional[torch.Tensor]) -> bool:
+    """Every tensor given starts on 16 bytes (TMA's and the bulk copies' base
+    alignment)."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
+
+
+def aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t``, or a copy of it that starts on 16 bytes (the kernels read the
+    maps in 16-byte units where the widths allow; a view into a larger tensor
+    may start anywhere)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()

@@ -101,7 +101,7 @@ from typing import Optional, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import BLEND_REL, SUM_REL, _build, check_tensors, float_dtype, widened
+from . import BLEND_REL, SUM_REL, _build, aligned, check_tensors, float_dtype, on16, widened
 from .conv3x3 import conv3x3_reference, conv3x3_wgrad_reference
 
 FWD_SOURCE = "abf_block_fwd.cu"
@@ -312,18 +312,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _on16(*ts: Optional[torch.Tensor]) -> bool:
-    """Every tensor given starts on 16 bytes (TMA's base alignment)."""
-    return all(t is None or t.data_ptr() % 16 == 0 for t in ts)
-
-
-def _aligned(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """``t``, or a copy of it that starts on 16 bytes (the kernels read the
-    maps as float4s where the widths allow; a view into a larger tensor may
-    start anywhere)."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-
-
 def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(xf [B, D, T, M], out [B, D, T, O])`` in the tap's dtype: the K5f
     kernel on CUDA tensors (counted in ``abf_block_fwd.launches``, the bf16
@@ -338,10 +326,10 @@ def abf_block_fwd(tap, res, w1a, bvec, wxt, wy, zoff, w2) -> Tuple[torch.Tensor,
     dt = tap.dtype
     bf16 = dt == torch.bfloat16
     Dp = D if res is None else res.shape[1]
-    if bf16 and _on16(tap, res) and _bf16_fused_route(Cs, D, M, O, D // Dp, res is not None):
+    if bf16 and on16(tap, res) and _bf16_fused_route(Cs, D, M, O, D // Dp, res is not None):
         return _fwd_fused(tap, res, w1a, bvec, wxt, wy, zoff, w2)
     abf_block_fwd.route = abf_block_fwd_route(M, O, dt)
-    tap, res = _aligned(tap), _aligned(res)
+    tap, res = aligned(tap), aligned(res)
     lib = _library(FWD_SOURCE)
     xf = torch.empty(B, D, T, M, device=tap.device, dtype=dt)
     out = torch.empty(B, D, T, O, device=tap.device, dtype=dt)
@@ -464,11 +452,11 @@ def abf_block_bwd(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout):
     Dp = res.shape[1] if fuse else D
     dt = tap.dtype
     bf16 = dt == torch.bfloat16
-    if (bf16 and _on16(tap, res, xf, gxf, gout)
+    if (bf16 and on16(tap, res, xf, gxf, gout)
             and _bf16_fused_route(Cs, D, M, O, D // Dp, fuse)):
         return _bwd_fused(tap, res, w1a, bvec, wxt, wy, zoff, w2, xf, gxf, gout)
     abf_block_bwd.route = abf_block_bwd_route(M, O, dt)
-    tap, res, xf, gxf, gout = (_aligned(t) for t in (tap, res, xf, gxf, gout))
+    tap, res, xf, gxf, gout = (aligned(t) for t in (tap, res, xf, gxf, gout))
     lib = _library(BWD_SOURCE)
     blocks = lib.abf_block_bwd_blocks(B, Dp, T)
     chunks = lib.abf_block_bwd_wgrad_chunks(M, O, B * D)

@@ -16,21 +16,24 @@ the residual (``y[:, d] = res[:, d // k]``, ``k = D / Dp``):
   is kept for the backward.  Callers gate on ``attfuse_dispatchable``.
 - ``attention_fuse_fwd`` and ``attention_fuse_bwd`` are the kernels'
   wrappers.  On a CUDA tensor they launch the kernels of
-  ``csrc/attfuse_fwd.cu`` and ``csrc/attfuse_bwd.cu`` (built at first use) or
-  raise; nothing falls back.  On a CPU tensor they run
-  ``attention_fuse_reference`` and ``attention_fuse_bwd_reference``.  Their
-  ``launches`` counters count kernel launches only.
+  ``csrc/attfuse_fwd.cu`` and ``csrc/attfuse_bwd.cu`` (float32) or
+  ``csrc/attfuse_bf16.cu`` (bfloat16), built at first use, or raise; nothing
+  falls back.  On a CPU tensor they run ``attention_fuse_reference`` and
+  ``attention_fuse_bwd_reference``.  Their ``launches`` counters count kernel
+  launches only.
 
 Each wrapper runs in its input's dtype, float32 or bfloat16 (all inputs of
-one dtype).  The bf16 instantiations (``attfuse_fwd_bf16`` and
-``attfuse_bwd_bf16`` in the same sources, counted in ``launches_bf16``) are
-the Pallas kernels on bf16 maps: K4f sums the logits of the exact products in
-float32, rounds ``z = sigmoid(p + bias)`` to bf16 and blends in bf16
-arithmetic (each product and the sum rounded); K4b upcasts to float32,
-rounds ``dx`` and ``dres`` once to bf16 and returns the parameter gradients
-in float32.  The plain versions round at the same places.  The
-differentiable ``attention_fuse`` returns the parameter gradients in the
-parameters' dtype, as the JAX custom VJP does.
+one dtype).  The bf16 kernels (``attfuse_fwd_bf16`` and ``attfuse_bwd_bf16``
+in ``csrc/attfuse_bf16.cu``, counted in ``launches_bf16``) are the Pallas
+kernels on bf16 maps: K4f sums the logits of the exact products in float32,
+rounds ``z = sigmoid(p + bias)`` to bf16 and blends in bf16 arithmetic (each
+product and the sum rounded); K4b upcasts to float32, rounds ``dx`` and
+``dres`` once to bf16 and returns the parameter gradients in float32.  They
+copy their strips by bulk copy and so take maps that start on 16 bytes: the
+wrappers copy a bf16 input that does not to an aligned buffer first.  The
+plain versions round at the same places.  The differentiable
+``attention_fuse`` returns the parameter gradients in the parameters' dtype,
+as the JAX custom VJP does.
 """
 
 from __future__ import annotations
@@ -42,15 +45,17 @@ from typing import Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors, float_dtype, widened
+from . import _build, aligned, check_tensors, float_dtype, widened
 
 FWD_SOURCE = "attfuse_fwd.cu"
 BWD_SOURCE = "attfuse_bwd.cu"
-SOURCES = (FWD_SOURCE, BWD_SOURCE)
+BF16_SOURCE = "attfuse_bf16.cu"
+SOURCES = (FWD_SOURCE, BWD_SOURCE, BF16_SOURCE)
 # the kernels keep a row's channels in registers, 32 lanes x at most 8 each
 MAX_CHANNELS = 256
-# blocks of the backward's main pass, each writing one partial of the small
-# gradients; fixed, so the sum order depends only on the shape
+# blocks of the float32 backward's main pass, each writing one partial of the
+# small gradients; fixed, so the sum order depends only on the shape (the
+# bf16 backward's count comes from its library, by shape)
 BWD_BLOCKS = 4096
 
 
@@ -117,23 +122,24 @@ def _check_inputs(x, res, wx, wy) -> None:
 def _library(source: str) -> ctypes.CDLL:
     lib = _build.load(source)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    if source == FWD_SOURCE:
-        for fn in (lib.attfuse_fwd, lib.attfuse_fwd_bf16):
-            fn.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-            fn.restype = i32
-    else:
-        for fn in (lib.attfuse_bwd, lib.attfuse_bwd_bf16):
-            fn.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
-            fn.restype = i32
+    entries = {FWD_SOURCE: ("attfuse_fwd",), BWD_SOURCE: ("attfuse_bwd",),
+               BF16_SOURCE: ("attfuse_fwd_bf16", "attfuse_bwd_bf16")}[source]
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = ([ptr] * 7 + [i32] * 5 if "fwd" in name else [ptr] * 10 + [i32] * 6) + [ptr]
+        fn.restype = i32
+    if source == BF16_SOURCE:
+        lib.attfuse_bwd_bf16_blocks.argtypes = [i32] * 4
+        lib.attfuse_bwd_bf16_blocks.restype = i32
     return lib
 
 
 def attention_fuse_fwd(x, res, wx, wy, bias) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, D, T, C], z [B, D, T, 2])`` in x's dtype (float32 or
     bfloat16): the K4f kernel on CUDA tensors (counted in
-    ``attention_fuse_fwd.launches``, the bf16 instantiation in
-    ``attention_fuse_fwd.launches_bf16``), ``attention_fuse_reference`` on
-    CPU tensors."""
+    ``attention_fuse_fwd.launches``, the bf16 kernel in
+    ``attention_fuse_fwd.launches_bf16``; a bf16 input off 16 bytes is
+    copied first), ``attention_fuse_reference`` on CPU tensors."""
     _check_inputs(x, res, wx, wy)
     if tuple(bias.shape) != (2,):
         raise ValueError(f"bias must be [2], got {tuple(bias.shape)}")
@@ -144,7 +150,9 @@ def attention_fuse_fwd(x, res, wx, wy, bias) -> Tuple[torch.Tensor, torch.Tensor
         return attention_fuse_reference(x, res, wx, wy, bias)
     B, D, T, C = x.shape
     bf16 = dtype == torch.bfloat16
-    lib = _library(FWD_SOURCE)
+    if bf16:
+        x, res, wx, wy, bias = (aligned(t) for t in (x, res, wx, wy, bias))
+    lib = _library(BF16_SOURCE if bf16 else FWD_SOURCE)
     out = torch.empty_like(x)
     z = torch.empty(B, D, T, 2, device=x.device, dtype=dtype)
     with torch.cuda.device(x.device):
@@ -169,10 +177,11 @@ def attention_fuse_bwd(x, res, z, g, wx, wy):
     """``(dx, dres, dwx [C, 2], dwy [C, 2], dbias [2])`` for the incoming
     ``g``, ``dx`` and ``dres`` in x's dtype (float32 or bfloat16), the
     three small gradients float32: the K4b kernel on CUDA tensors (counted
-    in ``attention_fuse_bwd.launches``, the bf16 instantiation in
+    in ``attention_fuse_bwd.launches``, the bf16 kernel in
     ``attention_fuse_bwd.launches_bf16``; the three small gradients are
     per-block partials added in a fixed order, so repeated runs give the
-    same bits), ``attention_fuse_bwd_reference`` on CPU tensors."""
+    same bits; a bf16 input off 16 bytes is copied first),
+    ``attention_fuse_bwd_reference`` on CPU tensors."""
     _check_inputs(x, res, wx, wy)
     B, D, T, C = x.shape
     if tuple(z.shape) != (B, D, T, 2) or tuple(g.shape) != tuple(x.shape):
@@ -185,8 +194,13 @@ def attention_fuse_bwd(x, res, z, g, wx, wy):
         return attention_fuse_bwd_reference(x, res, z, g, wx, wy)
     bf16 = dtype == torch.bfloat16
     Dp = res.shape[1]
-    blocks = min(BWD_BLOCKS, B * Dp * T)
-    lib = _library(BWD_SOURCE)
+    if bf16:
+        x, res, z, g, wx, wy = (aligned(t) for t in (x, res, z, g, wx, wy))
+        lib = _library(BF16_SOURCE)
+        blocks = lib.attfuse_bwd_bf16_blocks(B, Dp, T, C)
+    else:
+        lib = _library(BWD_SOURCE)
+        blocks = min(BWD_BLOCKS, B * Dp * T)
     dx = torch.empty_like(x)
     dres = torch.empty_like(res)
     grads = torch.empty(4 * C + 2, device=x.device, dtype=torch.float32)

@@ -11,14 +11,8 @@
 //     dy  = z1 g + dp0 Wy[:, 0] + dp1 Wy[:, 1]
 // and dres[b, r, t] = sum of dy over the k rows d = r*k .. r*k + k - 1,
 // dWx = sum x^T dp, dWy = sum y^T dp, dbias = sum dp over all rows.  All
-// arithmetic is f32.
-//
-// The bf16 instantiation (attfuse_bwd_bf16; the Pallas kernel on bf16 maps)
-// reads x, res, z, g, Wx and Wy in bf16 and upcasts them to f32, as the
-// Pallas body does (attfuse.py:128-146); dx and dres are rounded once to
-// bf16 (:148-151), and dWx, dWy and dbias stay f32 sums (the caller rounds
-// them to the parameters' dtype, :253-255).  Same design, each lane
-// converting its bf16 channels to f32.
+// arithmetic is f32.  The kernel on bf16 maps (attfuse_bwd_bf16) is
+// attfuse_bf16.cu.
 //
 // What bounds it on this card.  About 14C operations per row against reading
 // x, g and z and a row of res and writing dx and a row of dres: bytes, at
@@ -45,7 +39,6 @@
 // caller allocates dx [B, D, T, C], dres [B, D/k, T, C], grads [4C + 2] and
 // the scratch of blocks * (4C + 2) floats.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -61,17 +54,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// TI: the maps' and weights' element type (float or bf16); the partials are f32.
-template <int CPL, typename TI>
+template <int CPL>
 __global__ void __launch_bounds__(32 * kWarps)
-attfuse_bwd_kernel(const TI* __restrict__ x, const TI* __restrict__ res,
-                   const TI* __restrict__ z, const TI* __restrict__ g,
-                   const TI* __restrict__ wx, const TI* __restrict__ wy,
-                   TI* __restrict__ dx, TI* __restrict__ dres,
+attfuse_bwd_kernel(const float* __restrict__ x, const float* __restrict__ res,
+                   const float* __restrict__ z, const float* __restrict__ g,
+                   const float* __restrict__ wx, const float* __restrict__ wy,
+                   float* __restrict__ dx, float* __restrict__ dres,
                    float* __restrict__ partial, long res_rows, long rows_per_block, int Dp,
                    int k, int T, int C) {
   __shared__ float red[kWarps][4 * kMaxC + 2];
@@ -124,11 +113,11 @@ attfuse_bwd_kernel(const TI* __restrict__ x, const TI* __restrict__ res,
       const float z0 = load(z + 2 * row), z1 = load(z + 2 * row + 1);
       const float dp0 = z0 * (1.0f - z0) * s0;
       const float dp1 = z1 * (1.0f - z1) * s1;
-      TI* dxr = dx + row * C;
+      float* dxr = dx + row * C;
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
         const int c = lane + 32 * i;
-        if (c < C) store(dxr + c, fmaf(dp1, wx1[i], fmaf(dp0, wx0[i], z0 * gv[i])));
+        if (c < C) dxr[c] = fmaf(dp1, wx1[i], fmaf(dp0, wx0[i], z0 * gv[i]));
         dy[i] += fmaf(dp1, wy1[i], fmaf(dp0, wy0[i], z1 * gv[i]));
         awx0[i] = fmaf(xv[i], dp0, awx0[i]);
         awx1[i] = fmaf(xv[i], dp1, awx1[i]);
@@ -138,11 +127,11 @@ attfuse_bwd_kernel(const TI* __restrict__ x, const TI* __restrict__ res,
       adb0 += dp0;
       adb1 += dp1;
     }
-    TI* dr = dres + rr * C;
+    float* dr = dres + rr * C;
 #pragma unroll
     for (int i = 0; i < CPL; ++i) {
       const int c = lane + 32 * i;
-      if (c < C) store(dr + c, dy[i]);
+      if (c < C) dr[c] = dy[i];
     }
   }
 
@@ -182,17 +171,16 @@ attfuse_bwd_reduce_kernel(const float* __restrict__ partial, float* __restrict__
   grads[idx] = s;
 }
 
-template <int CPL, typename TI>
-cudaError_t launch(const TI* x, const TI* res, const TI* z, const TI* g, const TI* wx,
-                   const TI* wy, TI* dx, TI* dres, float* partial, long res_rows, int blocks,
-                   int Dp, int k, int T, int C, cudaStream_t stream) {
+template <int CPL>
+cudaError_t launch(const float* x, const float* res, const float* z, const float* g,
+                   const float* wx, const float* wy, float* dx, float* dres, float* partial,
+                   long res_rows, int blocks, int Dp, int k, int T, int C, cudaStream_t stream) {
   const long per_block = (res_rows + blocks - 1) / blocks;
-  attfuse_bwd_kernel<CPL, TI><<<blocks, 32 * kWarps, 0, stream>>>(
+  attfuse_bwd_kernel<CPL><<<blocks, 32 * kWarps, 0, stream>>>(
       x, res, z, g, wx, wy, dx, dres, partial, res_rows, per_block, Dp, k, T, C);
   return cudaGetLastError();
 }
 
-template <typename TI>
 int run(const void* x, const void* res, const void* z, const void* g, const void* wx,
         const void* wy, void* dx, void* dres, void* grads, void* scratch, int B, int D, int Dp,
         int T, int C, int blocks, void* stream) {
@@ -200,14 +188,14 @@ int run(const void* x, const void* res, const void* z, const void* g, const void
     return (int)cudaErrorInvalidValue;
   const long res_rows = (long)B * Dp * T;
   const int k = D / Dp;
-  const TI* xi = static_cast<const TI*>(x);
-  const TI* ri = static_cast<const TI*>(res);
-  const TI* zi = static_cast<const TI*>(z);
-  const TI* gi = static_cast<const TI*>(g);
-  const TI* a = static_cast<const TI*>(wx);
-  const TI* b = static_cast<const TI*>(wy);
-  TI* dxo = static_cast<TI*>(dx);
-  TI* dro = static_cast<TI*>(dres);
+  const float* xi = static_cast<const float*>(x);
+  const float* ri = static_cast<const float*>(res);
+  const float* zi = static_cast<const float*>(z);
+  const float* gi = static_cast<const float*>(g);
+  const float* a = static_cast<const float*>(wx);
+  const float* b = static_cast<const float*>(wy);
+  float* dxo = static_cast<float*>(dx);
+  float* dro = static_cast<float*>(dres);
   float* part = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -232,15 +220,5 @@ extern "C" int attfuse_bwd(const void* x, const void* res, const void* z, const 
                            const void* wx, const void* wy, void* dx, void* dres, void* grads,
                            void* scratch, int B, int D, int Dp, int T, int C, int blocks,
                            void* stream) {
-  return run<float>(x, res, z, g, wx, wy, dx, dres, grads, scratch, B, D, Dp, T, C, blocks,
-                    stream);
-}
-
-// The same on bf16 maps, weights, dx and dres; grads and the scratch stay f32.
-extern "C" int attfuse_bwd_bf16(const void* x, const void* res, const void* z, const void* g,
-                                const void* wx, const void* wy, void* dx, void* dres,
-                                void* grads, void* scratch, int B, int D, int Dp, int T, int C,
-                                int blocks, void* stream) {
-  return run<__nv_bfloat16>(x, res, z, g, wx, wy, dx, dres, grads, scratch, B, D, Dp, T, C,
-                            blocks, stream);
+  return run(x, res, z, g, wx, wy, dx, dres, grads, scratch, B, D, Dp, T, C, blocks, stream);
 }

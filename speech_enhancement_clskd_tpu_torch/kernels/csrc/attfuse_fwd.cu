@@ -7,16 +7,8 @@
 // y[b, d, t] = res[b, d / k, t] (nearest upscale),
 //     z   = sigmoid(x . Wx + y . Wy + bias)      [B, D, T, 2]
 //     out = x * z0 + y * z1                      [B, D, T, C]
-// and z is written too, for the backward.  All arithmetic is f32.
-//
-// The bf16 instantiation (attfuse_fwd_bf16; the Pallas kernel on bf16 maps,
-// under distill.taps_dtype = bfloat16 with abf_attfuse_pallas) takes x, res,
-// Wx, Wy and the bias in bf16 and rounds where the Pallas body rounds
-// (attfuse.py:104-111): the logits are f32 sums of the exact products, z =
-// sigmoid(p + bias) in f32 is rounded to bf16, and the blend is bf16
-// arithmetic, each product and the sum rounded to bf16 (x * z0, y * z1,
-// their sum).  z is written in bf16.  Same bound (bytes, half of them) and
-// the same design, each lane converting its bf16 channels to f32.
+// and z is written too, for the backward.  All arithmetic is f32.  The
+// kernel on bf16 maps (attfuse_fwd_bf16) is attfuse_bf16.cu.
 //
 // What bounds it on this card.  About 8C operations per row against reading
 // x and a row of res and writing out and z: bytes, at 3.35 TB/s.  The
@@ -36,10 +28,7 @@
 // as void*; the return value is cudaGetLastError() after the launch.  The
 // caller allocates out [B, D, T, C] and z [B, D, T, 2].
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -53,21 +42,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
-// TI: the maps' and parameters' element type (float or bf16).
-template <int CPL, typename TI>
+template <int CPL>
 __global__ void __launch_bounds__(32 * kWarps)
-attfuse_fwd_kernel(const TI* __restrict__ x, const TI* __restrict__ res,
-                   const TI* __restrict__ wx, const TI* __restrict__ wy,
-                   const TI* __restrict__ bias, TI* __restrict__ out,
-                   TI* __restrict__ z, long rows, int D, int k, int T, int C) {
-  constexpr bool kBf16 = !std::is_same<TI, float>::value;
+attfuse_fwd_kernel(const float* __restrict__ x, const float* __restrict__ res,
+                   const float* __restrict__ wx, const float* __restrict__ wy,
+                   const float* __restrict__ bias, float* __restrict__ out,
+                   float* __restrict__ z, long rows, int D, int k, int T, int C) {
   const int lane = threadIdx.x & 31;
   const long row = (long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= rows) return;  // the whole warp leaves together
@@ -76,8 +57,8 @@ attfuse_fwd_kernel(const TI* __restrict__ x, const TI* __restrict__ res,
   const long b = bd / D;
   const int d = (int)(bd - b * D);
   const long rrow = (b * (D / k) + d / k) * T + t;
-  const TI* xr = x + row * C;
-  const TI* yr = res + rrow * C;
+  const float* xr = x + row * C;
+  const float* yr = res + rrow * C;
 
   float xv[CPL], yv[CPL];
   float p0 = 0.0f, p1 = 0.0f;
@@ -97,52 +78,43 @@ attfuse_fwd_kernel(const TI* __restrict__ x, const TI* __restrict__ res,
   }
   p0 = warp_sum(p0);
   p1 = warp_sum(p1);
-  float z0 = 1.0f / (1.0f + expf(-(p0 + load(bias))));
-  float z1 = 1.0f / (1.0f + expf(-(p1 + load(bias + 1))));
-  if constexpr (kBf16) {
-    z0 = round_bf16(z0);
-    z1 = round_bf16(z1);
-  }
-  TI* orow = out + row * C;
+  const float z0 = 1.0f / (1.0f + expf(-(p0 + load(bias))));
+  const float z1 = 1.0f / (1.0f + expf(-(p1 + load(bias + 1))));
+  float* orow = out + row * C;
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
     const int c = lane + 32 * i;
-    if (c < C) {
-      if constexpr (kBf16)
-        store(orow + c, round_bf16(xv[i] * z0) + round_bf16(yv[i] * z1));
-      else
-        orow[c] = fmaf(xv[i], z0, yv[i] * z1);
-    }
+    if (c < C) orow[c] = fmaf(xv[i], z0, yv[i] * z1);
   }
   if (lane == 0) {
-    store(z + 2 * row, z0);
-    store(z + 2 * row + 1, z1);
+    z[2 * row] = z0;
+    z[2 * row + 1] = z1;
   }
 }
 
-template <int CPL, typename TI>
-cudaError_t launch(const TI* x, const TI* res, const TI* wx, const TI* wy, const TI* bias,
-                   TI* out, TI* z, long rows, int D, int k, int T, int C, cudaStream_t stream) {
+template <int CPL>
+cudaError_t launch(const float* x, const float* res, const float* wx, const float* wy,
+                   const float* bias, float* out, float* z, long rows, int D, int k, int T, int C,
+                   cudaStream_t stream) {
   const long blocks = (rows + kWarps - 1) / kWarps;
-  attfuse_fwd_kernel<CPL, TI><<<(unsigned)blocks, 32 * kWarps, 0, stream>>>(
+  attfuse_fwd_kernel<CPL><<<(unsigned)blocks, 32 * kWarps, 0, stream>>>(
       x, res, wx, wy, bias, out, z, rows, D, k, T, C);
   return cudaGetLastError();
 }
 
-template <typename TI>
 int run(const void* x, const void* res, const void* wx, const void* wy, const void* bias,
         void* out, void* z, int B, int D, int Dp, int T, int C, void* stream) {
   if (B < 1 || D < 1 || Dp < 1 || D % Dp || T < 1 || C < 1 || C > kMaxC)
     return (int)cudaErrorInvalidValue;
   const long rows = (long)B * D * T;
   const int k = D / Dp;
-  const TI* xi = static_cast<const TI*>(x);
-  const TI* ri = static_cast<const TI*>(res);
-  const TI* a = static_cast<const TI*>(wx);
-  const TI* b = static_cast<const TI*>(wy);
-  const TI* bi = static_cast<const TI*>(bias);
-  TI* o = static_cast<TI*>(out);
-  TI* zo = static_cast<TI*>(z);
+  const float* xi = static_cast<const float*>(x);
+  const float* ri = static_cast<const float*>(res);
+  const float* a = static_cast<const float*>(wx);
+  const float* b = static_cast<const float*>(wy);
+  const float* bi = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  float* zo = static_cast<float*>(z);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (C <= 32)
@@ -161,12 +133,5 @@ int run(const void* x, const void* res, const void* wx, const void* wy, const vo
 extern "C" int attfuse_fwd(const void* x, const void* res, const void* wx, const void* wy,
                            const void* bias, void* out, void* z, int B, int D, int Dp, int T,
                            int C, void* stream) {
-  return run<float>(x, res, wx, wy, bias, out, z, B, D, Dp, T, C, stream);
-}
-
-// The same on bf16 maps, parameters, out and z.
-extern "C" int attfuse_fwd_bf16(const void* x, const void* res, const void* wx, const void* wy,
-                                const void* bias, void* out, void* z, int B, int D, int Dp,
-                                int T, int C, void* stream) {
-  return run<__nv_bfloat16>(x, res, wx, wy, bias, out, z, B, D, Dp, T, C, stream);
+  return run(x, res, wx, wy, bias, out, z, B, D, Dp, T, C, stream);
 }

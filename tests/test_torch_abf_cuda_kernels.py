@@ -364,8 +364,11 @@ BF16_CONV_SHAPES = CONV_SHAPES + [(2, 3, 20, 12, 8), (2, 4, 40, 8, 24),
 # (measured 2.4e-5 on dw1a, NVIDIA H100 80GB HBM3, 700 W; dbvec, dzoff and dw2
 # sum unrounded values and stay within BF16_REL_L2)
 BF16_ROUNDED_REL_L2 = 1e-4
-# the fuse's shapes and two with odd C
-BF16_FUSE_SHAPES = FUSE_SHAPES + [(2, 4, 2, 9, 5), (1, 2, 1, 7, 255)]
+# the fuse's shapes, two with odd C (the element-wise loads), a step shape of
+# the kernel-config step at batch 2 (D = 256, k = 2, T = 483: a short last
+# strip, z's planes off 16 bytes) and a D of one row
+BF16_FUSE_SHAPES = FUSE_SHAPES + [(2, 4, 2, 9, 5), (1, 2, 1, 7, 255), (2, 256, 128, 483, 64),
+                                  (2, 1, 1, 483, 64)]
 
 
 def _bf16(*ts):
@@ -477,6 +480,42 @@ def test_bf16_fuse_kernels_match_plain(cuda, shape):
     assert torch.equal(out, again_out) and torch.equal(z, again_z)
     again = attention_fuse_bwd(x, res, z, gy, wx, wy)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))  # the same bits every run
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 4, 70, 64), (1, 4, 2, 37, 200)], ids=str)
+def test_bf16_fuse_unaligned_input_is_copied(cuda, shape):
+    """x and g one element into larger buffers (2 bytes off the bulk copies'
+    16-byte alignment): the wrappers copy them and the kernels give the plain
+    versions' values, and the same bits twice."""
+    x, res, wx, wy, bias, gy = _bf16(*_fuse_inputs(shape, sum(shape) + 1, cuda))
+    xo, go = (torch.empty(t.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(t.shape)
+              for t in (x, gy))
+    xo.copy_(x)
+    go.copy_(gy)
+    assert xo.data_ptr() % 16 != 0 and go.data_ptr() % 16 != 0
+    before = (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16)
+    out, z = attention_fuse_fwd(xo, res, wx, wy, bias)
+    grads = attention_fuse_bwd(xo, res, z, go, wx, wy)
+    torch.cuda.synchronize()
+    assert (attention_fuse_fwd.launches_bf16, attention_fuse_bwd.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    rout, rz = attention_fuse_reference(x, res, wx, wy, bias)
+    y = torch.repeat_interleave(res, x.shape[1] // res.shape[1], dim=1)
+    blend = x.float().abs() * rz[..., 0:1].float() + y.float().abs() * rz[..., 1:2].float()
+    assert bf16_check(out, rout, blend, BLEND_REL)["within"]
+    assert bf16_check(z, rz)["within"]
+    want = attention_fuse_bwd_reference(x, res, z, gy, wx, wy)
+    scales = attention_fuse_bwd_reference(*(t.abs() for t in (x, res, z, gy, wx, wy)))
+    for name, got, ref, scale in zip(("dx", "dres", "dwx", "dwy", "dbias"), grads, want,
+                                     scales):
+        if name in ("dx", "dres"):
+            assert bf16_check(got, ref, scale, SUM_REL)["within"], name
+        else:
+            assert _rel_l2(got, ref) <= BF16_REL_L2, name
+    again_out, again_z = attention_fuse_fwd(xo, res, wx, wy, bias)
+    assert torch.equal(out, again_out) and torch.equal(z, again_z)
+    again = attention_fuse_bwd(xo, res, z, go, wx, wy)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
 def test_bf16_fuse_autograd_launches_its_kernels(cuda):
