@@ -12,7 +12,7 @@ card, then drives both paths through their entry points:
    calls);
 2. build: one ``nvcc`` per CUDA source, all started together, and the
    tensor-core instructions in the mma kernels of K3f's, K3w's, the bf16
-   K3's, K5f's and K5b's libraries, with HGMMA in the bf16 conv tile's TMA
+   K3's, K5f's, K5b's and the bf16 K2's libraries, with HGMMA in the bf16 conv tile's TMA
    kernels (``*wgmma_kernel*``) of the bf16 K3's and K5's
    (``cuobjdump -sass``, or the PTX where the toolkit has no cuobjdump);
 3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
@@ -142,9 +142,13 @@ card, then drives both paths through their entry points:
     with ``abf_block_bf16_scales``, the float32 parameter gradients by
     relative L2 (dw1a, dwxt and dwy, sums of values rounded to bf16 inside
     the kernel, to 1e-4; the others to 1e-5), two runs giving the same bits;
-    K2 on bf16 at B = 32 and 64 x 528,000 (each Gram to 1e-5 relative L2,
-    both sides' distance from the float64 Gram beside it; times as phase
-    12's, the bound and cuBLAS's bf16 product with a float32 result); then
+    K2 on bf16 (csrc/gram_pair_bf16.cu, bf16 products on the tensor cores)
+    at B = 32, 64 and 16 x 528,000 and at a tail shape (D off multiples of
+    8 and of 2048, padded by the wrapper, whose copy ``ms`` leaves out and
+    ``event_ms`` counts; each Gram to 1e-5 relative L2, both sides' distance
+    from the float64 Gram beside it, two runs' bits, exact symmetry; times
+    as phase 12's, each pass apart, the share of the bound and cuBLAS's bf16
+    product with a float32 result); then
     ``losses.kd.spkd_loss`` on bf16 [32, 528,000] inputs, the route bf16
     takes to K2 (the auto gate), forward and backward: one bf16 K2 launch;
 21. bf16 training on the whole-block kernel: phase 18's bf16 models with
@@ -281,8 +285,11 @@ BF16_SERVING_ATOL = 5e-3
 # second (csrc/attfuse_bf16.cu: a persistent block walks residual strips,
 # bulk-copied into a ring of stages on mbarriers, 8 channels a lane), K5f
 # and K5b in their third (csrc/abf_block_bf16.cu: K5b's adjoint consumed in
-# the same kernel, K5f's xf formed in shared memory and convolved there)
-# (PERF.md section 6 keeps each design's times).
+# the same kernel, K5f's xf formed in shared memory and convolved there), K2
+# in its second (csrc/gram_pair_bf16.cu: the float32 K2's persistent walk,
+# its ring filled by TMA boxes, the products on mma.sync m16n8k16 over a
+# k-slice a warp, the warps' tiles added in a fixed tree) (PERF.md section 6
+# keeps each design's times).
 DESIGNS = {
     "lstm_seq_fwd": "register-cluster",
     "lstm_seq_bwd": "gate-prepass-register-chain",
@@ -299,7 +306,7 @@ DESIGNS = {
     "attfuse_bwd_bf16": "residual-strip-items-bulk-copy-ring-16-byte-lanes",
     "abf_block_fwd_bf16": "xf-formed-in-smem-ring-wgmma-conv",
     "abf_block_bwd_bf16": "fused-wgmma-adjoint-register-pass",
-    "gram_pair_fwd_bf16": "bulk-copy-ring-fma-tiles",
+    "gram_pair_fwd_bf16": "tma-box-ring-mma-sync-k-slices",
 }
 
 
@@ -349,7 +356,8 @@ def phase_build():
                                          ("k3_bf16", conv3x3.BF16_SOURCE),
                                          ("k5f", abf_block.FWD_SOURCE),
                                          ("k5b", abf_block.BWD_SOURCE),
-                                         ("k5_bf16", abf_block.BF16_SOURCE))}
+                                         ("k5_bf16", abf_block.BF16_SOURCE),
+                                         ("k2_bf16", gram.BF16_SOURCE))}
     say("build", seconds=round(seconds, 3),
         libraries=[str(p.relative_to(ROOT)) for p in paths], ptxas=ptxas,
         tensor_cores=tensor_cores)
@@ -364,11 +372,11 @@ def phase_build():
 
 def _tensor_core_check(library: Path, source: str) -> dict:
     """The tensor-core instructions in the mma kernels (``*mma_kernel*``) of
-    ``source``'s library (K3f's, K3w's, the bf16 K3's, K5f's, K5b's): HMMA or
-    HGMMA in ``cuobjdump -sass`` of the built library where the toolkit has
-    cuobjdump (``count``), and HGMMA alone in the bf16 tile's TMA kernels
-    (``*wgmma_kernel*``, ``wgmma_count``); else mma/wgmma in the PTX that
-    nvcc gives for the source."""
+    ``source``'s library (K3f's, K3w's, the bf16 K3's, K5f's, K5b's, the bf16
+    K2's): HMMA or HGMMA in ``cuobjdump -sass`` of the built library where
+    the toolkit has cuobjdump (``count``), and HGMMA alone in the bf16 tile's
+    TMA kernels (``*wgmma_kernel*``, ``wgmma_count``); else mma/wgmma in the
+    PTX that nvcc gives for the source."""
     import os
     import re
     import shutil
@@ -2486,10 +2494,12 @@ BF16_BLOCK_DISTILL = dict(taps_dtype=BF16, **ABF_BLOCK_FLAGS)
 BF16_BENCH_DISTILL = dict(BF16_BLOCK_DISTILL, abf_remat=True, spkd_bn2_fold=True)
 BF16_ROUNDED_REL_L2 = 1e-4
 BLOCK_ROUNDED = ("dw1a", "dwxt", "dwy")
-# K2's bf16 shapes (B, Ds, Dt): the spkd strategy's 33 s waveforms at batch 32
-# and at the gate's largest, 64
+# K2's bf16 shapes (B, Ds, Dt): the spkd strategy's 33 s waveforms at batch 32,
+# at the gate's largest, 64, and at 16; a tail shape (Ds and Dt off multiples
+# of 8 and of 2048: the wrapper pads them to whole 16-byte rows)
 BF16_GRAM_CASES = [(TEACHER_BATCH, SPKD_SAMPLES, SPKD_SAMPLES),
-                   (64, SPKD_SAMPLES, SPKD_SAMPLES)]
+                   (64, SPKD_SAMPLES, SPKD_SAMPLES), (16, SPKD_SAMPLES, SPKD_SAMPLES),
+                   (TEACHER_BATCH, SPKD_SAMPLES + 3, 100003)]
 
 
 def _bf16_block_inputs(fuse, B, D, k, T, Cs, M, O):
@@ -2735,8 +2745,9 @@ def _bf16_gram_case(B: int, ds: int, dt: int) -> dict:
     """The bf16 K2 against its plain version on bf16 s [B, ds] and t [B, dt]:
     each float32 Gram by relative L2 (``BF16_KERNEL_REL_L2``), both sides'
     distance from the float64 Gram beside it, two runs' bits, symmetry;
-    times as phase 12's (``gram_times``), the plain version's, the bound and
-    cuBLAS's bf16 product with a float32 result where this torch has one
+    times as phase 12's (``gram_times``: both passes, and each apart), the
+    plain version's, the bound and its share of the time, and cuBLAS's bf16
+    product with a float32 result where this torch has one
     (``torch.mm(..., out_dtype=torch.float32)``)."""
     import torch
 
@@ -2783,6 +2794,7 @@ def _bf16_gram_case(B: int, ds: int, dt: int) -> dict:
                    library_ms=None if library is None else _event_ms(library, 20, flush))
     rec.update(gram_times(lambda: gram_pair_fwd(s, t), nbytes), bound_ms=bound_ms,
                bound_by=bound_by)
+    rec["bound_share"] = bound_ms / rec["ms"]
     return rec
 
 
@@ -3153,7 +3165,7 @@ def main() -> None:
     kernels.append({
         "name": "gram_pair_fwd_bf16",
         "route": "cuda",
-        "source": src + "gram_pair_fwd.cu",
+        "source": src + "gram_pair_bf16.cu",
         "replaces": pallas + "gram.py:41",
         "dtype": BF16,
         "launches": bf16_kernels_k5_k2["gram_entry"]["launches"]["gram_pair_fwd_bf16"],
@@ -3166,6 +3178,7 @@ def main() -> None:
         "bound_ms": bf16_gram["bound_ms"],
         "bound_by": bf16_gram["bound_by"],
         "library_ms": bf16_gram["library_ms"],
+        "bound_share": bf16_gram["bound_share"],
         "times": {k: bf16_gram[k] for k in ("timing", "calls_timed", "pass1_ms", "pass2_ms",
                                             "event_ms", "host_ms", "l2_flushed")},
         "shape": {"B": bf16_gram["B"], "Ds": bf16_gram["Ds"], "Dt": bf16_gram["Dt"]},

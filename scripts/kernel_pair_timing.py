@@ -44,12 +44,18 @@ prints one JSON line per shape, then writes them all to ``--out``:
   same code): the profiler's device time of both passes and of each, CUDA
   events and host time a call, L2 flushed between launches where the inputs
   fit in it (B = 8), beside two ``torch.mm(Z, Z.T)`` (TF32 off), with a hash
-  of the output's bits.
+  of the output's bits; then a hash of the Grams' bits at each shape of
+  ``chip_smoke.GRAM_CASES`` (phase 12's), on phase 12's inputs;
+- the bf16 K2 (``gram_pair_fwd`` on bf16 inputs) at B in {8, 16, 32, 64} x
+  528,000 columns, timed as K2, beside its bytes bound (and its share of the
+  time) and cuBLAS's bf16 ``torch.mm(Z, Z.T, out_dtype=torch.float32)``
+  pair, with a hash of the output's bits and whether a second call gave the
+  same bits.
 
 Except K2's device times, each time is CUDA events over repeated launches
 after a warm-up; inputs come from seeded generators, so both trees see the
 same data.  ``--kernels`` names the groups to time (``k1b k3f k3w k5 k2
-bf16_conv bf16_k5 bf16_k4``; all by default).  Needs CUDA.
+bf16_conv bf16_k5 bf16_k4 bf16_k2``; all by default).  Needs CUDA.
 """
 
 from __future__ import annotations
@@ -335,10 +341,44 @@ def k2(emit) -> None:
              library_ms=library_ms, sha256_gs_gt=_bits(*gram_pair_fwd(s, t)))
         del s, t
         torch.cuda.empty_cache()
+    # the bits at phase 12's shapes, on the inputs chip_smoke._gram_case makes
+    for B, ds, dt, _ in timing.GRAM_CASES:
+        g = torch.Generator(device="cuda").manual_seed(B + ds + dt)
+        s = (0.3 * torch.randn(B, ds, device="cuda", generator=g)).clamp(-1, 1)
+        t = (0.3 * torch.randn(B, dt, device="cuda", generator=g)).clamp(-1, 1)
+        emit(kernel="gram_pair_fwd", phase12_bits=True, B=B, Ds=ds, Dt=dt,
+             sha256_gs_gt=_bits(*gram_pair_fwd(s, t)))
+        del s, t
+        torch.cuda.empty_cache()
+
+
+def bf16_k2(emit) -> None:
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair_fwd
+
+    timing = _smoke()
+    for B in K2_BATCHES:
+        g = torch.Generator(device="cuda").manual_seed(B)
+        s = (0.3 * torch.randn(B, K2_COLUMNS, device="cuda", generator=g)).clamp(-1, 1).bfloat16()
+        t = (0.3 * torch.randn(B, K2_COLUMNS, device="cuda", generator=g)).clamp(-1, 1).bfloat16()
+        nbytes = 2 * B * 2 * K2_COLUMNS
+        times = timing.gram_times(lambda: gram_pair_fwd(s, t), nbytes)
+        bound_ms, bound_by = timing._bound_bf16(nbytes, 1.0 * B * (B + 1) * 2 * K2_COLUMNS)
+        library_ms = timing._event_ms(
+            lambda: (torch.mm(s, s.T, out_dtype=torch.float32),
+                     torch.mm(t, t.T, out_dtype=torch.float32)), 20, timing._flusher(nbytes))
+        bits = _bits(*gram_pair_fwd(s, t))
+        emit(kernel="gram_pair_fwd_bf16", B=B, Ds=K2_COLUMNS, Dt=K2_COLUMNS, **times,
+             bound_ms=bound_ms, bound_by=bound_by, bound_share=bound_ms / times["ms"],
+             library_ms=library_ms, sha256_gs_gt=bits,
+             bitwise_repeat=bits == _bits(*gram_pair_fwd(s, t)))
+        del s, t
+        torch.cuda.empty_cache()
 
 
 GROUPS = {"k1b": k1b, "k3f": k3f, "k3w": k3w, "k5": k5, "k2": k2, "bf16_conv": bf16_conv,
-          "bf16_k5": bf16_k5, "bf16_k4": bf16_k4}
+          "bf16_k5": bf16_k5, "bf16_k4": bf16_k4, "bf16_k2": bf16_k2}
 
 
 def main() -> None:

@@ -45,26 +45,17 @@
 // No atomics; the order of every sum depends only on the shape, so repeated
 // runs on any card give the same bits, and the output is exactly symmetric.
 //
-// The bf16 instantiation (gram_pair_fwd_bf16: the Pallas kernel on bf16
-// operands, whose dots multiply bf16 by bf16 into float32 sums) stages bf16
-// rows, half a float32 stage's bytes (the bulk copies where the row length is
-// a multiple of 8 and the base 16-byte aligned; plain loads by the producer
-// warp otherwise, as cp.async does not copy 2-byte elements), widens four
-// columns at a time in registers and sums them on the same f32 FMA tiles in
-// the same order: the products are exact in float32, the Grams float32.
-// Bound: the bytes, 2 B (Ds + Dt) (0.020 ms at B = 32, D = 528,000).
+// The bf16 K2 (bf16 products on the tensor cores) is gram_pair_bf16.cu.
 //
 // Interface: plain C, bound with ctypes.  gram_pair_chunk_cols() and
 // gram_pair_max_batch() give kChunk and kMaxBatch.  The caller allocates one buffer of 2 B^2 + (cdiv(Ds, kChunk) + cdiv(Dt,
 // kChunk)) * B (B + 1) / 2 floats: gs, then gt, then the partials.
-// gram_pair_fwd (float32 s, t) and gram_pair_fwd_bf16 (bf16 s, t) return
-// cudaGetLastError() after each launch.
+// gram_pair_fwd returns cudaGetLastError() after each launch.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "bf16_io.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -76,27 +67,22 @@ constexpr int kSumSpan = 320;   // pass 2: chunks a block stages at a time (655,
 constexpr int kMaxDevices = 64;
 constexpr int kRingBudget = 200 * 1024;  // bytes of shared memory for the ring
 
-using bf16_io::bf16;
-
 // R x R register tiles over NB row blocks, L lanes a unit, KT columns a
-// stage of elements E (float or bf16).  Where several units share a warp (L <
-// 32) the diagonal blocks go in pairs, so that the units (off-diagonal tiles,
-// then pairs) fill whole warps of equal work; with a warp a unit, whole tiles
-// keep more warps busy.
-template <int R, int NB, int L, int KT, class E = float>
+// stage.  Where several units share a warp (L < 32) the diagonal blocks go in
+// pairs, so that the units (off-diagonal tiles, then pairs) fill whole warps
+// of equal work; with a warp a unit, whole tiles keep more warps busy.
+template <int R, int NB, int L, int KT>
 struct Plan {
-  using Elem = E;
   static constexpr int kR = R, kNB = NB, kL = L, kKT = KT;
   static constexpr int kBp = R * NB;
-  static constexpr int kVec = 16 / (int)sizeof(E);  // elements of 16 bytes
-  static constexpr int kStride = KT + kVec;  // elements a staged row (4-wide and bulk-copy aligned)
+  static constexpr int kStride = KT + 4;  // floats a staged row (4-wide and bulk-copy aligned)
   static constexpr int kPairs = L < 32 && NB % 2 == 0 ? NB / 2 : 0;
   static constexpr int kOff = kPairs > 0 ? NB * (NB - 1) / 2 : NB * (NB + 1) / 2;  // tile units
   static constexpr int kPerWarp = 32 / L;
   static constexpr int kTileSlots = (kOff + kPerWarp - 1) / kPerWarp * kPerWarp;
   static constexpr int kPairSlots = (kPairs + kPerWarp - 1) / kPerWarp * kPerWarp;
   static constexpr int kWarps = (kTileSlots + kPairSlots) / kPerWarp;
-  static constexpr int kStageBytes = kBp * kStride * (int)sizeof(E);
+  static constexpr int kStageBytes = kBp * kStride * 4;
   static constexpr int kStages = kRingBudget / kStageBytes < 12 ? kRingBudget / kStageBytes : 12;
 };
 
@@ -179,22 +165,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// four staged columns as floats (a bf16 value widens exactly)
+// four staged columns
 __device__ __forceinline__ float4 staged4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 staged4(const bf16* p) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  return make_float4(bf16_io::lo(v.x), bf16_io::hi(v.x), bf16_io::lo(v.y), bf16_io::hi(v.y));
-}
 
 // The producer warp: fills the ring in the order the consumers read it.  A
 // staged row is one bulk copy where the row length is whole 16-byte units and
-// the base is 16-byte aligned; otherwise 4-byte cp.async (float) or plain
-// loads and stores (bf16, whose 2-byte elements cp.async does not copy).
+// the base is 16-byte aligned; otherwise 4-byte cp.async.
 template <class P>
-__device__ void produce(typename P::Elem* ring, uint64_t* full, uint64_t* empty,
-                        const typename P::Elem* __restrict__ s, const typename P::Elem* __restrict__ t,
-                        int B, long long Ds, long long Dt, int ns, int nchunks, int lane) {
-  using E = typename P::Elem;
+__device__ void produce(float* ring, uint64_t* full, uint64_t* empty, const float* __restrict__ s,
+                        const float* __restrict__ t, int B, long long Ds, long long Dt, int ns, int nchunks,
+                        int lane) {
   constexpr int kKT = P::kKT, kStride = P::kStride, kBp = P::kBp, kStages = P::kStages;
   int fill = 0;
   // the slots this warp or its cp.async copies last wrote through the generic
@@ -202,14 +182,14 @@ __device__ void produce(typename P::Elem* ring, uint64_t* full, uint64_t* empty,
   unsigned generic = 0;
   for (int c = blockIdx.x; c < nchunks; c += gridDim.x) {
     const bool is_s = c < ns;
-    const E* __restrict__ z = is_s ? s : t;
+    const float* __restrict__ z = is_s ? s : t;
     const long long D = is_s ? Ds : Dt;
     const long long col0 = (long long)(is_s ? c : c - ns) * kChunk;
-    const bool bulk = (D % P::kVec == 0) && ((reinterpret_cast<uintptr_t>(z) & 15) == 0);
+    const bool bulk = (D % 4 == 0) && ((reinterpret_cast<uintptr_t>(z) & 15) == 0);
     for (long long c0 = col0; c0 < col0 + kChunk && c0 < D; c0 += kKT, ++fill) {
       const int slot = fill % kStages;
       if (fill >= kStages) mbar_wait(&empty[slot], (fill / kStages - 1) & 1);
-      E* dst = ring + slot * kBp * kStride;
+      float* dst = ring + slot * kBp * kStride;
       const int n = (int)(D - c0 < kKT ? D - c0 : kKT);
       if (bulk) {
         if (generic & (1u << slot)) {
@@ -218,31 +198,24 @@ __device__ void produce(typename P::Elem* ring, uint64_t* full, uint64_t* empty,
         }
         if (n < kKT) {
           for (int idx = lane; idx < B * (kKT - n); idx += 32)  // the last stage's columns past D
-            bf16_io::st1(dst + (idx / (kKT - n)) * kStride + n + idx % (kKT - n), 0.0f);
+            dst[(idx / (kKT - n)) * kStride + n + idx % (kKT - n)] = 0.0f;
           generic |= 1u << slot;
         }
         __syncwarp();
         if (lane == 0)
-          mbar_arrive_expect_tx(&full[slot], (uint32_t)(B * n * (int)sizeof(E)));
+          mbar_arrive_expect_tx(&full[slot], (uint32_t)(B * n * 4));
         else
           mbar_arrive(&full[slot]);
         __syncwarp();
         for (int r = lane; r < B; r += 32)
-          bulk_copy(dst + r * kStride, z + r * D + c0, n * (int)sizeof(E), &full[slot]);
-      } else if constexpr (sizeof(E) == 4) {
+          bulk_copy(dst + r * kStride, z + r * D + c0, n * 4, &full[slot]);
+      } else {
         for (int idx = lane; idx < B * kKT; idx += 32) {
           const int r = idx / kKT, cc = idx % kKT;
           const bool valid = c0 + cc < D;
           tf32x3::cp_async<4>(dst + r * kStride + cc, valid ? z + r * D + c0 + cc : z, valid);
         }
         cp_async_arrive(&full[slot]);
-        generic |= 1u << slot;
-      } else {
-        for (int idx = lane; idx < B * kKT; idx += 32) {
-          const int r = idx / kKT, cc = idx % kKT;
-          dst[r * kStride + cc] = c0 + cc < D ? z[r * D + c0 + cc] : __float2bfloat16_rn(0.0f);
-        }
-        mbar_arrive(&full[slot]);  // release: the stores are seen by the consumers' wait
         generic |= 1u << slot;
       }
     }
@@ -340,7 +313,7 @@ __device__ __forceinline__ void pair_fma(float (&acc)[K], const float4 (&v)[2 * 
 // triangle (off the diagonal where NB is even), or (PAIR) the upper triangles
 // of the diagonal blocks 2k and 2k + 1, whose 2R rows it loads once.
 template <class P, bool PAIR>
-__device__ void fma_unit(const typename P::Elem* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial, int B,
+__device__ void fma_unit(const float* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial, int B,
                          long long Ds, long long Dt, int ns, int nchunks, int lane, int unit, int l) {
   constexpr int R = P::kR, L = P::kL, kKT = P::kKT, kStride = P::kStride, kStages = P::kStages;
   constexpr int K = PAIR ? R * (R + 1) : R * R;
@@ -375,7 +348,7 @@ __device__ void fma_unit(const typename P::Elem* ring, uint64_t* full, uint64_t*
       const int slot = fill % kStages;
       mbar_wait(&full[slot], (fill / kStages) & 1);
       if (active) {
-        const typename P::Elem* stage = ring + slot * P::kBp * kStride;
+        const float* stage = ring + slot * P::kBp * kStride;
         const int groups = (int)((D - c0 < kKT ? D - c0 : kKT) + 3) / 4;
         for (int gi = l; gi < groups; gi += L) {
           if constexpr (PAIR) {
@@ -428,7 +401,7 @@ __device__ void fma_unit(const typename P::Elem* ring, uint64_t* full, uint64_t*
 }
 
 template <class P>
-__device__ void consume(const typename P::Elem* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial,
+__device__ void consume(const float* ring, uint64_t* full, uint64_t* empty, float* __restrict__ partial,
                             int B, long long Ds, long long Dt, int ns, int nchunks, int warp, int lane) {
   // the tile units first, then the pairs, each rounded up to whole warps
   const int unit = (warp * 32 + lane) / P::kL, l = lane % P::kL;
@@ -440,19 +413,18 @@ __device__ void consume(const typename P::Elem* ring, uint64_t* full, uint64_t* 
 
 template <class P>
 __global__ void __launch_bounds__(Layout<P>::kThreads, 1)
-gram_partial_kernel(const typename P::Elem* __restrict__ s, const typename P::Elem* __restrict__ t,
-                    float* __restrict__ partial, int B, long long Ds, long long Dt, int ns, int nchunks) {
-  using E = typename P::Elem;
+gram_partial_kernel(const float* __restrict__ s, const float* __restrict__ t, float* __restrict__ partial,
+                    int B, long long Ds, long long Dt, int ns, int nchunks) {
   constexpr int kBp = P::kBp, kStride = P::kStride, kStages = P::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
-  E* ring = reinterpret_cast<E*>(smem);
+  float* ring = reinterpret_cast<float*>(smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + Layout<P>::kRingBytes);
   uint64_t* empty = full + kStages;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   for (int idx = tid; idx < kStages * (kBp - B) * kStride; idx += Layout<P>::kThreads) {
     const int st = idx / ((kBp - B) * kStride), rest = idx % ((kBp - B) * kStride);
-    bf16_io::st1(ring + (st * kBp + B) * kStride + rest, 0.0f);  // rows past B stay zero
+    ring[(st * kBp + B) * kStride + rest] = 0.0f;  // rows past B stay zero
   }
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
@@ -518,8 +490,7 @@ int sm_count[kMaxDevices];
 unsigned attr_set[kMaxDevices];
 
 template <class P>
-cudaError_t launch_partial(int plan, const typename P::Elem* s, const typename P::Elem* t, float* partial,
-                           int B, long long Ds, long long Dt, int ns, int nchunks, int dev, cudaStream_t st) {
+cudaError_t launch_partial(int plan, const float* s, const float* t, float* partial, int B, long long Ds, long long Dt, int ns, int nchunks, int dev, cudaStream_t st) {
   if (!(attr_set[dev] & (1u << plan))) {
     cudaError_t err = cudaFuncSetAttribute(gram_partial_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            Layout<P>::kSmemBytes);
@@ -532,21 +503,25 @@ cudaError_t launch_partial(int plan, const typename P::Elem* s, const typename P
   return cudaGetLastError();
 }
 
-// the plans by B; the bf16 ones have their own attribute bits (6 .. 11)
-template <class E>
-cudaError_t launch_partial_for(int B, const E* s, const E* t, float* partial, long long Ds,
+// the plans by B
+cudaError_t launch_partial_for(int B, const float* s, const float* t, float* partial, long long Ds,
                                long long Dt, int ns, int nchunks, int dev, cudaStream_t st) {
-  const int p0 = sizeof(E) == 2 ? 6 : 0;
-  if (B <= 4) return launch_partial<Plan<4, 1, 32, 512, E>>(p0, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 8) return launch_partial<Plan<4, 2, 32, 512, E>>(p0 + 1, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 16) return launch_partial<Plan<4, 4, 32, 512, E>>(p0 + 2, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 32) return launch_partial<Plan<8, 4, 32, 512, E>>(p0 + 3, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  if (B <= 48) return launch_partial<Plan<8, 6, 8, 256, E>>(p0 + 4, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
-  return launch_partial<Plan<8, 8, 8, 256, E>>(p0 + 5, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 4) return launch_partial<Plan<4, 1, 32, 512>>(0, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 8) return launch_partial<Plan<4, 2, 32, 512>>(1, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 16) return launch_partial<Plan<4, 4, 32, 512>>(2, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 32) return launch_partial<Plan<8, 4, 32, 512>>(3, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  if (B <= 48) return launch_partial<Plan<8, 6, 8, 256>>(4, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
+  return launch_partial<Plan<8, 8, 8, 256>>(5, s, t, partial, B, Ds, Dt, ns, nchunks, dev, st);
 }
 
-template <class E>
-int gram_pair_run(const void* s, const void* t, void* out, int B, long long Ds, long long Dt, void* stream) {
+}  // namespace
+
+extern "C" int gram_pair_chunk_cols() { return kChunk; }
+
+extern "C" int gram_pair_max_batch() { return kMaxBatch; }
+
+extern "C" int gram_pair_fwd(const void* s, const void* t, void* out, int B, long long Ds, long long Dt,
+                             void* stream) {
   if (B < 1 || B > kMaxBatch || Ds < 1 || Dt < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int dev;
@@ -561,8 +536,8 @@ int gram_pair_run(const void* s, const void* t, void* out, int B, long long Ds, 
   float* gt = gs + B * B;
   float* partial = gt + B * B;
   const int ns = cdiv(Ds, kChunk), nt = cdiv(Dt, kChunk);
-  err = launch_partial_for<E>(B, static_cast<const E*>(s), static_cast<const E*>(t), partial, Ds, Dt, ns,
-                              ns + nt, dev, st);
+  err = launch_partial_for(B, static_cast<const float*>(s), static_cast<const float*>(t), partial, Ds, Dt, ns,
+                           ns + nt, dev, st);
   if (err != cudaSuccess) return (int)err;
 
   cudaLaunchConfig_t cfg = {};
@@ -577,21 +552,4 @@ int gram_pair_run(const void* s, const void* t, void* out, int B, long long Ds, 
   err = cudaLaunchKernelEx(&cfg, gram_sum_kernel, static_cast<const float*>(partial), gs, gt, B, ns, nt);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" int gram_pair_chunk_cols() { return kChunk; }
-
-extern "C" int gram_pair_max_batch() { return kMaxBatch; }
-
-extern "C" int gram_pair_fwd(const void* s, const void* t, void* out, int B, long long Ds, long long Dt,
-                             void* stream) {
-  return gram_pair_run<float>(s, t, out, B, Ds, Dt, stream);
-}
-
-// The bf16 instantiation: s and t in bf16, the Grams and partials float32.
-extern "C" int gram_pair_fwd_bf16(const void* s, const void* t, void* out, int B, long long Ds,
-                                  long long Dt, void* stream) {
-  return gram_pair_run<bf16>(s, t, out, B, Ds, Dt, stream);
 }

@@ -11,11 +11,13 @@ Replaces ``speech_enhancement_clskd_tpu/ops/pallas/gram.py``:
   two skinny matrix products in float32 left to ``torch.matmul``, as the JAX
   VJP leaves them to XLA, each returned in its input's dtype.
 - ``gram_pair_fwd(s2, t2)`` is the kernel's wrapper.  On CUDA tensors it
-  launches the kernel of ``csrc/gram_pair_fwd.cu`` (built at first use) or
-  raises; nothing falls back.  On CPU tensors it runs
-  ``gram_pair_reference``.  Its ``launches`` counter counts kernel launches
-  only (the bf16 instantiation in ``launches_bf16``).  One allocation a call holds ``gs``, ``gt`` (returned as views) and
-  the kernel's partials.
+  launches the kernel of ``csrc/gram_pair_fwd.cu`` (float32) or of
+  ``csrc/gram_pair_bf16.cu`` (bfloat16), built at first use, or raises;
+  nothing falls back.  On CPU tensors it runs ``gram_pair_reference``.  Its
+  ``launches`` counter counts float32 kernel launches only, ``launches_bf16``
+  the bf16 kernel's.  One allocation a call holds ``gs``, ``gt`` (returned as
+  views) and the kernel's partials; a bf16 view off 16 bytes, or with D not a
+  multiple of 8, is first copied into a zero-padded buffer (``bulk_ready``).
 - ``gram_pair_reference`` sums the Grams of the same ``CHUNK``-column chunks
   the kernel splits D into, in the same order, one matrix product per chunk,
   so the card and the CPU agree to ~1e-7 of the largest element at the
@@ -26,11 +28,11 @@ Replaces ``speech_enhancement_clskd_tpu/ops/pallas/gram.py``:
   (``spkd_loss_pallas``).
 
 The inputs are float32 or bfloat16 (both of one dtype), the Grams float32.
-The kernel sums in f32 FMA, not TF32; its bf16 instantiation (the Pallas
+The float32 kernel sums in f32 FMA, not TF32; the bf16 kernel (the Pallas
 kernel on bf16 operands: bf16 products, exact in float32, summed in
-float32) stages bf16 columns, half a float32 stage's bytes, and widens them
-in registers.  The plain version widens bf16 to float32 and sums the same
-chunks in the same order.
+float32) takes its products on the tensor cores (``mma.sync`` m16n8k16 with
+float32 accumulators).  The plain version widens bf16 to float32 and sums
+the same chunks in the same order.
 """
 
 from __future__ import annotations
@@ -42,10 +44,11 @@ from typing import Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build, check_tensors, float_dtype, widened
+from . import _build, check_tensors, float_dtype, on16, widened
 
 SOURCE = "gram_pair_fwd.cu"
-SOURCES = (SOURCE,)
+BF16_SOURCE = "gram_pair_bf16.cu"
+SOURCES = (SOURCE, BF16_SOURCE)
 # columns of each chunk whose partial the kernel's first pass writes (the
 # Pallas kernel's D tile); the number of chunks depends only on D
 CHUNK = 2048
@@ -98,26 +101,47 @@ def _check(s2: torch.Tensor, t2: torch.Tensor) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def _library() -> dict:
+    """The two kernels' C entries by input dtype, both sources built at
+    once (one ``nvcc`` each) and loaded."""
+    _build.build_all(SOURCES)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.gram_pair_fwd, lib.gram_pair_fwd_bf16):
+    entries = {}
+    for dtype, source, name in ((torch.float32, SOURCE, "gram_pair_fwd"),
+                                (torch.bfloat16, BF16_SOURCE, "gram_pair_fwd_bf16")):
+        lib = _build.load(source)
+        fn = getattr(lib, name)
         fn.argtypes = [ptr] * 3 + [i32, i64, i64, ptr]
         fn.restype = i32
-    for name in ("gram_pair_chunk_cols", "gram_pair_max_batch"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = i32
-    built = (lib.gram_pair_chunk_cols(), lib.gram_pair_max_batch())
-    if built != (CHUNK, MAX_BATCH):
-        raise RuntimeError(f"{SOURCE} has (chunk, max batch) {built}, the wrapper "
-                           f"{(CHUNK, MAX_BATCH)}")
-    return lib
+        for const in ("gram_pair_chunk_cols", "gram_pair_max_batch"):
+            getattr(lib, const).argtypes = []
+            getattr(lib, const).restype = i32
+        built = (lib.gram_pair_chunk_cols(), lib.gram_pair_max_batch())
+        if built != (CHUNK, MAX_BATCH):
+            raise RuntimeError(f"{source} has (chunk, max batch) {built}, the wrapper "
+                               f"{(CHUNK, MAX_BATCH)}")
+        entries[dtype] = fn
+    return entries
+
+
+def bulk_ready(z: torch.Tensor) -> torch.Tensor:
+    """``z`` ([B, D] bf16), or a copy of it zero-padded to ``[B, round_up(D,
+    8)]`` on a 16-byte base where its rows are not whole 16-byte units or it
+    starts off 16 bytes (the bf16 kernel's TMA maps take neither).  The added
+    columns are zero: the Grams and the chunks (``CHUNK`` is a multiple of 8)
+    stay the same."""
+    B, D = z.shape
+    if D % 8 == 0 and on16(z):
+        return z
+    padded = z.new_zeros(B, -(-D // 8) * 8)
+    padded[:, :D] = z
+    return padded
 
 
 def gram_pair_fwd(s2: torch.Tensor, t2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(s2 s2^T, t2 t2^T)`` in float32 for ``[B, Ds]`` and ``[B, Dt]``
     (float32 or bfloat16): the K2 kernel on CUDA tensors (counted in
-    ``gram_pair_fwd.launches``, the bf16 instantiation in
+    ``gram_pair_fwd.launches``, the bf16 kernel in
     ``gram_pair_fwd.launches_bf16``; partial Grams per chunk, added in chunk
     order, so repeated runs give the same bits and the output is exactly
     symmetric), ``gram_pair_reference`` on CPU tensors."""
@@ -126,15 +150,16 @@ def gram_pair_fwd(s2: torch.Tensor, t2: torch.Tensor) -> Tuple[torch.Tensor, tor
         return gram_pair_reference(s2, t2)
     B, ds = s2.shape
     dt = t2.shape[1]
-    lib = _library()
+    kernel = _library()[s2.dtype]
     # gs, gt, then each chunk's packed upper triangle, in one allocation
     partial = (-(-ds // CHUNK) + -(-dt // CHUNK)) * (B * (B + 1) // 2)
     out = torch.empty(2 + -(-partial // (B * B)), B, B, device=s2.device, dtype=torch.float32)
     bf16 = s2.dtype == torch.bfloat16
+    if bf16:
+        s2, t2 = bulk_ready(s2), bulk_ready(t2)
     with torch.cuda.device(s2.device):
-        err = (lib.gram_pair_fwd_bf16 if bf16 else lib.gram_pair_fwd)(
-            s2.data_ptr(), t2.data_ptr(), out.data_ptr(), B, ds, dt,
-            torch.cuda.current_stream().cuda_stream)
+        err = kernel(s2.data_ptr(), t2.data_ptr(), out.data_ptr(), B, s2.shape[1], t2.shape[1],
+                     torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"gram_pair_fwd launch failed ({s2.dtype}): CUDA error {err}")
     if bf16:

@@ -208,6 +208,22 @@ def test_wrapper_refuses_bad_shapes(s_shape, t_shape, error):
         gram.gram_pair_fwd(torch.zeros(s_shape), torch.zeros(t_shape))
 
 
+@pytest.mark.parametrize("D, offset", [(4096, 0), (4097, 0), (7, 0), (4096, 1), (2049, 3)])
+def test_bulk_ready_pads_to_whole_16_byte_rows(rng, D, offset):
+    """What the bf16 kernel is handed: the view itself where its rows are
+    whole 16-byte units on a 16-byte base, else a copy zero-padded to a
+    multiple of 8 columns on a 16-byte base, whose plain Grams equal the
+    view's (the same chunks; the added columns are zero)."""
+    buf = _t(rng.standard_normal(5 * D + 8).astype(np.float32)).bfloat16()
+    z = buf[offset:offset + 5 * D].reshape(5, D)
+    got = gram.bulk_ready(z)
+    assert got.shape == (5, -(-D // 8) * 8) and got.data_ptr() % 16 == 0
+    assert (got is z) == (D % 8 == 0 and offset == 0)
+    assert torch.equal(got[:, :D], z) and not got[:, D:].any()
+    for a, b in zip(gram.gram_pair_reference(got, got), gram.gram_pair_reference(z, z)):
+        assert torch.allclose(a, b, rtol=1e-6, atol=0)
+
+
 def test_wrapper_refuses_bad_dtype_and_layout():
     with pytest.raises(TypeError, match="float32"):
         gram.gram_pair_fwd(torch.zeros(3, 10, dtype=torch.float64), torch.zeros(3, 10))

@@ -14,7 +14,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "speech_enhancement_clsk
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "scripts" / "profile_serving_torch.py",
                                       ROOT / "scripts" / "kernel_pair_timing.py",
-                                      ROOT / "scripts" / "conv_bf16_variants.py"]
+                                      ROOT / "scripts" / "conv_bf16_variants.py",
+                                      ROOT / "scripts" / "gram_variants.py"]
 
 
 def _imported_roots(path: Path):
