@@ -16,9 +16,11 @@ card, then drives both paths through their entry points:
    kernels (``*wgmma_kernel*``) of the bf16 K3's and K5's
    (``cuobjdump -sass``, or the PTX where the toolkit has no cuobjdump);
 3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
-   the shapes the serving and training paths give it, each with the plan
-   K1f takes, with times, the bound and a one-call PyTorch yardstick
-   (``torch.nn.LSTM``, cuDNN; never used by the port);
+   the shapes the serving, training and evaluation paths give it (among
+   them offline evaluation's N = 2 on a 10 s utterance, T = 1603, and the
+   asteroid DCCRNet family's T = 471 at N = 64, H = 128 and 32), each with
+   the plan K1f takes, with times, the bound and a one-call PyTorch
+   yardstick (``torch.nn.LSTM``, cuDNN; never used by the port);
 4. serving, student: ``StreamingEnhancer`` on the trained r4 bundle answers
    four requests; per-chunk latency, real-time factor, launch count, and
    agreement with the same engine on the CPU;
@@ -157,6 +159,25 @@ card, then drives both paths through their entry points:
     beside phase 18's bf16 default step and phase 11's float32 block step;
     then ``bench.py``'s ``--block-pallas --abf-remat --bn2-fold`` form at
     its batch 64 (bf16 K5f 24, K5b 12).
+22. offline evaluation: ``eval.evaluate_model`` on the r4 bundle over
+    phase 4's four requests with their clean sources (3-10 s, odd lengths,
+    bucketed to whole seconds), with PESQ, on the card and on the CPU from
+    the same bundle (``evaluation_checks``): the summary and every
+    per-utterance row card against CPU (STOI 1e-4, SI-SDR/SDR/SAR 1e-3 dB,
+    PESQ 1e-3), the example wavs read back, K1f 4 a forward and no other
+    kernel; the time an utterance split into forward, STOI, BSS and PESQ,
+    and audio-seconds per second; then again with ``bn_batch_stats=True``
+    (the reference's eval);
+23. the asteroid DCCRNet family: seeded asteroid-schema ``.pth`` bundles
+    (``write_asteroid_pth``) of ``DCCRN-CL`` and ``DCCRN-CL-test``; the
+    ``DCCRN-CL`` teacher through ``load_reference_bundle`` offline on 32 x
+    3 s (RTF, peak memory, K1f 4 a forward at H = 128 with its plan, card
+    against CPU on one utterance); the ``DCCRN-CL-test`` student streaming
+    phase 4's requests (chunk latency, card against CPU); and the CLI:
+    ``import-torch`` of the ``.pth``, then ``evaluate --reference-bn`` on
+    the ``.pth`` and on the ``.npz`` on the card, which must agree as the
+    card and the CPU do, and on the ``.npz`` once more, which says whether
+    the card repeats its bits (``asteroid_cli_checks``).
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -195,6 +216,10 @@ SPKD_SAMPLES = int(SPKD_SECONDS * 16000)
 SPKD_CHECK_BATCH = 2
 # T of the STFT frames of a 33 s clip (the LSTM kernels' T in phase 13)
 SPKD_FRAMES = 5283
+# T at the LSTM of a 10 s utterance in offline evaluation (phase 22), and
+# of a 3 s clip in the asteroid DCCRNet family (phase 23)
+EVAL_FRAMES = 1603
+DCCRNET_FRAMES = 471
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores.
@@ -240,6 +265,19 @@ FIT_EPOCHS, FIT_STEPS_PER_EPOCH = 2, 2
 # (absolute) and SI-SDR (dB)
 FIT_STOI_ATOL = 2e-4
 FIT_SI_SDR_ATOL = 1e-3
+# phase 4's requests: 3-10 s of odd lengths
+REQUEST_LENGTHS = (3 * 16000 + 77, 5 * 16000 + 1301, 7 * 16000 + 4099, 10 * 16000)
+# phases 22-23, evaluation card against CPU on the same bundle: STOI
+# (absolute), SI-SDR, SDR and SAR (dB), PESQ (MOS); the estimate's example
+# wav read back as PCM16 (the waveform's 1e-4 times the estimate's peak
+# scaling, plus rounding)
+EVAL_STOI_ATOL = 1e-4
+EVAL_DB_ATOL = 1e-3
+EVAL_PESQ_ATOL = 1e-3
+EVAL_WAV_ATOL = 1e-3
+# phase 23's seeded asteroid bundles and the CLI's test set
+ASTEROID_TEACHER, ASTEROID_STUDENT = "DCCRN-CL", "DCCRN-CL-test"
+ASTEROID_CLI_OVERRIDES = ("data.synthetic=true", "data.synthetic_size=4", "data.segment=3.0")
 
 
 # bf16 (phases 17-19): bench.py's headline form, teacher and student
@@ -459,12 +497,17 @@ def phase_kernel_vs_plain():
     # (T, N=2B, H): offline 3 s (T=483) at serving batch 1 and batch 32, for
     # the student (H=32) and the teacher (H=128); the streaming window
     # (T=118); odd row counts, which leave the last block of 1, 2 or 4 rows
-    # ragged; a call with an initial state; and the spkd step's 33 s clips
-    # (T=5283) at batch 16 for both widths.
+    # ragged; a call with an initial state; the spkd step's 33 s clips
+    # (T=5283) at batch 16 for both widths; offline evaluation of a 10 s
+    # utterance at batch 1 (T=1603, phase 22); and the asteroid DCCRNet
+    # family at 32 x 3 s (T=471: one frame less a layer of its 6 encoders,
+    # phase 23) for the teacher (H=128) and the student (H=32).
     shapes = [(483, 2, 32, False), (483, 64, 32, False), (483, 2, 128, False),
               (483, 64, 128, False), (118, 2, 32, False), (57, 3, 128, False),
               (20, 266, 32, False), (20, 201, 128, False), (118, 6, 32, True),
-              (SPKD_FRAMES, 32, 32, False), (SPKD_FRAMES, 32, 128, False)]
+              (SPKD_FRAMES, 32, 32, False), (SPKD_FRAMES, 32, 128, False),
+              (EVAL_FRAMES, 2, 32, False), (DCCRNET_FRAMES, 64, 128, False),
+              (DCCRNET_FRAMES, 64, 32, False)]
     results = []
     for T, N, H, with_state in shapes:
         g = torch.Generator().manual_seed(1000 * H + N)
@@ -533,22 +576,30 @@ def teacher_batch():
     return np.stack([ds[i][0] for i in range(TEACHER_BATCH)])
 
 
-def _requests():
+def eval_requests():
+    """Phase 4's requests with their clean sources, as an evaluation set:
+    ``(mixture [T], sources [1, T], id)`` each."""
     from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
 
-    ds = SyntheticEnhancementDataset(size=4, segment=10.0, seed=0)
-    # 3-10 s utterances with odd lengths
-    lengths = [3 * 16000 + 77, 5 * 16000 + 1301, 7 * 16000 + 4099, 10 * 16000]
-    return [ds[i][0][:n] for i, n in enumerate(lengths)]
+    ds = SyntheticEnhancementDataset(size=len(REQUEST_LENGTHS), segment=10.0, seed=0)
+    return [(ds[i][0][:n], ds[i][1][:, :n], f"request{i}")
+            for i, n in enumerate(REQUEST_LENGTHS)]
 
 
-def phase_serving_student():
+def _requests():
+    return [mix for mix, _, _ in eval_requests()]
+
+
+def streaming_record(eng, cpu) -> dict:
+    """``eng`` (on the card) streams phase 4's requests whole and then chunk
+    by chunk as a live stream arrives; ``cpu``, the same engine on the CPU,
+    streams them whole.  The record, with K1f's launches held to 4 a chunk's
+    forward."""
     import numpy as np
     import torch
 
     from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq
 
-    eng = student_engine("cuda")
     eng.stream(np.zeros(eng.chunk_samples, np.float32))  # warm-up
     torch.cuda.synchronize()
     reqs = _requests()
@@ -578,19 +629,22 @@ def phase_serving_student():
     if launches == 0 or launches != 4 * forwards:
         raise RuntimeError(f"LSTM kernel launches {launches} != 4 x {forwards} forwards")
 
-    cpu = student_engine("cpu")
     err = max(float(np.abs(cpu.stream(w) - o).max()) for w, o in zip(reqs, outs))
     finite = all(np.isfinite(o).all() and o.shape == w.shape for w, o in zip(reqs, outs))
-    say("serving_student", bundle=str(BUNDLE.relative_to(ROOT)), requests=len(reqs),
-        audio_s=audio_s, chunk_frames=eng.chunk, context_frames=eng.context,
-        latency_ms_algorithmic=eng.latency_ms,
-        chunk_ms_median=float(np.median(chunk_ms)),
-        chunk_ms_p99=float(np.percentile(chunk_ms, 99)), chunks_timed=len(chunk_ms),
-        rtf_stream=wall / audio_s, forwards=forwards, lstm_launches=launches,
-        max_abs_err_vs_cpu=err, tol=SERVING_ATOL, finite=finite)
-    if not finite or err > SERVING_ATOL:
+    return dict(requests=len(reqs), audio_s=audio_s, chunk_frames=eng.chunk,
+                context_frames=eng.context, latency_ms_algorithmic=eng.latency_ms,
+                chunk_ms_median=float(np.median(chunk_ms)),
+                chunk_ms_p99=float(np.percentile(chunk_ms, 99)), chunks_timed=len(chunk_ms),
+                rtf_stream=wall / audio_s, forwards=forwards, lstm_launches=launches,
+                max_abs_err_vs_cpu=err, tol=SERVING_ATOL, finite=finite)
+
+
+def phase_serving_student():
+    rec = streaming_record(student_engine("cuda"), student_engine("cpu"))
+    say("serving_student", bundle=str(BUNDLE.relative_to(ROOT)), **rec)
+    if not rec["finite"] or rec["max_abs_err_vs_cpu"] > SERVING_ATOL:
         raise RuntimeError("streaming output on the card disagrees with the CPU")
-    return launches
+    return rec["lstm_launches"]
 
 
 def phase_serving_teacher():
@@ -2921,6 +2975,355 @@ def phase_training_bf16_block(bf16_phase: dict, block: dict) -> dict:
     return {"batch32": b32, "bench": b64}
 
 
+# ------------------------------------------------------------ evaluation
+
+
+def _eval_errors(got: dict, want: dict) -> dict:
+    """The largest |got - want| by metric kind (``stoi``, ``db`` for SI-SDR,
+    SDR, SIR and SAR, ``pesq``) over the keys both carry, and whether the
+    two carry the same keys with the same infinities."""
+    import math
+
+    errs = {"stoi": 0.0, "db": 0.0, "pesq": 0.0}
+    same = set(got) == set(want)
+    for key, w in want.items():
+        g = got.get(key)
+        if not isinstance(w, float) or not isinstance(g, float):
+            same = same and g == w
+            continue
+        if math.isinf(w) or math.isinf(g):
+            same = same and g == w
+            continue
+        kind = "stoi" if key.endswith("stoi") else "pesq" if key.endswith("pesq") else "db"
+        errs[kind] = max(errs[kind], abs(g - w))
+    return {"same_keys": same, **errs}
+
+
+def _eval_within(errs: dict) -> bool:
+    return (errs["same_keys"] and errs["stoi"] <= EVAL_STOI_ATOL and errs["db"] <= EVAL_DB_ATOL
+            and errs["pesq"] <= EVAL_PESQ_ATOL)
+
+
+def evaluation_checks(cfg, variables, dataset, device: str, directory: str,
+                      bn_batch_stats=None, compute_pesq: bool = True) -> dict:
+    """``eval.evaluate_model`` of ``(cfg, variables)`` over ``dataset`` on
+    ``device`` and on the CPU, each writing its summary, per-utterance rows
+    and example wavs under ``directory``: the record of phase 22, with
+    ``failures`` listing what did not hold (the summary and every row card
+    against CPU; the wavs read back whole, finite and alike; on the card K1f
+    4 a forward and no other kernel).  tests/test_torch_eval.py rehearses it
+    at tiny widths on the CPU."""
+    import numpy as np
+
+    from speech_enhancement_clskd_tpu_torch.data.wav import read_wav
+    from speech_enhancement_clskd_tpu_torch.eval import evaluate_model
+
+    counters = _kernel_counters()
+    runs = {}
+    for label, dev in (("device", device), ("cpu", "cpu")):
+        out = Path(directory) / label
+        timings = {}
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        summary = evaluate_model(
+            cfg, variables, dataset, sample_rate=cfg.stft.sample_rate,
+            n_save_ex=len(dataset), ex_save_dir=str(out / "examples"),
+            results_path=str(out / "summary.json"), per_utt_path=str(out / "per_utt.jsonl"),
+            compute_pesq=compute_pesq, bn_batch_stats=bn_batch_stats, device=dev,
+            timings=timings, log_fn=lambda *_: None)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _counts(counters).items() if v}
+        rows = [json.loads(line) for line in (out / "per_utt.jsonl").read_text().splitlines()]
+        wavs = {str(f.relative_to(out / "examples")): read_wav(str(f))
+                for f in sorted((out / "examples").rglob("*.wav"))}
+        runs[label] = dict(summary=summary, rows=rows, wavs=wavs, wall=wall,
+                           timings=timings, launches=launches,
+                           written=json.loads((out / "summary.json").read_text()))
+    run, cpu = runs["device"], runs["cpu"]
+    failures = []
+    n = len(dataset)
+    audio_s = sum(len(item[0]) for item in dataset) / cfg.stft.sample_rate
+    summary_err = _eval_errors(run["summary"], cpu["summary"])
+    row_errs = [_eval_errors(g, w) for g, w in zip(run["rows"], cpu["rows"])]
+    row_err = {k: (all(e[k] for e in row_errs) if k == "same_keys"
+                   else max(e[k] for e in row_errs)) for k in summary_err}
+    if not _eval_within(summary_err):
+        failures.append(f"summary card vs CPU {summary_err}")
+    if len(run["rows"]) != n or not _eval_within(row_err):
+        failures.append(f"per-utterance rows card vs CPU {row_err}")
+    if [r["utt_id"] for r in run["rows"]] != [str(item[2]) for item in dataset]:
+        failures.append("per-utterance ids")
+    if run["written"] != run["summary"]:
+        failures.append("the summary file differs from the returned summary")
+    finite = all(np.isfinite(v) for r in run["rows"] for k, v in r.items()
+                 if k != "utt_id" and not k.endswith("sir"))
+    if not finite:
+        failures.append("a metric is not finite")
+    # the example wavs: every utterance's mixture, source and estimate, whole
+    wav_err, whole = 0.0, set(run["wavs"]) == set(cpu["wavs"]) and len(run["wavs"]) == 3 * n
+    for name, (x, rate) in run["wavs"].items():
+        idx = int(name.split("/")[0].split("_")[1])
+        whole = whole and rate == cfg.stft.sample_rate and x.shape == (len(dataset[idx][0]),)
+        if name in cpu["wavs"]:
+            diff = float(np.abs(x - cpu["wavs"][name][0]).max())
+            if name.endswith("estimate.wav"):
+                wav_err = max(wav_err, diff)
+            elif diff != 0.0:
+                whole = False
+    if not whole or wav_err > EVAL_WAV_ATOL:
+        failures.append(f"example wavs (whole and alike: {whole}, estimate {wav_err})")
+    fwd = run["launches"].get("lstm_seq_fwd", 0)
+    if device == "cuda" and (run["launches"] != {"lstm_seq_fwd": 4 * n}):
+        failures.append(f"kernel launches {run['launches']}, expected K1f {4 * n}")
+    return dict(
+        config=cfg.name, utterances=n, audio_s=audio_s, bn_batch_stats=bn_batch_stats,
+        pesq=compute_pesq, summary=run["summary"], lstm_launches=fwd,
+        launches=run["launches"], wall_s=run["wall"], audio_s_per_s=audio_s / run["wall"],
+        ms_per_utterance={k: 1e3 * v / n for k, v in run["timings"].items()},
+        cpu_wall_s=cpu["wall"], summary_err=summary_err, row_err=row_err,
+        estimate_wav_max_abs_diff=wav_err, wavs_read_back=len(run["wavs"]),
+        tol={"stoi": EVAL_STOI_ATOL, "db": EVAL_DB_ATOL, "pesq": EVAL_PESQ_ATOL,
+             "estimate_wav": EVAL_WAV_ATOL},
+        failures=failures)
+
+
+def phase_evaluation() -> dict:
+    """Phase 22: ``evaluation_checks`` on the card for the r4 bundle over
+    phase 4's requests, with the running statistics and then with
+    ``bn_batch_stats=True``; a first pass over the requests builds the PESQ
+    library and warms the path at each length."""
+    import tempfile
+
+    from speech_enhancement_clskd_tpu_torch.eval import evaluate_model
+    from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
+
+    cfg, variables, _ = load_bundle(str(BUNDLE))
+    data = eval_requests()
+    recs = {}
+    with tempfile.TemporaryDirectory() as directory:
+        evaluate_model(cfg, variables, data, device="cuda", log_fn=lambda *_: None)
+        for key, bn in (("running_stats", None), ("bn_batch_stats", True)):
+            recs[key] = evaluation_checks(cfg, variables, data, "cuda",
+                                          str(Path(directory) / key), bn_batch_stats=bn)
+            say("evaluation", bundle=str(BUNDLE.relative_to(ROOT)), **recs[key])
+    failed = {k: r["failures"] for k, r in recs.items() if r["failures"]}
+    if failed:
+        raise RuntimeError(f"the evaluation phase failed: {failed}")
+    return recs
+
+
+# -------------------------------------------------- the asteroid family
+
+
+def write_asteroid_pth(path: str, architecture: str, seed: int = 0) -> str:
+    """Write a seeded asteroid publishable bundle (``torch.save``) of
+    ``architecture`` to ``path``: every masker tensor that
+    ``models.dccrnet.params_from_asteroid_state_dict`` reads, the BN
+    counters, ``encoder.filterbank._filters``, ``model_name``,
+    ``model_args`` and ``infos`` (with the ``TorchVersion`` a real bundle
+    carries), in the layouts of the reference's ``DCCRNet_mini``."""
+    from collections import OrderedDict
+
+    import numpy as np
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.models.dccrnet import (
+        ARCHITECTURES,
+        asteroid_filterbank,
+    )
+
+    geom = ARCHITECTURES[architecture]
+    kn, H, ks = geom["kernel_num"], geom["rnn_units"] // 2, 5
+    rng = np.random.default_rng(seed)
+    sd = OrderedDict()
+
+    def put(key, shape, kind):
+        if kind == "conv":
+            a = rng.normal(0.0, 0.05, shape)
+        elif kind == "uniform":
+            a = rng.uniform(-1.0, 1.0, shape) / np.sqrt(shape[-1])
+        elif kind == "scale":
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif kind == "var":
+            a = rng.uniform(0.5, 1.5, shape)
+        elif kind == "prelu":
+            a = 0.25 + 0.05 * rng.standard_normal(shape)
+        else:
+            a = 0.1 * rng.standard_normal(shape)
+        sd[key] = torch.from_numpy(a.astype(np.float32))
+
+    def parts(pre, leaf, shape, kind):
+        for m in ("re_module", "im_module"):
+            put(f"{pre}.{m}.{leaf}", shape, kind)
+
+    def bn_prelu(pre, c):
+        for leaf, kind in (("weight", "scale"), ("bias", "small"), ("running_mean", "small"),
+                           ("running_var", "var")):
+            parts(f"{pre}.norm", leaf, (c,), kind)
+        for m in ("re_module", "im_module"):
+            sd[f"{pre}.norm.{m}.num_batches_tracked"] = torch.tensor(1000 + seed)
+        parts(f"{pre}.activation", "weight", (1,), "prelu")
+
+    n, D = len(kn), 256
+    chans = (2,) + tuple(kn)
+    for i in range(n):
+        parts(f"masker.encoders.{i}.conv", "weight", (kn[i] // 2, chans[i] // 2, ks, 2), "conv")
+        bn_prelu(f"masker.encoders.{i}", kn[i] // 2)
+        D = (D - 1) // 2 + 1
+    feat = kn[-1] // 2 * D
+    for li in range(2):
+        pre = f"masker.encoders.{n}.rnn.rnns.{li}"
+        parts(pre, "rnn.weight_ih_l0", (4 * H, feat if li == 0 else H), "uniform")
+        parts(pre, "rnn.weight_hh_l0", (4 * H, H), "uniform")
+        parts(pre, "rnn.bias_ih_l0", (4 * H,), "small")
+        parts(pre, "rnn.bias_hh_l0", (4 * H,), "small")
+    parts(f"masker.encoders.{n}.linear", "weight", (feat, H), "uniform")
+    parts(f"masker.encoders.{n}.linear", "bias", (feat,), "small")
+    for i in range(1, n):
+        parts(f"masker.decoders.{i}.deconv", "weight", (kn[n - i], kn[n - 1 - i] // 2, ks, 2),
+              "conv")
+        bn_prelu(f"masker.decoders.{i}", kn[n - 1 - i] // 2)
+    parts("masker.output_layer.0", "weight", (kn[0], 1, ks, 2), "conv")
+    parts("masker.output_layer.0", "bias", (1,), "small")
+    fb = torch.from_numpy(np.ascontiguousarray(asteroid_filterbank().T[:, None, :]))
+    sd["encoder.filterbank._filters"] = fb
+    sd["decoder.filterbank._filters"] = fb.clone()
+    torch.save({
+        "model_name": "DCCRNet_mini" if architecture != "DCCRN-CL" else "DCCRNet",
+        "model_args": {"architecture": architecture, "stft_n_filters": 512,
+                       "stft_kernel_size": 400, "stft_stride": 100, "sample_rate": 16000,
+                       "n_src": 1, "masking_mode": "C"},
+        "state_dict": sd,
+        "infos": {"software_versions": {"torch_version": torch.__version__},
+                  "seed": seed},
+    }, path)
+    return path
+
+
+def asteroid_cli_checks(pth: str, directory: str, device: str,
+                        overrides=ASTEROID_CLI_OVERRIDES) -> dict:
+    """The CLI on an asteroid ``.pth``: ``import-torch`` to an ``.npz``, then
+    ``evaluate --reference-bn --device <device>`` on the ``.pth`` and twice
+    on the ``.npz`` over the synthetic test set of ``overrides``; the
+    ``.pth`` and the first ``.npz`` run must agree as phase 22's card and
+    CPU do.  ``bit_equal`` says whether they agree bit for bit, and
+    ``repeat_bit_equal`` whether the two ``.npz`` runs do (the device's own
+    repeatability).  The record, with ``failures``."""
+    import contextlib
+    import io
+
+    from speech_enhancement_clskd_tpu_torch.cli import main as cli
+    from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
+
+    counters = _kernel_counters()
+    out = Path(directory)
+    npz = str(out / "imported.npz")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc_import = cli(["import-torch", "--pth", pth, "--out", npz])
+    results, rcs, rows, launches = {}, [rc_import], {}, 0
+    for label, bundle in (("pth", pth), ("npz", npz), ("npz_repeat", npz)):
+        _zero_counts(counters)
+        with contextlib.redirect_stdout(log):
+            rcs.append(cli(["evaluate", "--bundle", bundle, "--device", device,
+                            "--reference-bn", "--results", str(out / f"{label}.json"),
+                            *overrides]))
+        launches += counters["lstm_seq_fwd"][0].launches
+        results[label] = json.loads((out / f"{label}.json").read_text())
+        rows[label] = [json.loads(line) for line in
+                       (out / f"{label}_per_utt.jsonl").read_text().splitlines()]
+    cfg, _, meta = load_bundle(npz)
+    err = _eval_errors(results["pth"], results["npz"])
+    row_errs = [_eval_errors(g, w) for g, w in zip(rows["pth"], rows["npz"])]
+    failures = []
+    if rcs != [0] * 4:
+        failures.append(f"exit codes {rcs}")
+    if cfg.family != "dccrnet" or meta["model_args"]["architecture"] != cfg.name:
+        failures.append(f"imported bundle config {cfg}")
+    if not _eval_within(err) or not all(_eval_within(e) for e in row_errs):
+        failures.append(f".pth against .npz {err}")
+    if not rows["pth"] or len(rows["pth"]) != len(rows["npz"]):
+        failures.append("per-utterance rows")
+    return dict(architecture=cfg.name, summary=results["pth"], summary_err=err,
+                bit_equal=results["pth"] == results["npz"] and rows["pth"] == rows["npz"],
+                repeat_bit_equal=(results["npz"] == results["npz_repeat"]
+                                  and rows["npz"] == rows["npz_repeat"]),
+                utterances=len(rows["pth"]), lstm_launches=launches, failures=failures)
+
+
+def phase_asteroid() -> dict:
+    """Phase 23: the asteroid DCCRNet family from seeded ``.pth`` bundles:
+    the ``DCCRN-CL`` teacher offline, the ``DCCRN-CL-test`` student
+    streaming, and the CLI's ``import-torch`` and ``evaluate``."""
+    import tempfile
+
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.eval.streaming import StreamingEnhancer
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_fwd_plan
+    from speech_enhancement_clskd_tpu_torch.models.dccrnet import (
+        load_reference_bundle,
+        read_reference_bundle,
+    )
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
+
+    with tempfile.TemporaryDirectory() as directory:
+        teacher_pth = write_asteroid_pth(str(Path(directory) / "dccrn_cl.pth"),
+                                         ASTEROID_TEACHER, seed=0)
+        student_pth = write_asteroid_pth(str(Path(directory) / "dccrn_cl_test.pth"),
+                                         ASTEROID_STUDENT, seed=1)
+
+        # the teacher offline at full width, as phase 5
+        batch, seconds, iters = TEACHER_BATCH, TEACHER_SECONDS, 3
+        wav = torch.from_numpy(teacher_batch()).cuda()
+        model, _ = load_reference_bundle(teacher_pth, device="cuda")
+        with torch.inference_mode():
+            model(wav)  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            lstm_seq.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                out = model(wav)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / iters
+            t_launches = lstm_seq.launches
+            peak = torch.cuda.max_memory_allocated()
+            cpu_model, _ = load_reference_bundle(teacher_pth, device="cpu")
+            ref = cpu_model(wav[:1].cpu())
+        T = out.taps.lstm_real.shape[0]
+        t_err = (out.wav[:1].cpu() - ref.wav).abs().max().item()
+        t_ok = (bool(torch.isfinite(out.wav).all())
+                and tuple(out.wav.shape) == (batch, int(seconds * 16000)))
+        teacher = dict(config=model.cfg.name, batch=batch, seconds=seconds,
+                       forward_ms=wall * 1e3, rtf=wall / (batch * seconds),
+                       peak_mem_bytes=peak, lstm_launches=t_launches, lstm_T=T,
+                       lstm_N=2 * batch, lstm_H=model.cfg.rnn_units // 2,
+                       plan=lstm_seq_fwd_plan(2 * batch, model.cfg.rnn_units // 2),
+                       max_abs_err_vs_cpu=t_err, tol=SERVING_ATOL,
+                       wav_absmax=float(out.wav.abs().max()), finite_and_shaped=t_ok)
+        say("asteroid_teacher", **teacher)
+        if not t_ok or t_err > SERVING_ATOL or t_launches != 4 * iters:
+            raise RuntimeError(f"the asteroid teacher on the card is wrong: {teacher}")
+
+        # the student streaming, as phase 4
+        cfg, variables, _ = read_reference_bundle(student_pth)
+        state = torch_state_from_flax(variables)
+        engines = [StreamingEnhancer(cfg, state, device=dev, chunk_frames=CHUNK_FRAMES,
+                                     context_frames=CONTEXT_FRAMES) for dev in ("cuda", "cpu")]
+        streaming = dict(config=cfg.name, **streaming_record(*engines))
+        say("asteroid_streaming", **streaming)
+        if not streaming["finite"] or streaming["max_abs_err_vs_cpu"] > SERVING_ATOL:
+            raise RuntimeError("asteroid streaming on the card disagrees with the CPU")
+
+        cli = asteroid_cli_checks(student_pth, directory, "cuda")
+        say("asteroid_cli", **cli)
+        if cli["failures"]:
+            raise RuntimeError(f"the asteroid CLI checks failed: {cli['failures']}")
+    return {"teacher": teacher, "streaming": streaming, "cli": cli,
+            "lstm_launches": t_launches + streaming["lstm_launches"] + cli["lstm_launches"]}
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -2950,6 +3353,8 @@ def main() -> None:
     bf16_teacher = phase_serving_teacher_bf16(teacher)
     bf16_kernels_k5_k2 = phase_bf16_block_kernels_vs_plain()
     bf16_block = phase_training_bf16_block(bf16["batch32"], block_training)
+    evaluation = phase_evaluation()
+    asteroid = phase_asteroid()
     bf16_paths = {f"training_bf16_{k}": bf16[k] for k in ("batch32", "batch64", "kernels")}
     bf16_paths.update({f"training_bf16_block_{k}": r for k, r in bf16_block.items()})
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
@@ -2968,7 +3373,9 @@ def main() -> None:
         "route": "cuda",
         "source": src + "lstm_seq_fwd.cu",
         "replaces": pallas + "lstm.py:36",
-        "launches": serving_launches + bf16_teacher["lstm_launches"] + trained["lstm_seq_fwd"],
+        "launches": (serving_launches + bf16_teacher["lstm_launches"] + trained["lstm_seq_fwd"]
+                     + sum(r["lstm_launches"] for r in evaluation.values())
+                     + asteroid["lstm_launches"]),
         "max_abs_err": max(r["max_abs_err_y"] for r in fwd_shapes),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -2985,6 +3392,11 @@ def main() -> None:
                              "training_reviewkd": reviewkd_training["launches"]["lstm_seq_fwd"],
                              "training_options": option_training["launches"]["lstm_seq_fwd"],
                              "serving_teacher_bf16": bf16_teacher["lstm_launches"],
+                             **{f"evaluation_{k}": r["lstm_launches"]
+                                for k, r in evaluation.items()},
+                             "asteroid_teacher": asteroid["teacher"]["lstm_launches"],
+                             "asteroid_streaming": asteroid["streaming"]["lstm_launches"],
+                             "asteroid_cli": asteroid["cli"]["lstm_launches"],
                              **{k: r["launches"]["lstm_seq_fwd"]
                                 for k, r in bf16_paths.items()}},
         "per_shape": fwd_shapes,

@@ -10,8 +10,12 @@ data.synthetic=true``; only ``--config`` (a YAML file) needs ``yaml``.
 
 ``distill`` trains with ``Trainer.fit``, keeps the top-k checkpoints on
 ``cfg.monitor`` in ``--out``, restores the best one and writes
-``<out>/the_best_model.npz``.  The other subcommands are in the parser and
-raise ``NotImplementedError`` naming their ROADMAP item.
+``<out>/the_best_model.npz``.  ``evaluate`` runs ``eval.evaluate_bundle`` on
+an ``.npz`` bundle or an asteroid ``.pth`` over the configured test set
+(``data.synthetic=true`` for the synthetic one).  ``import-torch`` converts
+an asteroid ``.pth`` into an ``.npz`` bundle.  ``pretrain`` and ``bench``
+are in the parser and raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -25,8 +29,6 @@ from typing import List, Optional
 # the subcommands not ported yet, and the ROADMAP queue 1 item of each
 _UNPORTED = {
     "pretrain": "item 7 (pretraining)",
-    "evaluate": "item 5 (evaluation)",
-    "import-torch": "item 6 (the asteroid family)",
     "bench": "item 9 (the port benchmark)",
 }
 
@@ -68,6 +70,8 @@ def _parse(argv: Optional[List[str]] = None):
     e.add_argument("--reference-bn", action="store_true",
                    help="BatchNorm with per-utterance batch statistics, "
                         "matching the reference eval.py (no model.eval())")
+    e.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (the plain PyTorch path)")
     e.add_argument("overrides", nargs="*")
 
     i = sub.add_parser(
@@ -89,12 +93,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError(
             f"not ported yet: the {args.command!r} subcommand is ROADMAP queue 1 "
             f"{_UNPORTED[args.command]}")
+    if args.command == "import-torch":
+        return _import_torch(args)
     from .config import load_config
 
     overrides = list(args.overrides)
-    if args.strategy:
+    if getattr(args, "strategy", None):
         overrides.append(f"distill.strategy={args.strategy}")
-    return _distill(load_config(args.config, overrides), args)
+    cfg = load_config(args.config, overrides)
+    if args.command == "evaluate":
+        return _evaluate(cfg, args)
+    return _distill(cfg, args)
 
 
 def _distill(cfg, args) -> int:
@@ -142,6 +151,59 @@ def bundle_best(trainer, mgr, history, out: str, log_fn=print) -> str:
     save_bundle(bundle_path, v["params"], v["batch_stats"], cfg.student,
                 infos={"history": history, "strategy": cfg.distill.strategy})
     return bundle_path + ".npz"
+
+
+def _evaluate(cfg, args) -> int:
+    from .data.librimix import LibriMixDataset
+    from .data.synthetic import SyntheticEnhancementDataset
+    from .eval import evaluate_bundle
+
+    d = cfg.data
+    if d.synthetic:
+        ds = SyntheticEnhancementDataset(
+            size=d.synthetic_size, segment=d.segment,
+            sample_rate=d.sample_rate, seed=cfg.seed + 20_000,
+            profile=d.synthetic_profile)
+    else:
+        ds = LibriMixDataset(d.test_dir, d.task, d.sample_rate, d.n_src, segment=None)
+    per_utt = args.per_utt
+    if per_utt is None and args.results:
+        per_utt = os.path.splitext(args.results)[0] + "_per_utt.jsonl"
+    res = evaluate_bundle(
+        args.bundle, ds,
+        sample_rate=d.sample_rate,
+        ex_save_dir=args.examples,
+        results_path=args.results,
+        compute_pesq=not args.no_pesq,
+        bn_batch_stats=True if args.reference_bn else None,
+        per_utt_path=per_utt,
+        device=args.device,
+    )
+    print(json.dumps(res, indent=2))
+    return 0
+
+
+def _import_torch(args) -> int:
+    """Asteroid publishable .pth -> native .npz bundle."""
+    from .models.dccrnet import read_reference_bundle
+    from .utils.serialization import save_bundle
+
+    cfg, variables, ck = read_reference_bundle(args.pth)
+    save_bundle(
+        args.out,
+        variables["params"],
+        variables["batch_stats"],
+        cfg,
+        infos={
+            "imported_from": args.pth,
+            "source_model_name": ck.get("model_name"),
+            "source_infos": ck.get("infos", {}),
+        },
+    )
+    print(json.dumps({"bundle": args.out if args.out.endswith(".npz")
+                      else args.out + ".npz",
+                      "architecture": cfg.name}))
+    return 0
 
 
 if __name__ == "__main__":

@@ -46,7 +46,7 @@ class DCCRNConfig:
 
     name: str = "dccrn"
     # 'dccrn' = the reference's own DCCRN model; 'dccrnet' = the
-    # asteroid-compatible serving family (not ported yet)
+    # asteroid-compatible serving family (models/dccrnet.py)
     family: str = "dccrn"
     stft: STFTConfig = field(default_factory=STFTConfig)
     kernel_num: Tuple[int, ...] = (32, 64, 128, 256, 256, 256)

@@ -1,0 +1,1 @@
+from .evaluate import evaluate_bundle, evaluate_model

@@ -8,7 +8,9 @@ LSTM, so the engine runs the model over a sliding window of
 - the conv stack is exact for ``context >= 12`` frames;
 - the LSTM gets ``context`` frames of warmup per chunk;
 - algorithmic latency = one chunk plus the guard: the last
-  ``win/hop - 1`` frames of a window still wait for iSTFT overlap-add.
+  ``win/hop - 1`` frames of a window still wait for iSTFT overlap-add, and
+  the asteroid DCCRNet family's non-causal convs add ``2 * len(kernel_num)
+  + 1`` frames more.
 
 Each chunk is one forward of the same fixed shape on the device.  BatchNorm
 runs on running statistics, so chunking does not perturb normalization.
@@ -48,6 +50,10 @@ class StreamingEnhancer:
         self.chunk_samples = chunk_frames * self.hop
         if lookahead_frames is None:
             lookahead_frames = self.win // self.hop - 1
+            if cfg.family == "dccrnet":
+                # its convs look one frame ahead per encoder layer, mirrored
+                # in the decoder
+                lookahead_frames += 2 * len(cfg.kernel_num) + 1
         self.guard = lookahead_frames * self.hop
         self.window_samples = (context_frames + chunk_frames) * self.hop + self.guard
 

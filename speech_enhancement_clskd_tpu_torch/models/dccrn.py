@@ -67,9 +67,9 @@ class DCCRNOutput(NamedTuple):
 
 def _check_supported(cfg: DCCRNConfig) -> None:
     if cfg.family != "dccrn":
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the asteroid-compatible DCCRNet is ROADMAP "
-            "queue 1 item 6")
+        raise ValueError(
+            f"DCCRN is family 'dccrn', not {cfg.family!r} (make_model builds the "
+            "asteroid DCCRNet for 'dccrnet')")
     if cfg.use_cbn:
         raise NotImplementedError(
             "use_cbn: complex batchnorm (ops/complex_bn.py) is ROADMAP queue 1 item 7")
@@ -225,8 +225,9 @@ class DCCRN(nn.Module):
 
 
 def make_model(cfg: DCCRNConfig, device: Union[str, torch.device] = "cuda",
-               seed: int = 0) -> DCCRN:
-    """A serving model on ``device`` with seeded random weights.
+               seed: int = 0) -> nn.Module:
+    """A serving model on ``device`` with seeded random weights: ``DCCRN``,
+    or the asteroid ``models.dccrnet.DCCRNet`` for ``cfg.family="dccrnet"``.
 
     The weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
     and moved to ``device``; load trained ones with ``load_state_dict`` (see
@@ -235,6 +236,11 @@ def make_model(cfg: DCCRNConfig, device: Union[str, torch.device] = "cuda",
     ``device="cuda"`` with no GPU raises.
     """
     dev = resolve_device(device)
-    model = DCCRN(cfg)
+    if cfg.family == "dccrnet":
+        from .dccrnet import DCCRNet
+
+        model = DCCRNet(cfg)
+    else:
+        model = DCCRN(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.requires_grad_(False).eval().to(dev)

@@ -1,4 +1,5 @@
-"""Complex-valued conv layers as single real convolutions, and real BN/PReLU.
+"""Complex-valued conv layers as single real convolutions, the complex dense
+layer, and real BN, PReLU and per-part complex PReLU.
 
 Port of ``speech_enhancement_clskd_tpu/ops/complex_layers.py``.  A complex
 conv is ONE real convolution over a block weight::
@@ -56,32 +57,38 @@ def _block_weight(wr: torch.Tensor, wi: torch.Tensor, transposed: bool) -> torch
 
 
 class _ComplexConvBase(nn.Module):
-    def __init__(self, weight_shape: Tuple[int, ...], c_out: int):
+    """``use_bias=False`` has no ``br``/``bi`` (the flax tree has none)."""
+
+    def __init__(self, weight_shape: Tuple[int, ...], c_out: int, use_bias: bool = True):
         super().__init__()
         self.wr = nn.Parameter(torch.empty(weight_shape))
         self.wi = nn.Parameter(torch.empty(weight_shape))
-        self.br = nn.Parameter(torch.zeros(c_out))
-        self.bi = nn.Parameter(torch.zeros(c_out))
+        self.use_bias = use_bias
+        if use_bias:
+            self.br = nn.Parameter(torch.zeros(c_out))
+            self.bi = nn.Parameter(torch.zeros(c_out))
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """normal(std=0.05) weights and zero bias (reference init)."""
         self.wr.normal_(0.0, 0.05, generator=generator)
         self.wi.normal_(0.0, 0.05, generator=generator)
-        self.br.zero_()
-        self.bi.zero_()
+        if self.use_bias:
+            self.br.zero_()
+            self.bi.zero_()
 
-    def _bias(self) -> torch.Tensor:
-        return torch.cat([self.br, self.bi])
+    def _bias(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
+        return torch.cat([self.br, self.bi]).to(dtype) if self.use_bias else None
 
 
 class ComplexConv2d(_ComplexConvBase):
-    """Causal complex conv over [B, D, T, in_features] -> [B, D', T', features].
+    """Complex conv over [B, D, T, in_features] -> [B, D', T', features].
 
     ``in_features``/``features`` count the full packed width (real+imag).
-    The freq axis is padded by ``padding[0]`` on both sides, the time axis by
-    ``padding[1]`` on the left only.  (The non-causal, bias-free variant of
-    the asteroid family comes with that family.)
+    The freq axis is padded by ``padding[0]`` on both sides; the time axis
+    by ``padding[1]`` on the left only (``causal=True``, the DCCRN family) or
+    on both sides (``causal=False``, the asteroid DCCRNet family, which also
+    has ``use_bias=False``).
     """
 
     def __init__(
@@ -91,17 +98,22 @@ class ComplexConv2d(_ComplexConvBase):
         kernel_size: Tuple[int, int] = (5, 2),
         strides: Tuple[int, int] = (2, 1),
         padding: Tuple[int, int] = (2, 1),
+        causal: bool = True,
+        use_bias: bool = True,
     ):
         kh, kw = kernel_size
-        super().__init__((features // 2, in_features // 2, kh, kw), features // 2)
+        super().__init__((features // 2, in_features // 2, kh, kw), features // 2, use_bias)
         self.strides = tuple(strides)
         self.padding = tuple(padding)
+        self.causal = causal
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pf, pt = self.padding
-        xn = F.pad(x.permute(0, 3, 1, 2), (pt, 0))  # [B, C, D, T], causal time pad
+        xn = x.permute(0, 3, 1, 2)  # [B, C, D, T]
+        if self.causal:
+            xn, pt = F.pad(xn, (pt, 0)), 0  # causal time pad
         y = F.conv2d(xn, _block_weight(self.wr, self.wi, False).to(x.dtype),
-                     self._bias().to(x.dtype), stride=self.strides, padding=(pf, 0))
+                     self._bias(x.dtype), stride=self.strides, padding=(pf, pt))
         return y.permute(0, 2, 3, 1)
 
 
@@ -124,9 +136,10 @@ class ComplexConvTranspose2d(_ComplexConvBase):
         padding: Tuple[int, int] = (2, 0),
         output_padding: Tuple[int, int] = (1, 0),
         time_crop_left: int = 0,
+        use_bias: bool = True,
     ):
         kh, kw = kernel_size
-        super().__init__((in_features // 2, features // 2, kh, kw), features // 2)
+        super().__init__((in_features // 2, features // 2, kh, kw), features // 2, use_bias)
         if time_crop_left and strides[1] != 1:
             raise ValueError("time_crop_left requires time stride 1")
         self.strides = tuple(strides)
@@ -138,7 +151,7 @@ class ComplexConvTranspose2d(_ComplexConvBase):
         y = F.conv_transpose2d(
             x.permute(0, 3, 1, 2),
             _block_weight(self.wr, self.wi, True).to(x.dtype),
-            self._bias().to(x.dtype),
+            self._bias(x.dtype),
             stride=self.strides,
             padding=self.padding,
             output_padding=self.output_padding,
@@ -160,6 +173,55 @@ class PReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+class CPReLU(nn.Module):
+    """Per-part PReLU on packed complex input: slope ``alpha_r`` on the real
+    half, ``alpha_i`` on the imaginary half (the asteroid DCCRNet family)."""
+
+    def __init__(self, init_alpha: float = 0.25):
+        super().__init__()
+        self.init_alpha = init_alpha
+        self.alpha_r = nn.Parameter(torch.full((1,), init_alpha))
+        self.alpha_i = nn.Parameter(torch.full((1,), init_alpha))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        self.alpha_r.fill_(self.init_alpha)
+        self.alpha_i.fill_(self.init_alpha)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        re, im = split_complex(x)
+        re = torch.where(re >= 0, re, self.alpha_r.to(x.dtype) * re)
+        im = torch.where(im >= 0, im, self.alpha_i.to(x.dtype) * im)
+        return torch.cat([re, im], dim=-1)
+
+
+class ComplexDense(nn.Module):
+    """Complex linear on packed input [..., 2F] -> [..., 2 * features]:
+    ``(Wr + i Wi)(xr + i xi)`` with ``wr``/``wi`` ``[F, features]`` (flax
+    layout), uniform +-1/sqrt(F) init as torch ``nn.Linear``."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.in_features = in_features
+        self.wr = nn.Parameter(torch.empty(in_features, features))
+        self.wi = nn.Parameter(torch.empty(in_features, features))
+        self.br = nn.Parameter(torch.empty(features))
+        self.bi = nn.Parameter(torch.empty(features))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / self.in_features ** 0.5
+        for p in self.parameters():
+            p.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xr, xi = split_complex(x)
+        wr, wi = self.wr.to(x.dtype), self.wi.to(x.dtype)
+        yr = xr @ wr - xi @ wi + self.br.to(x.dtype)
+        yi = xr @ wi + xi @ wr + self.bi.to(x.dtype)
+        return torch.cat([yr, yi], dim=-1)
 
 
 class BatchNorm(nn.Module):

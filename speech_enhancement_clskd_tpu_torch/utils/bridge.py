@@ -9,9 +9,11 @@ the BatchNorm running statistics become buffers of their module
 Layouts.  Complex conv weights ``wr``/``wi`` are HWIO ``[kh, kw, I, O]`` in
 flax.  The port keeps them in the layout ``torch.nn.functional`` wants:
 ``[O, I, kh, kw]`` for ``conv2d`` (encoder ``enc*_conv``) and
-``[I, O, kh, kw]`` for ``conv_transpose2d`` (decoder ``dec*_conv``).  Every
+``[I, O, kh, kw]`` for ``conv_transpose2d`` (decoder ``dec*_conv`` and the
+DCCRNet mask output ``out_conv``).  Every
 other leaf keeps its flax layout: biases, BN ``scale``/``bias``/``mean``/
-``var``, PReLU ``alpha``, LSTM ``w_ih [F, 4H]``, ``w_hh [H, 4H]``, ``b_ih``,
+``var``, PReLU ``alpha`` (``alpha_r``/``alpha_i``), the complex dense ``rnn_linear``
+``wr``/``wi [F, O]``, LSTM ``w_ih [F, 4H]``, ``w_hh [H, 4H]``, ``b_ih``,
 ``b_hh`` and the projection ``proj_wr [H, P]``/``proj_br``/``proj_wi``/
 ``proj_bi``.
 
@@ -39,7 +41,9 @@ import torch
 
 _STATS = ("mean", "var")
 _CONV_WEIGHTS = ("wr", "wi")
-_TRANSPOSED = re.compile(r"dec\d+_conv")
+# the transposed convs: the DCCRN decoders, and the DCCRNet decoders and
+# mask output
+_TRANSPOSED = re.compile(r"dec\d+_conv|out_conv")
 # HWIO -> torch layout, per conv kind; the inverse permutation goes back
 _TO_TORCH = {False: (3, 2, 0, 1), True: (2, 3, 0, 1)}
 # the parts of a TrainState, each a module of the port's Trainer (the ABF

@@ -112,12 +112,18 @@ def test_seeded_init_is_deterministic():
 def test_unported_options_raise(change):
     """The options the port does not have raise naming their ROADMAP item;
     bf16 compute, ported since, builds a model whose taps are bf16 and whose
-    waveform is float32."""
+    waveform is float32; the asteroid family, ported since, builds a
+    ``DCCRNet`` (tests/test_torch_dccrnet.py holds it against JAX)."""
     cfg = DCCRNConfig(name="tiny", kernel_num=(4, 8, 8), rnn_units=16, **change)
     if change.get("compute_dtype") == "bfloat16":
         out = make_model(cfg, device="cpu")(torch.zeros(1, 1600))
         assert out.wav.dtype == torch.float32
         assert {t.dtype for t in out.taps.encoder + out.taps.decoder} == {torch.bfloat16}
+        return
+    if change.get("family") == "dccrnet":
+        model = make_model(cfg, device="cpu")
+        assert type(model).__name__ == "DCCRNet"
+        assert model(torch.zeros(1, 1600)).wav.shape == (1, 1600)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_model(cfg, device="cpu")

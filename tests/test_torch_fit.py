@@ -516,6 +516,13 @@ def test_distill_cli_reviewkd_with_the_options(tmp_path, capsys):
                                   ["import-torch", "--pth", "a.pth", "--out", "b"], ["bench"]],
                          ids=lambda a: a[0])
 def test_cli_unported_subcommands_name_their_item(argv):
+    """``pretrain`` and ``bench`` raise naming their item; ``evaluate`` and
+    ``import-torch``, ported since, run and stop at the missing file."""
+    if argv[0] in ("evaluate", "import-torch"):
+        assert argv[0] not in cli._UNPORTED
+        with pytest.raises(FileNotFoundError):
+            cli.main(argv)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         cli.main(argv)
 

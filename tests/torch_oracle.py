@@ -18,10 +18,11 @@ computes it again and raises in its own tests.
 
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import os
 import pickle
-from typing import Any, Callable, Dict, Sequence
+from typing import Any, Callable, Dict, Iterator, Sequence
 
 
 def once_per_session(tmp_path_factory, key: str, compute: Callable[[], Any]) -> Any:
@@ -61,3 +62,22 @@ def each_once_per_session(tmp_path_factory, prefix: str, keys: Sequence[str],
     for key in keys[start:] + keys[:start]:
         out[key] = once_per_session(tmp_path_factory, f"{prefix}.{key}", lambda k=key: compute(k))
     return {key: out[key] for key in keys}
+
+
+@contextlib.contextmanager
+def jitted_jax_stoi() -> Iterator[None]:
+    """Inside the block the JAX metric bundle (``metrics/bss.py``) calls its
+    STOI jitted.  It calls ``stoi_batch`` eagerly, which compiles each of
+    its operations anew for every utterance length; jitted, it compiles once
+    a length.  The same function either way (the port's tests hold STOI to
+    1e-5)."""
+    import jax
+
+    from speech_enhancement_clskd_tpu.metrics import bss
+
+    eager = bss.stoi_batch
+    bss.stoi_batch = jax.jit(eager, static_argnames="fs")
+    try:
+        yield
+    finally:
+        bss.stoi_batch = eager
