@@ -28,7 +28,8 @@ card, then drives both paths through their entry points:
    forward on 32 x 3 s; real-time factor, peak memory, agreement with the
    CPU on one utterance;
 6. backward kernel vs plain: ``lstm_seq_bwd`` against
-   ``lstm_seq_bwd_reference`` at the training step's shape and others, each
+   ``lstm_seq_bwd_reference`` at the training step's shape and others (the
+   DCCRNet student's of phase 24 among them: T = 471, N = 64, H = 32), each
    with the plan K1b takes; two runs must give the same bits; times, the
    bound and the backward of cuDNN's ``torch.nn.LSTM`` as the yardstick;
 7. training at full width: ``Trainer(TrainConfig())`` (teacher ``dccrn-cl``,
@@ -177,7 +178,21 @@ card, then drives both paths through their entry points:
     ``import-torch`` of the ``.pth``, then ``evaluate --reference-bn`` on
     the ``.pth`` and on the ``.npz`` on the card, which must agree as the
     card and the CPU do, and on the ``.npz`` once more, which says whether
-    the card repeats its bits (``asteroid_cli_checks``).
+    the card repeats its bits (``asteroid_cli_checks``);
+24. CLSKD training of the asteroid family at the paper's full width:
+    teacher phase 23's seeded ``DCCRN-CL`` ``.pth``, student
+    ``DCCRN-CL-test`` (``dccrnet_models``), as phase 7 (one warm-up and 10
+    timed steps at 32 x 3 s; K1f 8, K1b 4 a step; its card-vs-CPU step)
+    beside phase 7; with ``abf_conv_pallas`` + ``abf_attfuse_pallas`` and
+    with ``abf_block_pallas`` as phases 9 and 11, launches per step held to
+    the gates' counts on these taps (``abf_gate_counts``: the residuals are
+    one frame short of each map, so no K4, and K5 only on each chain's
+    unfused first block), each form's card loss against the default
+    form's on the check batches; in bf16 as phase 18; then the CLI loop
+    (``dccrnet_cli_checks``): ``import-torch`` of the teacher's ``.pth``,
+    ``distill --teacher-bundle`` with the dccrnet presets (an epoch of 2
+    steps at 4 x 1 s), ``evaluate`` of the best bundle card against CPU
+    (phase 22's tolerances), and the bundle streaming a request.
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -278,6 +293,16 @@ EVAL_WAV_ATOL = 1e-3
 # phase 23's seeded asteroid bundles and the CLI's test set
 ASTEROID_TEACHER, ASTEROID_STUDENT = "DCCRN-CL", "DCCRN-CL-test"
 ASTEROID_CLI_OVERRIDES = ("data.synthetic=true", "data.synthetic_size=4", "data.segment=3.0")
+# phase 24's CLI loop: the dccrnet presets (config.DCCRNET_TEACHER and
+# DCCRNET_STUDENT) as overrides of the default teacher and student, whose
+# widths they share; and its run: one epoch of 2 steps of 4 x 1 s (the
+# synthetic set's validation split is max(8, size / 16) clips: 8, two
+# batches), the top-1 checkpoint
+DCCRNET_PRESETS = ("teacher.family=dccrnet", "teacher.name=dccrn-cl",
+                   "teacher.stft.window=sqrthann", "student.family=dccrnet",
+                   "student.name=dccrnet-cl-test", "student.stft.window=sqrthann")
+DCCRNET_CLI_OVERRIDES = ("data.synthetic=true", "data.synthetic_size=8", "data.segment=1.0",
+                         "data.batch_size=4", "max_epochs=1", "keep_top_k=1")
 
 
 # bf16 (phases 17-19): bench.py's headline form, teacher and student
@@ -704,10 +729,11 @@ def phase_backward_vs_plain():
     # batch 32 -> N=64, H=32), batch 1, the teacher's width, ragged tiles of
     # 1, 2 and 4 rows, a call with an initial state, and the spkd step's
     # student LSTM on 33 s clips (T=5283) at batch 16 and at its card-vs-CPU
-    # batch 2
+    # batch 2, and the DCCRNet student's of phase 24 (T=471 at 3 s)
     shapes = [(483, 64, 32, False), (483, 2, 32, False), (483, 64, 128, False),
               (20, 201, 128, False), (57, 3, 32, False), (118, 6, 32, True),
-              (SPKD_FRAMES, 32, 32, False), (SPKD_FRAMES, 4, 32, False)]
+              (SPKD_FRAMES, 32, 32, False), (SPKD_FRAMES, 4, 32, False),
+              (DCCRNET_FRAMES, 64, 32, False)]
     results = []
     for T, N, H, with_state in shapes:
         g = torch.Generator().manual_seed(2000 * H + N)
@@ -803,16 +829,16 @@ def _grads(trainer):
 
 
 def _grad_errors(card, cpu, grad_norm):
-    """Relative L2 error of every gradient tensor, card against CPU: the
-    worst and its tensor's name, and the worst of the exempt ones.  Two kinds
-    are held otherwise (tests/test_torch_trainer.py says why): a conv bias in
-    front of a batch-statistics BN has a zero gradient in exact arithmetic
-    (rounding noise on both sides: held to ZERO_GRAD of the global norm), and
-    an ABF bn2 bias is a sum of cancelling terms (held against the same
-    block's bn2.scale gradient)."""
+    """Relative L2 error of every gradient tensor, card against CPU, by
+    tensor name, and the worst of the exempt ones.  Two kinds are held
+    otherwise (tests/test_torch_trainer.py says why): a conv bias in front of
+    a batch-statistics BN has a zero gradient in exact arithmetic (rounding
+    noise on both sides: held to ZERO_GRAD of the global norm), and an ABF
+    bn2 bias is a sum of cancelling terms (held against the same block's
+    bn2.scale gradient)."""
     import re
 
-    worst, worst_name, exempt = 0.0, None, 0.0
+    errors, exempt = {}, 0.0
     for name, want in cpu.items():
         got = card[name]
         if re.fullmatch(r"student\.(enc|dec)\d+_conv\.b[ri]", name) and \
@@ -821,10 +847,8 @@ def _grad_errors(card, cpu, grad_norm):
                          want.abs().max().item() / grad_norm)
             continue
         ref = cpu[name[:-len("bias")] + "scale"] if name.endswith("bn2.bias") else want
-        err = ((got - want).norm() / max(ref.norm(), 1e-30)).item()
-        if err > worst:
-            worst, worst_name = err, name
-    return worst, worst_name, exempt
+        errors[name] = ((got - want).norm() / max(ref.norm(), 1e-30)).item()
+    return errors, exempt
 
 
 def gaussian_batch(batch: int, seconds: float, seed: int = 0):
@@ -870,12 +894,14 @@ def _counts(counters: dict) -> dict:
 
 
 def fitting_trainer(distill: dict, seconds: float, optim: dict = None,
-                    batch: int = TEACHER_BATCH, models: dict = None):
+                    batch: int = TEACHER_BATCH, models: dict = None,
+                    teacher_variables: dict = None):
     """A ``Trainer`` on the card at full width on clips of ``seconds``, after
     one warm-up step, at the largest batch from ``batch`` down, halving,
     that fits: ``(trainer, batch, cut, mix, clean)``, ``cut`` listing each
     halving.  ``models``: the teacher and student configs (``bf16_models``),
-    the defaults' otherwise."""
+    the defaults' otherwise; ``teacher_variables``: the teacher's weights
+    (a flax-layout tree), seeded ones otherwise."""
     import torch
 
     from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
@@ -884,7 +910,7 @@ def fitting_trainer(distill: dict, seconds: float, optim: dict = None,
     while True:
         mix, clean = train_batch(batch, seconds)
         trainer = Trainer(train_config(batch, seconds, distill, optim, **(models or {})),
-                          device="cuda").init_state(0)
+                          device="cuda").init_state(0, teacher_variables=teacher_variables)
         try:
             trainer.train_step(mix, clean)  # warm-up
             torch.cuda.synchronize()
@@ -903,20 +929,24 @@ def _training(phase: str, config: str, distill: dict, steps: int, expected: dict
               seconds: float = TRAIN_SECONDS, check_batch: int = CHECK_BATCH,
               check_seconds: float = CHECK_SECONDS, rounding_floor: bool = False,
               optim: dict = None, check=None, beside: dict = None,
-              batch: int = TEACHER_BATCH, models: dict = None) -> dict:
+              batch: int = TEACHER_BATCH, models: dict = None,
+              teacher_variables: dict = None, own_floor: bool = False) -> dict:
     """One warm-up and ``steps`` timed steps at full width on ``batch`` clips
-    of ``seconds`` (batch halved while it does not fit; ``models`` as
-    ``fitting_trainer`` takes them), launches per step held to ``expected``
+    of ``seconds`` (batch halved while it does not fit; ``models`` and
+    ``teacher_variables`` as ``fitting_trainer`` takes them), launches per
+    step held to ``expected``
     (every other kernel: none), then the card-vs-CPU step on ``check_batch``
     clips of ``check_seconds`` (``card_vs_cpu_checks``; ``rounding_floor``:
-    its gradients held against their own rounding floor), or ``check()`` in
+    its gradients held against their rounding floor; ``own_floor`` as
+    ``synced_steps`` takes it), or ``check()`` in
     its place; the check's ``failures`` fail the phase.  ``beside``: another
     phase's numbers, printed in the record."""
     import numpy as np
     import torch
 
     counters = _kernel_counters()
-    trainer, batch, cut, mix, clean = fitting_trainer(distill, seconds, optim, batch, models)
+    trainer, batch, cut, mix, clean = fitting_trainer(distill, seconds, optim, batch, models,
+                                                      teacher_variables)
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     _zero_counts(counters)
@@ -944,7 +974,8 @@ def _training(phase: str, config: str, distill: dict, steps: int, expected: dict
 
     if check is None:
         cfg = train_config(check_batch, check_seconds, distill, optim, **(models or {}))
-        rec["card_vs_cpu"] = card_vs_cpu_checks(cfg, "cuda", rounding_floor)
+        rec["card_vs_cpu"] = card_vs_cpu_checks(cfg, "cuda", rounding_floor,
+                                                teacher_variables, own_floor)
     else:
         rec["card_vs_cpu"] = check()
     say(phase, **rec)
@@ -1794,8 +1825,10 @@ def _mirror(dst, src) -> None:
 
 
 def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
-                 rounding_floor: bool = False) -> dict:
-    """``steps`` steps of ``Trainer(cfg)`` on ``device`` from seeded weights,
+                 rounding_floor: bool = False, teacher_variables: dict = None,
+                 own_floor: bool = False) -> dict:
+    """``steps`` steps of ``Trainer(cfg)`` on ``device`` from seeded weights
+    (the teacher's ``teacher_variables`` where given),
     each mirrored by a CPU trainer loaded with the device trainer's state
     just before it (weights, statistics, the optimizer's moments and step),
     so every step is compared at one point (cuDNN on deterministic
@@ -1808,7 +1841,10 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
     compute 1 + 2^-8, one bf16 spacing, which moves the bf16 spectrum by a
     rounding), and the gradients are held to ``ROUNDING_FACTOR`` times the
     largest change that gives where that is above ``TRAIN_GRAD_REL_L2``
-    (under bf16 at most ``BF16_GRAD_REL_L2``).
+    (under bf16 at most ``BF16_GRAD_REL_L2``).  With ``own_floor`` as well,
+    a tensor above that is held to ``ROUNDING_FACTOR`` times its own floor
+    instead (the input rounded once more moved that tensor by as much), and
+    is listed in ``admitted_by_own_floor``.
     The loss is held to ``TRAIN_LOSS_RTOL``, under bf16 compute to
     ``BF16_LOSS_RTOL``.  ``failures`` lists what was not held."""
     import numpy as np
@@ -1818,7 +1854,7 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
 
     counters = _kernel_counters()
     on_card = device == "cuda"
-    card = Trainer(cfg, device=device).init_state(1)
+    card = Trainer(cfg, device=device).init_state(1, teacher_variables=teacher_variables)
     cpu = Trainer(cfg, device="cpu").init_state(1)
     again = Trainer(cfg, device="cpu").init_state(1) if grads and rounding_floor else None
     clip = cfg.optim.grad_clip
@@ -1845,6 +1881,7 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
         want = float(cpu_logs["train_loss"])
         norm = float(cpu_logs["grad_norm"])
         rec = {"step": k, "lr": card.optimizer.param_groups[0]["lr"],
+               "loss": float(card_logs["train_loss"]),
                "loss_rel_err": abs(float(card_logs["train_loss"]) - want) / abs(want),
                "grad_norm": norm, "cpu_step_s": time.perf_counter() - t0, "launches": launches}
         if clip:
@@ -1857,38 +1894,49 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
         if grads:
             scale = min(norm, clip or norm)
             cpu_grads = _grads(cpu)
-            err, worst, zero = _grad_errors(_grads(card), cpu_grads, scale)
+            errors, zero = _grad_errors(_grads(card), cpu_grads, scale)
+            worst = max(errors, key=errors.get)
             tol = TRAIN_GRAD_REL_L2
             if again is not None:
                 again.train_step((mix * np.float32(1 + rounding)).astype(np.float32), clean)
-                floor, floor_worst, _ = _grad_errors(_grads(again), cpu_grads, scale)
-                tol = max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * floor)
+                floors, _ = _grad_errors(_grads(again), cpu_grads, scale)
+                floor_worst = max(floors, key=floors.get)
+                tol = max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * floors[floor_worst])
                 if bf16:
                     tol = min(tol, BF16_GRAD_REL_L2)
-                rec.update(rounding_floor=floor, rounding_floor_worst=floor_worst)
-            rec.update(grad_max_rel_l2=err, grad_worst=worst, grad_tol=tol, zero_grad_max=zero)
+                rec.update(rounding_floor=floors[floor_worst], rounding_floor_worst=floor_worst)
+            over = {n: e for n, e in errors.items() if e > tol}
+            if own_floor and again is not None:
+                rec["admitted_by_own_floor"] = {
+                    n: {"err": e, "own_floor": floors[n]} for n, e in over.items()
+                    if e <= ROUNDING_FACTOR * floors[n]}
+                over = {n: e for n, e in over.items() if n not in rec["admitted_by_own_floor"]}
+            rec.update(grad_max_rel_l2=errors[worst], grad_worst=worst, grad_tol=tol,
+                       zero_grad_max=zero)
             zero_tol = BF16_ZERO_GRAD if bf16 else ZERO_GRAD
             rec["zero_grad_tol"] = zero_tol
-            if err > tol or zero > zero_tol:
-                failures.append(f"step {k}: gradients {err} ({worst}) against {tol}, "
-                                f"zero {zero}")
+            if over or zero > zero_tol:
+                failures.append(f"step {k}: gradients {over} against {tol}, zero {zero}")
         recs.append(rec)
     return {"batch": mix.shape[0], "seconds": mix.shape[1] / 16000, "steps": recs,
             "loss_rtol": loss_rtol, "zero_grad_tol": ZERO_GRAD, "failures": failures}
 
 
-def card_vs_cpu_checks(cfg, device: str, rounding_floor: bool = False) -> dict:
+def card_vs_cpu_checks(cfg, device: str, rounding_floor: bool = False,
+                       teacher_variables: dict = None, own_floor: bool = False) -> dict:
     """The training phases' check: one step of ``cfg`` on ``device`` against
-    the CPU from the same seeded weights (``synced_steps``) on white noise
+    the CPU from the same seeded weights (``synced_steps``; the teacher's
+    ``teacher_variables`` where given; ``own_floor`` as there) on white noise
     (the loss and the gradients held; ``rounding_floor`` as there) and on
     synthetic speech (the loss held: at random init on speech the
     log-magnitude loss's gradient is ill-conditioned), at ``cfg``'s batch
     and clip length."""
     batch, seconds = cfg.data.batch_size, cfg.data.segment
     rec = {"gaussian": synced_steps(cfg, *gaussian_batch(batch, seconds), device, 1,
-                                    rounding_floor=rounding_floor),
+                                    rounding_floor=rounding_floor,
+                                    teacher_variables=teacher_variables, own_floor=own_floor),
            "speech": synced_steps(cfg, *train_batch(batch, seconds, seed=3), device, 1,
-                                  grads=False)}
+                                  grads=False, teacher_variables=teacher_variables)}
     rec["failures"] = [f"{name}: {f}" for name, r in rec.items() for f in r["failures"]]
     return rec
 
@@ -3251,12 +3299,11 @@ def asteroid_cli_checks(pth: str, directory: str, device: str,
                 utterances=len(rows["pth"]), lstm_launches=launches, failures=failures)
 
 
-def phase_asteroid() -> dict:
-    """Phase 23: the asteroid DCCRNet family from seeded ``.pth`` bundles:
-    the ``DCCRN-CL`` teacher offline, the ``DCCRN-CL-test`` student
-    streaming, and the CLI's ``import-torch`` and ``evaluate``."""
-    import tempfile
-
+def phase_asteroid(directory: str) -> dict:
+    """Phase 23: the asteroid DCCRNet family from seeded ``.pth`` bundles
+    written into ``directory`` (phase 24 trains from the teacher's): the
+    ``DCCRN-CL`` teacher offline, the ``DCCRN-CL-test`` student streaming,
+    and the CLI's ``import-torch`` and ``evaluate``."""
     import torch
 
     from speech_enhancement_clskd_tpu_torch.eval.streaming import StreamingEnhancer
@@ -3267,66 +3314,280 @@ def phase_asteroid() -> dict:
     )
     from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
 
-    with tempfile.TemporaryDirectory() as directory:
-        teacher_pth = write_asteroid_pth(str(Path(directory) / "dccrn_cl.pth"),
-                                         ASTEROID_TEACHER, seed=0)
-        student_pth = write_asteroid_pth(str(Path(directory) / "dccrn_cl_test.pth"),
-                                         ASTEROID_STUDENT, seed=1)
+    teacher_pth = write_asteroid_pth(str(Path(directory) / "dccrn_cl.pth"),
+                                     ASTEROID_TEACHER, seed=0)
+    student_pth = write_asteroid_pth(str(Path(directory) / "dccrn_cl_test.pth"),
+                                     ASTEROID_STUDENT, seed=1)
 
-        # the teacher offline at full width, as phase 5
-        batch, seconds, iters = TEACHER_BATCH, TEACHER_SECONDS, 3
-        wav = torch.from_numpy(teacher_batch()).cuda()
-        model, _ = load_reference_bundle(teacher_pth, device="cuda")
-        with torch.inference_mode():
-            model(wav)  # warm-up
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            lstm_seq.launches = 0
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                out = model(wav)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / iters
-            t_launches = lstm_seq.launches
-            peak = torch.cuda.max_memory_allocated()
-            cpu_model, _ = load_reference_bundle(teacher_pth, device="cpu")
-            ref = cpu_model(wav[:1].cpu())
-        T = out.taps.lstm_real.shape[0]
-        t_err = (out.wav[:1].cpu() - ref.wav).abs().max().item()
-        t_ok = (bool(torch.isfinite(out.wav).all())
-                and tuple(out.wav.shape) == (batch, int(seconds * 16000)))
-        teacher = dict(config=model.cfg.name, batch=batch, seconds=seconds,
-                       forward_ms=wall * 1e3, rtf=wall / (batch * seconds),
-                       peak_mem_bytes=peak, lstm_launches=t_launches, lstm_T=T,
-                       lstm_N=2 * batch, lstm_H=model.cfg.rnn_units // 2,
-                       plan=lstm_seq_fwd_plan(2 * batch, model.cfg.rnn_units // 2),
-                       max_abs_err_vs_cpu=t_err, tol=SERVING_ATOL,
-                       wav_absmax=float(out.wav.abs().max()), finite_and_shaped=t_ok)
-        say("asteroid_teacher", **teacher)
-        if not t_ok or t_err > SERVING_ATOL or t_launches != 4 * iters:
-            raise RuntimeError(f"the asteroid teacher on the card is wrong: {teacher}")
+    # the teacher offline at full width, as phase 5
+    batch, seconds, iters = TEACHER_BATCH, TEACHER_SECONDS, 3
+    wav = torch.from_numpy(teacher_batch()).cuda()
+    model, _ = load_reference_bundle(teacher_pth, device="cuda")
+    with torch.inference_mode():
+        model(wav)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lstm_seq.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            out = model(wav)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / iters
+        t_launches = lstm_seq.launches
+        peak = torch.cuda.max_memory_allocated()
+        cpu_model, _ = load_reference_bundle(teacher_pth, device="cpu")
+        ref = cpu_model(wav[:1].cpu())
+    T = out.taps.lstm_real.shape[0]
+    t_err = (out.wav[:1].cpu() - ref.wav).abs().max().item()
+    t_ok = (bool(torch.isfinite(out.wav).all())
+            and tuple(out.wav.shape) == (batch, int(seconds * 16000)))
+    teacher = dict(config=model.cfg.name, batch=batch, seconds=seconds,
+                   forward_ms=wall * 1e3, rtf=wall / (batch * seconds),
+                   peak_mem_bytes=peak, lstm_launches=t_launches, lstm_T=T,
+                   lstm_N=2 * batch, lstm_H=model.cfg.rnn_units // 2,
+                   plan=lstm_seq_fwd_plan(2 * batch, model.cfg.rnn_units // 2),
+                   max_abs_err_vs_cpu=t_err, tol=SERVING_ATOL,
+                   wav_absmax=float(out.wav.abs().max()), finite_and_shaped=t_ok)
+    say("asteroid_teacher", **teacher)
+    if not t_ok or t_err > SERVING_ATOL or t_launches != 4 * iters:
+        raise RuntimeError(f"the asteroid teacher on the card is wrong: {teacher}")
 
-        # the student streaming, as phase 4
-        cfg, variables, _ = read_reference_bundle(student_pth)
-        state = torch_state_from_flax(variables)
-        engines = [StreamingEnhancer(cfg, state, device=dev, chunk_frames=CHUNK_FRAMES,
-                                     context_frames=CONTEXT_FRAMES) for dev in ("cuda", "cpu")]
-        streaming = dict(config=cfg.name, **streaming_record(*engines))
-        say("asteroid_streaming", **streaming)
-        if not streaming["finite"] or streaming["max_abs_err_vs_cpu"] > SERVING_ATOL:
-            raise RuntimeError("asteroid streaming on the card disagrees with the CPU")
+    # the student streaming, as phase 4
+    cfg, variables, _ = read_reference_bundle(student_pth)
+    state = torch_state_from_flax(variables)
+    engines = [StreamingEnhancer(cfg, state, device=dev, chunk_frames=CHUNK_FRAMES,
+                                 context_frames=CONTEXT_FRAMES) for dev in ("cuda", "cpu")]
+    streaming = dict(config=cfg.name, **streaming_record(*engines))
+    say("asteroid_streaming", **streaming)
+    if not streaming["finite"] or streaming["max_abs_err_vs_cpu"] > SERVING_ATOL:
+        raise RuntimeError("asteroid streaming on the card disagrees with the CPU")
 
-        cli = asteroid_cli_checks(student_pth, directory, "cuda")
-        say("asteroid_cli", **cli)
-        if cli["failures"]:
-            raise RuntimeError(f"the asteroid CLI checks failed: {cli['failures']}")
-    return {"teacher": teacher, "streaming": streaming, "cli": cli,
+    cli = asteroid_cli_checks(student_pth, directory, "cuda")
+    say("asteroid_cli", **cli)
+    if cli["failures"]:
+        raise RuntimeError(f"the asteroid CLI checks failed: {cli['failures']}")
+    return {"teacher": teacher, "streaming": streaming, "cli": cli, "teacher_pth": teacher_pth,
             "lstm_launches": t_launches + streaming["lstm_launches"] + cli["lstm_launches"]}
+
+
+# ------------------------------------------- training the asteroid family
+
+
+def dccrnet_models(compute_dtype: str = "float32") -> dict:
+    """The paper's pair, teacher ``DCCRN-CL`` and student ``DCCRN-CL-test``
+    (``config.DCCRNET_TEACHER``, ``DCCRNET_STUDENT``), computing in
+    ``compute_dtype``."""
+    import dataclasses
+
+    from speech_enhancement_clskd_tpu_torch.config import DCCRNET_STUDENT, DCCRNET_TEACHER
+
+    return {"teacher": dataclasses.replace(DCCRNET_TEACHER, compute_dtype=compute_dtype),
+            "student": dataclasses.replace(DCCRNET_STUDENT, compute_dtype=compute_dtype)}
+
+
+def abf_gate_counts(cfg) -> dict:
+    """The ABF kernels' launches a step that the gates give on the student
+    taps of ``cfg`` at its batch and clip length (the port's gates keep the
+    JAX shape conditions): per block in each chain's order, K5f and K5b
+    where ``block_pallas`` and ``abf_block_dispatchable`` take it, else K4f
+    and K4b where the block fuses and ``attfuse_pallas`` and
+    ``attfuse_dispatchable`` take it, and K3f twice (forward and dx) and
+    K3w once where ``conv_pallas`` is on; each counter named as
+    ``_kernel_counters`` names it.  The tap shapes come from one forward of
+    the student on the CPU."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.kernels.abf_block import abf_block_dispatchable
+    from speech_enhancement_clskd_tpu_torch.kernels.attfuse import attfuse_dispatchable
+    from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
+    from speech_enhancement_clskd_tpu_torch.train.trainer import _teacher_tap_channels
+
+    d = cfg.distill
+    batch, samples = cfg.data.batch_size, int(cfg.data.segment * cfg.data.sample_rate)
+    with torch.no_grad():
+        taps = make_model(cfg.student, device="cpu")(torch.zeros(1, samples)).taps
+    suffix = "_bf16" if d.taps_dtype == BF16 else ""
+    counts = {}
+
+    def add(name, n=1):
+        counts[name + suffix] = counts.get(name + suffix, 0) + n
+
+    for maps, outs, reverse in ((taps.encoder, _teacher_tap_channels(cfg.teacher)[0], True),
+                                (taps.decoder, _teacher_tap_channels(cfg.teacher)[1], False)):
+        shapes = [(batch,) + tuple(t.shape[1:]) for t in maps]
+        outs = list(outs)
+        if reverse:
+            shapes, outs = shapes[::-1], outs[::-1]
+        res = None
+        for shape, out in zip(shapes, outs):
+            if d.abf_block_pallas and abf_block_dispatchable(shape, res, d.abf_mid_channels,
+                                                             out):
+                add("abf_block_fwd")
+                add("abf_block_bwd")
+            else:
+                xhat = shape[:3] + (d.abf_mid_channels,)
+                if res is not None and d.abf_attfuse_pallas and attfuse_dispatchable(xhat, res):
+                    add("attfuse_fwd")
+                    add("attfuse_bwd")
+                if d.abf_conv_pallas:
+                    add("conv3x3_fwd", 2)
+                    add("conv3x3_wgrad")
+            res = shape[:3] + (d.abf_mid_channels,)
+    return counts
+
+
+def dccrnet_cli_checks(teacher_pth: str, directory: str, device: str, overrides=None,
+                       request=None, compute_pesq: bool = True) -> dict:
+    """The loop a user runs to distill the asteroid family, through the
+    CLI on ``device``: ``import-torch`` of the teacher's ``.pth``, ``distill
+    --strategy clskd --teacher-bundle`` with the dccrnet presets' overrides
+    (``overrides``: the run's data, epochs and widths; by default one epoch
+    of 2 steps on 4 x 1 s synthetic clips), ``evaluate`` of the best
+    bundle on ``device`` and on the CPU (phase 22's tolerances; PESQ unless
+    ``compute_pesq`` is false), and the
+    bundle streaming ``request`` (by default phase 4's first) on ``device``
+    against the CPU.  The record, with the kernels' launches of each stage
+    and ``failures``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.cli import main as cli
+    from speech_enhancement_clskd_tpu_torch.eval.streaming import StreamingEnhancer
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
+    from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
+
+    if overrides is None:
+        overrides = DCCRNET_CLI_OVERRIDES
+    counters = _kernel_counters()
+    out = Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    teacher_npz = str(out / "teacher.npz")
+    run = str(out / "run")
+    log = io.StringIO()
+    failures, launches = [], {}
+    with contextlib.redirect_stdout(log):
+        rcs = [cli(["import-torch", "--pth", teacher_pth, "--out", teacher_npz])]
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        rcs.append(cli(["distill", "--strategy", "clskd", "--teacher-bundle", teacher_npz,
+                        "--out", run, "--device", device, *DCCRNET_PRESETS, *overrides]))
+        distill_s = time.perf_counter() - t0
+        launches["distill"] = {k: v for k, v in _counts(counters).items() if v}
+        result = json.loads(log.getvalue().strip().splitlines()[-1])
+        bundle = result["bundle"]
+        metrics = {}
+        for dev in (device, "cpu"):
+            _zero_counts(counters)
+            rcs.append(cli(["evaluate", "--bundle", bundle, "--device", dev,
+                            *([] if compute_pesq else ["--no-pesq"]),
+                            "--results", str(out / f"evaluate_{dev}.json"), *overrides]))
+            launches[f"evaluate_{dev}"] = {k: v for k, v in _counts(counters).items() if v}
+            metrics[dev] = json.loads((out / f"evaluate_{dev}.json").read_text())
+    cfg, variables, meta = load_bundle(bundle)
+    tcfg = load_bundle(teacher_npz)[0]
+    if rcs != [0] * 4:
+        failures.append(f"exit codes {rcs}")
+    if cfg.family != "dccrnet" or tcfg.family != "dccrnet" or meta["model_name"] != "DCCRNet":
+        failures.append(f"bundle families: student {cfg.family}, teacher {tcfg.family}")
+    err = _eval_errors(metrics[device], metrics["cpu"])
+    if not _eval_within(err):
+        failures.append(f"evaluate on {device} against the CPU {err}")
+    if not all(np.isfinite(v) for v in result["final_metrics"].values()):
+        failures.append(f"fit metrics {result['final_metrics']}")
+
+    wav = _requests()[0] if request is None else request
+    state = torch_state_from_flax(variables)
+    engines = {dev: StreamingEnhancer(cfg, state, device=dev, chunk_frames=CHUNK_FRAMES,
+                                      context_frames=CONTEXT_FRAMES) for dev in (device, "cpu")}
+    _zero_counts(counters)
+    streamed = engines[device].stream(wav)
+    launches["streaming"] = {k: v for k, v in _counts(counters).items() if v}
+    stream_err = float(np.abs(streamed - engines["cpu"].stream(wav)).max())
+    if not (np.isfinite(streamed).all() and streamed.shape == wav.shape) \
+            or stream_err > SERVING_ATOL:
+        failures.append(f"streaming the bundle on {device} against the CPU: {stream_err}")
+    if device == "cuda":
+        torch.cuda.synchronize()
+        want = {"lstm_seq_fwd": 8 * 2 + 4 * 2, "lstm_seq_bwd": 4 * 2}  # 2 steps, 2 val batches
+        if launches["distill"] != want:
+            failures.append(f"distill launched {launches['distill']}, expected {want}")
+    return dict(student=cfg.name, teacher=tcfg.name, family=cfg.family, distill_s=distill_s,
+                final_metrics=result["final_metrics"], evaluate=metrics[device],
+                evaluate_err=err, stream_max_abs_err_vs_cpu=stream_err,
+                stream_samples=len(wav), launches=launches,
+                lstm_launches=sum(r.get("lstm_seq_fwd", 0) for k, r in launches.items()
+                                  if k != "evaluate_cpu"),
+                lstm_bwd_launches=launches["distill"].get("lstm_seq_bwd", 0),
+                failures=failures)
+
+
+def phase_dccrnet_training(teacher_pth: str, directory: str, phase7: dict) -> dict:
+    """Phase 24: CLSKD training of the asteroid DCCRNet family at the
+    paper's full width, teacher phase 23's seeded ``DCCRN-CL`` (its
+    ``.pth`` read by ``read_reference_bundle``), student ``DCCRN-CL-test``
+    seeded: the default step as phase 7 (one warm-up, 10 timed steps at 32 x
+    3 s, K1f 8, K1b 4 a step, its card-vs-CPU step) beside phase 7, its
+    gradients held against their rounding floor as phase 15's (at random
+    init this step's gradients are worse conditioned than DCCRN's: on the
+    CPU one rounding of the input moved ``enc4_conv.wi``'s by 2.5e-3); the
+    kernel-config and block-config forms as phases 9 and 11 (launches per
+    step the gates' counts on these taps, ``abf_gate_counts``: no K4, the
+    residuals one frame short of each map; K5 on the two unfused blocks),
+    each form's card loss on the check batches against the default form's;
+    the bf16 form as phase 18 with its card-vs-CPU step, where a gradient
+    above phase 18's hold is held to twice its own rounding floor
+    (``own_floor``: the last decoder's PReLU slope read 0.142 against the
+    hold's 0.1 cap, where the input rounded once more moved it by 0.23 on
+    the CPU; NVIDIA H100 80GB HBM3, 700 W); then the CLI loop
+    (``dccrnet_cli_checks``) in ``directory``."""
+    from speech_enhancement_clskd_tpu_torch.models.dccrnet import read_reference_bundle
+
+    _, teacher_vars, _ = read_reference_bundle(teacher_pth)
+    models = dccrnet_models()
+    lstm = {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4}
+    name = "clskd DCCRNet (DCCRN-CL teacher from a seeded .pth, DCCRN-CL-test student)"
+    recs = {"default": _training("dccrnet_training", name, {}, TRAIN_STEPS, lstm,
+                                 rounding_floor=True, models=models,
+                                 teacher_variables=teacher_vars,
+                                 beside=_beside("phase 7 (clskd, DCCRN)", phase7))}
+    for key, flags in (("kernels", ABF_KERNEL_FLAGS), ("block", ABF_BLOCK_FLAGS)):
+        gates = abf_gate_counts(train_config(TEACHER_BATCH, TRAIN_SECONDS, flags, **models))
+        rec = _training(f"dccrnet_training_{key}", f"{name} with {flags}", flags,
+                        KERNEL_TRAIN_STEPS, {**lstm, **gates}, rounding_floor=True,
+                        models=models, teacher_variables=teacher_vars)
+        rec["gate_counts"] = gates
+        rec["loss_vs_default"] = {
+            batch: abs(rec["card_vs_cpu"][batch]["steps"][0]["loss"]
+                       - recs["default"]["card_vs_cpu"][batch]["steps"][0]["loss"])
+            / abs(recs["default"]["card_vs_cpu"][batch]["steps"][0]["loss"])
+            for batch in ("gaussian", "speech")}
+        say(f"dccrnet_training_{key}_loss_vs_default", gate_counts=gates,
+            loss_rel_err=rec["loss_vs_default"], tol=TRAIN_LOSS_RTOL)
+        if max(rec["loss_vs_default"].values()) > TRAIN_LOSS_RTOL:
+            raise RuntimeError(f"the {key} form's loss parts from the default form's: "
+                               f"{rec['loss_vs_default']}")
+        recs[key] = rec
+    recs["bf16"] = _training("dccrnet_training_bf16", f"{name}, bf16 compute and taps",
+                             BF16_DISTILL, KERNEL_TRAIN_STEPS, lstm, rounding_floor=True,
+                             own_floor=True, models=dccrnet_models(BF16),
+                             teacher_variables=teacher_vars,
+                             beside=_beside("dccrnet_training (float32)", recs["default"]))
+    cli = dccrnet_cli_checks(teacher_pth, str(Path(directory) / "dccrnet_cli"), "cuda")
+    say("dccrnet_cli", **cli)
+    if cli["failures"]:
+        raise RuntimeError(f"the DCCRNet training CLI checks failed: {cli['failures']}")
+    recs["cli"] = cli
+    return recs
 
 
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
+
+    import tempfile
 
     import speech_enhancement_clskd_tpu_torch  # noqa: F401  (fails outside a checkout)
 
@@ -3354,9 +3615,14 @@ def main() -> None:
     bf16_kernels_k5_k2 = phase_bf16_block_kernels_vs_plain()
     bf16_block = phase_training_bf16_block(bf16["batch32"], block_training)
     evaluation = phase_evaluation()
-    asteroid = phase_asteroid()
+    with tempfile.TemporaryDirectory() as directory:
+        asteroid = phase_asteroid(directory)
+        dccrnet = phase_dccrnet_training(asteroid["teacher_pth"], directory, training)
     bf16_paths = {f"training_bf16_{k}": bf16[k] for k in ("batch32", "batch64", "kernels")}
     bf16_paths.update({f"training_bf16_block_{k}": r for k, r in bf16_block.items()})
+    # phase 24's steps, each kernel's launches by form
+    dccrnet_paths = {f"dccrnet_training_{k}": dccrnet[k]
+                     for k in ("default", "kernels", "block", "bf16")}
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
     conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
@@ -3365,6 +3631,7 @@ def main() -> None:
                + block_training["launches"][name] + spkd_training["launches"][name]
                + reviewkd_training["launches"][name] + option_training["launches"][name]
                + sum(r["launches"][name] for r in bf16_paths.values())
+               + sum(r["launches"][name] for r in dccrnet_paths.values())
                for name in training["launches"]}
     src = "speech_enhancement_clskd_tpu_torch/kernels/csrc/"
     pallas = "speech_enhancement_clskd_tpu/ops/pallas/"
@@ -3375,7 +3642,7 @@ def main() -> None:
         "replaces": pallas + "lstm.py:36",
         "launches": (serving_launches + bf16_teacher["lstm_launches"] + trained["lstm_seq_fwd"]
                      + sum(r["lstm_launches"] for r in evaluation.values())
-                     + asteroid["lstm_launches"]),
+                     + asteroid["lstm_launches"] + dccrnet["cli"]["lstm_launches"]),
         "max_abs_err": max(r["max_abs_err_y"] for r in fwd_shapes),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -3398,14 +3665,17 @@ def main() -> None:
                              "asteroid_streaming": asteroid["streaming"]["lstm_launches"],
                              "asteroid_cli": asteroid["cli"]["lstm_launches"],
                              **{k: r["launches"]["lstm_seq_fwd"]
-                                for k, r in bf16_paths.items()}},
+                                for k, r in bf16_paths.items()},
+                             **{k: r["launches"]["lstm_seq_fwd"]
+                                for k, r in dccrnet_paths.items()},
+                             "dccrnet_cli": dccrnet["cli"]["lstm_launches"]},
         "per_shape": fwd_shapes,
     }, {
         "name": "lstm_seq_bwd",
         "route": "cuda",
         "source": src + "lstm_seq_bwd.cu",
         "replaces": pallas + "lstm.py:60",
-        "launches": trained["lstm_seq_bwd"],
+        "launches": trained["lstm_seq_bwd"] + dccrnet["cli"]["lstm_bwd_launches"],
         "max_abs_err": max(max(r["max_abs_err_dxw"], r["max_rel_err_dw_hh"])
                            for r in bwd_shapes),
         "ms": bwd["ms"],
@@ -3422,7 +3692,10 @@ def main() -> None:
                              "training_reviewkd": reviewkd_training["launches"]["lstm_seq_bwd"],
                              "training_options": option_training["launches"]["lstm_seq_bwd"],
                              **{k: r["launches"]["lstm_seq_bwd"]
-                                for k, r in bf16_paths.items()}},
+                                for k, r in bf16_paths.items()},
+                             **{k: r["launches"]["lstm_seq_bwd"]
+                                for k, r in dccrnet_paths.items()},
+                             "dccrnet_cli": dccrnet["cli"]["lstm_bwd_launches"]},
         "per_shape": bwd_shapes,
     }]
     conv_shape = dict(zip(("B", "D", "T", "C", "O"), CONV_REF))
@@ -3441,7 +3714,10 @@ def main() -> None:
             "route": "cuda",
             "source": src + source,
             "replaces": pallas + line,
-            "launches": kernel_training["launches"][name],
+            "launches": (kernel_training["launches"][name]
+                         + dccrnet["kernels"]["launches"][name]),
+            "launches_by_path": {"training_kernels": kernel_training["launches"][name],
+                                 "dccrnet_training_kernels": dccrnet["kernels"]["launches"][name]},
             "max_abs_err": max(r[err] for r in cases if err in r),
             "ms": shape[f"{key}_ms"],
             "plain_ms": shape[f"{key}_plain_ms"],
@@ -3462,9 +3738,11 @@ def main() -> None:
             "route": "cuda",
             "source": src + source,
             "replaces": pallas + line,
-            "launches": block_training["launches"][name] + option_training["launches"][name],
+            "launches": (block_training["launches"][name] + option_training["launches"][name]
+                         + dccrnet["block"]["launches"][name]),
             "launches_by_path": {"training_block": block_training["launches"][name],
-                                 "training_options": option_training["launches"][name]},
+                                 "training_options": option_training["launches"][name],
+                                 "dccrnet_training_block": dccrnet["block"]["launches"][name]},
             "max_abs_err": max(r[err] for r in block_shapes),
             "ms": block[f"{key}_ms"],
             "plain_ms": block[f"{key}_plain_ms"],

@@ -83,7 +83,9 @@ def _nearest_axis(x: torch.Tensor, axis: int, n_out: int) -> torch.Tensor:
     """Torch-exact nearest resize along one axis: out[i] = in[floor(i*n_in/n_out)]
     (``F.interpolate`` mode='nearest').  An integer upscale is a repeat, a
     downscale by one element a crop (floor(i*(n+1)/n) == i for i < n); other
-    sizes gather."""
+    sizes gather, among them the DCCRNet family's residuals, one frame
+    shorter than the next tap (index 0 twice, so its gradient row is the sum
+    of the first two)."""
     n_in = x.shape[axis]
     if n_in == n_out:
         return x

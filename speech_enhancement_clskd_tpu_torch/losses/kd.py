@@ -240,9 +240,18 @@ def hcl(fstudent: Sequence[torch.Tensor], fteacher: Sequence[torch.Tensor]) -> t
     the MSE, plus the MSEs of both maps pooled to 4x4, 2x2 and 1x1 (torch's
     adaptive average pool over the last two axes, ``_pool_levels``) with
     weights 1/2, 1/4, 1/8, a level skipped where it is not below the map's
-    height (``shape[-2]``), all over the summed weights; in float32."""
+    height (``shape[-2]``), all over the summed weights; in float32.
+
+    Each pair must have one shape: a pair of unequal shapes raises, naming
+    them, where the JAX loss fails to broadcast (the DCCRNet family's fused
+    decoder maps against its teacher's taps), and never broadcasts."""
     total = 0.0
-    for fs, ft in zip(fstudent, fteacher):
+    for i, (fs, ft) in enumerate(zip(fstudent, fteacher)):
+        if fs.shape != ft.shape:
+            raise ValueError(
+                f"HCL pair {i}: the fused map {tuple(fs.shape)} and the teacher's map "
+                f"{tuple(ft.shape)} differ in shape ({fs.shape[1]} against {ft.shape[1]} "
+                "channels in the NCHW layout); HCL subtracts maps of one shape")
         fs, ft = fs.float(), ft.float()
         loss = torch.mean((fs - ft) ** 2)
         cnt, tot = 1.0, 1.0

@@ -224,6 +224,18 @@ class DCCRN(nn.Module):
         return DCCRNOutput(out_wav, mask_real, mask_imag, est_real, est_imag, taps)
 
 
+def build_model(cfg: DCCRNConfig) -> nn.Module:
+    """The module of ``cfg.family`` on the CPU, its parameters not drawn
+    yet (``reset_parameters``): ``DCCRN``, or the asteroid
+    ``models.dccrnet.DCCRNet`` for ``family="dccrnet"`` (the JAX
+    ``make_model``'s dispatch)."""
+    if cfg.family == "dccrnet":
+        from .dccrnet import DCCRNet
+
+        return DCCRNet(cfg)
+    return DCCRN(cfg)
+
+
 def make_model(cfg: DCCRNConfig, device: Union[str, torch.device] = "cuda",
                seed: int = 0) -> nn.Module:
     """A serving model on ``device`` with seeded random weights: ``DCCRN``,
@@ -236,11 +248,6 @@ def make_model(cfg: DCCRNConfig, device: Union[str, torch.device] = "cuda",
     ``device="cuda"`` with no GPU raises.
     """
     dev = resolve_device(device)
-    if cfg.family == "dccrnet":
-        from .dccrnet import DCCRNet
-
-        model = DCCRNet(cfg)
-    else:
-        model = DCCRN(cfg)
+    model = build_model(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.requires_grad_(False).eval().to(dev)

@@ -21,8 +21,22 @@ unchanged (``load_reference_bundle``).
 
 Feature taps follow the JAX module: the 6 encoder outputs, the decoders'
 ``[rnn_out] + 5`` (the reference hooks its Identity decoder too), and the
-second LSTM layer's output.  State-dict keys follow the flax tree
-(``utils.bridge``; ``out_conv`` is a transposed conv).
+second LSTM layer's output.  So the decoder taps' channels are ``(kn[-1],
+kn[n-2], ..., kn[0])`` (``tap_channels``), not DCCRN's.  State-dict keys
+follow the flax tree (``utils.bridge``; ``out_conv`` is a transposed conv).
+
+``forward(wav)`` serves (BN on running statistics);
+``forward(wav, training=True)`` trains, as ``models.dccrn.DCCRN`` does: BN
+on batch statistics with the running statistics moved, the LSTM backward
+kernel under autograd, gradients through the filterbank's synthesis and
+the mask's ``safe_magnitude`` (finite at an exact complex zero).
+
+``cfg.compute_dtype="bfloat16"`` casts where the JAX module casts: the
+packed spectrum after the float32 STFT goes to bf16, the convs, BN
+(statistics in float32), PReLU, the LSTM layers (their recurrence in
+float32) and the dense layer compute in bf16 with float32 parameters, so
+every tap is bf16; the output conv's mask goes back to float32, and the
+mask, the iSTFT and the waveform are float32.
 
 ``params_from_asteroid_state_dict`` maps an asteroid state_dict onto the
 flax-layout tree (numpy), which ``utils.bridge.torch_state_from_flax`` turns
@@ -90,6 +104,13 @@ def asteroid_istft(spec: torch.Tensor, fb: torch.Tensor, length: int,
     return F.pad(wav, (0, length - out_len))
 
 
+def tap_channels(cfg: DCCRNConfig):
+    """The channel counts of a DCCRNet's encoder and decoder taps, in tap
+    order: ``kn`` and ``(kn[-1], kn[n-2], ..., kn[0])``."""
+    kn = tuple(cfg.kernel_num)
+    return kn, (kn[-1],) + kn[-2::-1]
+
+
 class DCCRNet(nn.Module):
     """DCCRNet/DCCRNet_mini.  ``cfg.kernel_num``/``rnn_units`` count the
     packed (re+im) width, half per part: the ``DCCRN-CL-test`` student is
@@ -99,10 +120,9 @@ class DCCRNet(nn.Module):
         super().__init__()
         if cfg.family != "dccrnet":
             raise ValueError(f"DCCRNet is family 'dccrnet', not {cfg.family!r}")
-        if cfg.compute_dtype != "float32":
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r}: the port's DCCRNet computes in "
-                "float32 (its bf16 form comes with DCCRNet training)")
+                f"compute_dtype {cfg.compute_dtype!r}: the port computes in float32 or bfloat16")
         self.cfg = cfg
         s = cfg.stft
         self.register_buffer(
@@ -152,10 +172,12 @@ class DCCRNet(nn.Module):
         training: bool = False,
         bn_batch_stats: Optional[bool] = None,
     ) -> DCCRNOutput:
-        """``bn_batch_stats=True`` normalizes with per-utterance batch
-        statistics and leaves the running ones alone (the reference's eval,
-        which never calls ``model.eval()``).  ``training=True`` needs
-        ``.train()``, as ``DCCRN.forward``."""
+        """``training=True`` normalizes with batch statistics and moves the
+        running ones.  ``bn_batch_stats=True`` normalizes with per-utterance
+        batch statistics and leaves the running ones alone (the reference's
+        eval, which never calls ``model.eval()``, and the frozen teacher of
+        a training step).  ``training=True`` needs ``.train()``, as
+        ``DCCRN.forward``."""
         if training and not self.training:
             raise RuntimeError(
                 "training=True on a model in eval mode (make_model builds a serving "
@@ -169,8 +191,8 @@ class DCCRNet(nn.Module):
 
         spec = asteroid_stft(wav, self.filterbank, s.hop)
         re, im = spec[:, :Fq], spec[:, Fq:]  # [B, 257, T]
-        # drop Nyquist, packed channels-last [B, D=256, T, 2]
-        x = torch.stack([re[:, :-1], im[:, :-1]], dim=-1)
+        # drop Nyquist, packed channels-last [B, D=256, T, 2], in the compute dtype
+        x = torch.stack([re[:, :-1], im[:, :-1]], dim=-1).to(getattr(torch, cfg.compute_dtype))
 
         enc_taps: List[torch.Tensor] = []
         for i in range(n):

@@ -1,7 +1,11 @@
 """The distillation trainer's optimizer step.
 
 Port of ``speech_enhancement_clskd_tpu/train/trainer.py``, the step of all
-five strategies in float32.  One ``train_step`` runs
+five strategies.  Both models come from ``models.dccrn.build_model``, the
+module of each config's ``family`` (DCCRN, or the asteroid DCCRNet), as the
+JAX ``make_model`` dispatches; the ABF chains take the student's real tap
+widths in (``tap_channels``) and the JAX trainer's family-blind widths out
+(``_teacher_tap_channels`` of the teacher).  One ``train_step`` runs
 
 1. the frozen teacher forward under ``torch.no_grad()``, BN on batch
    statistics with its running statistics left as they are (the JAX step
@@ -95,7 +99,8 @@ from ..distill.strategies import (
 from ..losses.pit import pit_reorder
 from ..losses.signal import si_sdr
 from ..metrics.stoi import stoi_batch
-from ..models.dccrn import DCCRN, FeatureTaps
+from ..models import dccrnet
+from ..models.dccrn import FeatureTaps, build_model
 from ..utils.bridge import torch_state_from_flax
 from ..utils.device import float32_math, resolve_device
 
@@ -111,11 +116,26 @@ def log_keys(strategy: str, abf_reinit_each_step: bool = False) -> Tuple[str, ..
 
 
 def _teacher_tap_channels(cfg: DCCRNConfig) -> Tuple[tuple, tuple]:
-    """Channel counts of a model's encoder and decoder taps, in tap order."""
+    """Channel counts of a DCCRN's encoder and decoder taps, in tap order,
+    whatever ``cfg.family`` says: the ABF chains' output widths, as the JAX
+    trainer gives them (``train/trainer.py:69-73, 88-100``).  For a DCCRNet
+    teacher they are not its taps' widths (``tap_channels``): its decoder
+    chain's outputs are ``(kn[n-1], ..., kn[0], 2)`` against taps of
+    ``(kn[-1], kn[n-2], ..., kn[0])`` channels, which SPKD's batch Grams
+    take and HCL refuses."""
     ch = (2,) + tuple(cfg.kernel_num)
     enc = tuple(cfg.kernel_num)
     dec = tuple(ch[j] for j in range(len(cfg.kernel_num) - 1, -1, -1))
     return enc, dec
+
+
+def tap_channels(cfg: DCCRNConfig) -> Tuple[tuple, tuple]:
+    """Channel counts of the encoder and decoder taps that the model of
+    ``cfg.family`` gives, in tap order: the ABF chains' input widths (the
+    JAX chains infer them from the student's taps)."""
+    if cfg.family == "dccrnet":
+        return dccrnet.tap_channels(cfg)
+    return _teacher_tap_channels(cfg)
 
 
 def _check_supported(cfg: TrainConfig) -> None:
@@ -189,13 +209,13 @@ class Trainer:
         self.strategy = cfg.distill.strategy
         self.use_fusion = needs_fusion(self.strategy)
         self.reinit_abf = self.use_fusion and cfg.distill.abf_reinit_each_step
-        self.student = DCCRN(cfg.student)
-        self.teacher = DCCRN(cfg.teacher)
+        self.student = build_model(cfg.student)
+        self.teacher = build_model(cfg.teacher)
         self.abf_enc: Optional[ReviewKD] = None
         self.abf_dec: Optional[ReviewKD] = None
         if self.use_fusion:
             t_enc, t_dec = _teacher_tap_channels(cfg.teacher)
-            s_enc, s_dec = _teacher_tap_channels(cfg.student)
+            s_enc, s_dec = tap_channels(cfg.student)
             d = cfg.distill
             kernels = dict(conv_pallas=d.abf_conv_pallas, attfuse_pallas=d.abf_attfuse_pallas,
                            block_pallas=d.abf_block_pallas, conv_ninedot=d.abf_conv_ninedot,

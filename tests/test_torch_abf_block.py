@@ -26,6 +26,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.abf_block import (
     abf_block_fwd,
     abf_block_reference,
 )
+from torch_oracle import one_cpu_thread
 
 # forward and gradients, as tests/test_pallas_abf_block.py holds them
 FWD_TOL = 2e-5

@@ -22,6 +22,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
     attention_fuse_fwd,
 )
 from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import conv3x3_fwd, conv3x3_wgrad
+from torch_oracle import one_cpu_thread
 
 TOL = 1e-5
 # the student/teacher tap geometry of tests/test_torch_train_layers.py

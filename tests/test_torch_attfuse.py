@@ -21,6 +21,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.attfuse import (
     attention_fuse_fwd,
     attfuse_dispatchable,
 )
+from torch_oracle import one_cpu_thread
 
 # the four shapes of tests/test_pallas_attfuse.py, (B, D, Dp, T, C), k = D/Dp
 # of 2, 1, 4 and 2

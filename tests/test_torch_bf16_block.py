@@ -42,6 +42,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.gram import gram_pair, gram_pair
 from speech_enhancement_clskd_tpu_torch.losses.kd import spkd_loss
 
 from test_torch_abf_block import CASES, GRAD_NAMES, _inputs
+from torch_oracle import one_cpu_thread
 
 # float32 outputs against interpret mode, relative L2 (measured <= 2.9e-7 for
 # K5b's parameter gradients, <= 7.7e-7 for K2's Grams)

@@ -11,6 +11,7 @@ import torch
 from speech_enhancement_clskd_tpu.ops import complex_layers as jl
 from speech_enhancement_clskd_tpu_torch.ops import complex_layers as pl
 from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
+from torch_oracle import one_cpu_thread
 
 # float32 convs summing 5*2*2C products: the sums run in another order
 ATOL, RTOL = 1e-5, 1e-5

@@ -20,6 +20,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import (
     conv3x3_wgrad,
     conv3x3_wgrad_reference,
 )
+from torch_oracle import one_cpu_thread
 
 # the five shapes of tests/test_pallas_conv3x3.py: (B, D, T, C, O)
 SHAPES = [

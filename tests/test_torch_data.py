@@ -16,6 +16,7 @@ from speech_enhancement_clskd_tpu.data import loader as jax_loader
 from speech_enhancement_clskd_tpu.data import npy_dataset as jax_npy
 from speech_enhancement_clskd_tpu.data import wav as jax_wav
 from speech_enhancement_clskd_tpu_torch.data import dns, librimix, loader, npy_dataset, wav
+from torch_oracle import one_cpu_thread
 
 SR = 16000
 

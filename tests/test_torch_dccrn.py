@@ -18,6 +18,7 @@ from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhanceme
 from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
 from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
 from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
+from torch_oracle import one_cpu_thread
 
 BUNDLE = str(Path(__file__).resolve().parents[1] / "artifacts/r4_distill/the_best_model.npz")
 

@@ -46,7 +46,7 @@ from speech_enhancement_clskd_tpu_torch.utils.bridge import (
 )
 from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
 from speech_enhancement_clskd_tpu_torch.utils.torch_zip import load_torch_checkpoint
-from torch_oracle import jitted_jax_stoi, once_per_session
+from torch_oracle import jitted_jax_stoi, once_per_session, one_cpu_thread
 
 ROOT = Path(__file__).resolve().parents[1]
 # float32 on both sides, sums in another order: measured worst 2.4e-7 on
@@ -55,16 +55,6 @@ ROOT = Path(__file__).resolve().parents[1]
 ATOL = RTOL = 1e-5
 TINY = dict(name="tiny", family="dccrnet", kernel_num=(4, 8, 8), rnn_units=16)
 STUDENT = "DCCRN-CL-test"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port on one CPU thread (the suite runs several workers at once),
-    the caller's count given back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _smoke():

@@ -37,7 +37,7 @@ from speech_enhancement_clskd_tpu_torch.metrics.stoi import stoi_batch
 from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
 from speech_enhancement_clskd_tpu_torch.utils.bridge import flax_from_torch_state
 from speech_enhancement_clskd_tpu_torch.utils.serialization import save_bundle
-from torch_oracle import jitted_jax_stoi, once_per_session
+from torch_oracle import jitted_jax_stoi, once_per_session, one_cpu_thread
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(name="tiny", kernel_num=(4, 8, 8), rnn_units=16)
@@ -52,16 +52,6 @@ WAV_ATOL = 1.0 / 32768 + 1e-9
 # the JAX harness compiles its forward once a bucket and mode)
 BUCKET_S = 0.5
 LENGTHS = (9600 + 37, 12000 + 401, 14400 + 503)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port on one CPU thread (the suite runs several workers at once),
-    the caller's count given back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _pair(n, seed, noise=0.3):

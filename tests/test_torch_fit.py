@@ -48,6 +48,7 @@ from speech_enhancement_clskd_tpu_torch.utils.bridge import (
     train_state_arrays,
 )
 from speech_enhancement_clskd_tpu_torch.utils.observability import MetricWriter
+from torch_oracle import one_cpu_thread
 
 TINY_T = dict(name="tiny-teacher", kernel_num=(8, 16, 32), rnn_units=32)
 TINY_S = dict(name="tiny-student", kernel_num=(4, 8, 8), rnn_units=16)
@@ -94,16 +95,6 @@ def _jax_state(jt, trainer):
     trainable = jt._trainable_of(a["student_params"], a["abf_enc_params"], a["abf_dec_params"])
     return TrainState(step=jnp.zeros((), jnp.int32), opt_state=jt.tx.init(trainable),
                       rng=jax.random.PRNGKey(0), **a)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port on one CPU thread (the suite runs several workers at once),
-    the caller's count given back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _quiet(*_):

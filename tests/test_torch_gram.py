@@ -21,6 +21,7 @@ from speech_enhancement_clskd_tpu.losses import kd as jkd
 from speech_enhancement_clskd_tpu.ops.pallas import gram as jgram
 from speech_enhancement_clskd_tpu_torch.kernels import gram
 from speech_enhancement_clskd_tpu_torch.losses import kd as pkd
+from torch_oracle import one_cpu_thread
 
 GRAM_RTOL = 1e-5  # of the largest |G| element
 LOSS_RTOL = 1e-5

@@ -20,6 +20,7 @@ from speech_enhancement_clskd_tpu.losses import kd as jax_kd
 from speech_enhancement_clskd_tpu.ops.pallas.conv3x3 import _conv3x3_ninedot
 from speech_enhancement_clskd_tpu_torch.distill.abf import _conv3x3_ninedot as ninedot
 from speech_enhancement_clskd_tpu_torch.losses import kd
+from torch_oracle import one_cpu_thread
 
 FWD_RTOL = 1e-5
 GRAD_REL_L2 = 1e-4

@@ -16,6 +16,7 @@ from speech_enhancement_clskd_tpu_torch.kernels.lstm import lstm_seq, lstm_seq_r
 from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
 from speech_enhancement_clskd_tpu_torch.ops.complex_lstm import LSTM, NaiveComplexLSTM
 from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
+from torch_oracle import one_cpu_thread
 
 # the forward tolerance of tests/test_pallas_lstm.py
 ATOL, RTOL = 1e-5, 1e-4

@@ -26,6 +26,7 @@ from speech_enhancement_clskd_tpu_torch.utils.bridge import (
     flax_from_torch_state,
     torch_state_from_flax,
 )
+from torch_oracle import one_cpu_thread
 
 # float32 on both sides, sums in another order through T reverse steps
 ATOL, RTOL = 1e-5, 1e-4

@@ -16,6 +16,7 @@ from speech_enhancement_clskd_tpu.losses import signal as jax_signal
 from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
 from speech_enhancement_clskd_tpu_torch.losses import pit, signal
 from speech_enhancement_clskd_tpu_torch.metrics import stoi
+from torch_oracle import one_cpu_thread
 
 # the module: the JAX package's ``metrics`` exports a function of that name
 jax_stoi = importlib.import_module("speech_enhancement_clskd_tpu.metrics.stoi")

@@ -8,6 +8,7 @@ import torch
 
 from speech_enhancement_clskd_tpu.ops import stft as jax_stft
 from speech_enhancement_clskd_tpu_torch.ops import stft as port_stft
+from torch_oracle import one_cpu_thread
 
 # float32 matmuls over 400-sample frames: a few ulp of the spectrum's scale
 ATOL = 2e-5

@@ -55,7 +55,7 @@ from speech_enhancement_clskd_tpu.config import (
     TrainConfig as JaxTrainConfig,
 )
 from speech_enhancement_clskd_tpu.train import Trainer as JaxTrainer
-from torch_oracle import each_once_per_session
+from torch_oracle import each_once_per_session, once_per_session, one_cpu_thread
 from speech_enhancement_clskd_tpu_torch.config import (
     DataConfig,
     DCCRNConfig,
@@ -108,28 +108,27 @@ def _batch():
     return clean + (0.05 * rng.standard_normal((4, 8000))).astype(np.float32), clean
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's steps on one CPU thread, as in tests/test_torch_trainer.py:
-    the suite runs several workers at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+def _jax_trainer(strategy):
+    return JaxTrainer(JaxTrainConfig(
+        teacher=JaxDCCRNConfig(**TINY_T), student=JaxDCCRNConfig(**TINY_S),
+        data=JaxDataConfig(**DATA), distill=JaxDistillConfig(strategy=strategy),
+        mesh=MeshConfig(data=1, model=1), max_epochs=1, log_every=1000))
 
 
-def _jax_run(strategy):
-    """The JAX state before one ``strategy`` step, and the step's logs,
-    gradients and state after it (one JAX compile)."""
+def _jax_start():
+    """The JAX trainer's initial state, the same for the three strategies
+    (the same models, optimizer and seed, and no ABF chains): one
+    ``init_state`` for all."""
+    return jax.tree.map(np.array, _jax_trainer("spkd").init_state(jax.random.PRNGKey(0)))
+
+
+def _jax_run(strategy, start):
+    """The JAX state before one ``strategy`` step (``start``), and the
+    step's logs, gradients and state after it (one JAX compile)."""
     mix, clean = _batch()
-    cfg = JaxTrainConfig(teacher=JaxDCCRNConfig(**TINY_T), student=JaxDCCRNConfig(**TINY_S),
-                         data=JaxDataConfig(**DATA),
-                         distill=JaxDistillConfig(strategy=strategy),
-                         mesh=MeshConfig(data=1, model=1), max_epochs=1, log_every=1000)
-    jt = JaxTrainer(cfg)
-    state = jt.init_state(jax.random.PRNGKey(0))
-    start = jax.tree.map(np.array, state)
-    state, logs = jt.train_step(state, jnp.asarray(mix), jnp.asarray(clean))
+    jt = _jax_trainer(strategy)
+    state, logs = jt.train_step(jax.tree.map(jnp.asarray, start), jnp.asarray(mix),
+                                jnp.asarray(clean))
     assert state.abf_enc_params is None and start.abf_enc_params is None
     return dict(
         start=start, logs={k: float(v) for k, v in logs.items()},
@@ -144,8 +143,10 @@ def runs(tmp_path_factory):
     (each strategy's computed once per test session, side by side across
     workers: ``torch_oracle.each_once_per_session``), and the port's after
     the same step from the same start."""
+    start = once_per_session(tmp_path_factory, "test_torch_strategies.jax_start", _jax_start)
     jax_runs = each_once_per_session(tmp_path_factory, "test_torch_strategies.jax_run",
-                                     sorted({s for s, _ in CASES.values()}), _jax_run)
+                                     sorted({s for s, _ in CASES.values()}),
+                                     lambda strategy: _jax_run(strategy, start))
     mix, clean = _batch()
     out = {}
     for case, (strategy, fused) in CASES.items():

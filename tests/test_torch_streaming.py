@@ -11,6 +11,7 @@ from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhanceme
 from speech_enhancement_clskd_tpu_torch.eval.streaming import StreamingEnhancer
 from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
 from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
+from torch_oracle import one_cpu_thread
 
 BUNDLE = str(Path(__file__).resolve().parents[1] / "artifacts/r4_distill/the_best_model.npz")
 # f32 both sides; the offline forward on this bundle agrees to 2e-7

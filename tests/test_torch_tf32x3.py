@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from speech_enhancement_clskd_tpu_torch.kernels.conv3x3 import _shifted, conv3x3_reference
+from torch_oracle import one_cpu_thread
 
 KERNEL_ATOL = 1e-4  # chip_smoke.py: K3f (max abs) and K3w (relative L2) against plain
 

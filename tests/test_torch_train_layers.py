@@ -30,6 +30,7 @@ from speech_enhancement_clskd_tpu_torch.utils.bridge import (
     flax_from_torch_state,
     torch_state_from_flax,
 )
+from torch_oracle import one_cpu_thread
 
 # BatchNorm: float32 moments over a few hundred elements
 BN_ATOL, BN_RTOL = 1e-6, 1e-6

@@ -24,6 +24,29 @@ import os
 import pickle
 from typing import Any, Callable, Dict, Iterator, Sequence
 
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """The importing module's tests on one CPU thread: torch's intra-op
+    pool, and numpy's BLAS and any OpenMP pool (``threadpoolctl``), the
+    caller's counts given back after.  The suite runs several workers at
+    once, and a pool of one thread per core in each of them oversubscribes
+    the cores: beside eight busy processes a test that builds two models
+    (numpy's ``pinv`` of the STFT basis on eight BLAS threads) took 17.6 s
+    against 0.2 s alone.  One thread also makes the port's float32 sums, and
+    so the errors the tests quote, independent of the machine's core count.
+    Import it into a test module to use it."""
+    import torch
+    from threadpoolctl import threadpool_limits
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(limits=1):
+        yield
+    torch.set_num_threads(threads)
+
 
 def once_per_session(tmp_path_factory, key: str, compute: Callable[[], Any]) -> Any:
     """``compute()``, computed once per test session across xdist workers
