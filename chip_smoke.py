@@ -17,10 +17,12 @@ card, then drives both paths through their entry points:
    (``cuobjdump -sass``, or the PTX where the toolkit has no cuobjdump);
 3. forward kernel vs plain: ``lstm_seq`` against ``lstm_seq_reference`` at
    the shapes the serving, training and evaluation paths give it (among
-   them offline evaluation's N = 2 on a 10 s utterance, T = 1603, and the
-   asteroid DCCRNet family's T = 471 at N = 64, H = 128 and 32), each with
-   the plan K1f takes, with times, the bound and a one-call PyTorch
-   yardstick (``torch.nn.LSTM``, cuDNN; never used by the port);
+   them offline evaluation's N = 2 on a 10 s utterance, T = 1603, the
+   asteroid DCCRNet family's T = 471 at N = 64, H = 128 and 32, and phase
+   25's real-LSTM bottleneck at N = 32, H = 256), each with the plan K1f
+   takes, two runs giving the same bits, with times, the bound and a
+   one-call PyTorch yardstick (``torch.nn.LSTM``, cuDNN; never used by the
+   port);
 4. serving, student: ``StreamingEnhancer`` on the trained r4 bundle answers
    four requests; per-chunk latency, real-time factor, launch count, and
    agreement with the same engine on the CPU;
@@ -29,9 +31,11 @@ card, then drives both paths through their entry points:
    CPU on one utterance;
 6. backward kernel vs plain: ``lstm_seq_bwd`` against
    ``lstm_seq_bwd_reference`` at the training step's shape and others (the
-   DCCRNet student's of phase 24 among them: T = 471, N = 64, H = 32), each
-   with the plan K1b takes; two runs must give the same bits; times, the
-   bound and the backward of cuDNN's ``torch.nn.LSTM`` as the yardstick;
+   DCCRNet student's of phase 24 among them: T = 471, N = 64, H = 32, and
+   the two that phase 25 trains: the teacher's complex LSTM, N = 64, H =
+   128, and its real-LSTM bottleneck, N = 32, H = 256), each with the plan
+   K1b takes; two runs must give the same bits; times, the bound and the
+   backward of cuDNN's ``torch.nn.LSTM`` as the yardstick;
 7. training at full width: ``Trainer(TrainConfig())`` (teacher ``dccrn-cl``,
    student ``dccrn-cl-test``, seeded) takes one warm-up and 10 timed CLSKD
    steps on 32 x 3 s synthetic batches; step time, audio-seconds per second,
@@ -192,7 +196,23 @@ card, then drives both paths through their entry points:
     (``dccrnet_cli_checks``): ``import-torch`` of the teacher's ``.pth``,
     ``distill --teacher-bundle`` with the dccrnet presets (an epoch of 2
     steps at 4 x 1 s), ``evaluate`` of the best bundle card against CPU
-    (phase 22's tolerances), and the bundle streaming a request.
+    (phase 22's tolerances), and the bundle streaming a request;
+25. pretraining the teacher (``PretrainTrainer``, ``TrainConfig()``'s
+    ``dccrn-cl`` at full width, ``SDR+PMSQE``, plain Adam): in float32 at
+    32 x 3 s (one warm-up and 5 timed steps; K1f 4, K1b 4 a step at N = 64,
+    H = 128) beside phase 7's step, with its card-vs-CPU step (4 x 1 s; the
+    gradients against a rounding floor, the largest move over three random
+    roundings of the input, each sample to a neighbouring float32, and a
+    tensor above the hold against twice its own floor); in bf16 compute,
+    held as phase 18 holds its step (its floor over three random one-bf16-
+    spacing roundings, a tensor above the cap against twice its own floor
+    as in phase 24); with complex BN and the
+    real-LSTM bottleneck (``use_cbn=True, use_clstm=False``: K1f 2, K1b 2 a
+    step at N = 32, H = 256) and its card-vs-CPU step; then the CLI chain
+    (``pretrain_cli_checks``): ``pretrain --model teacher`` (an epoch of 2
+    steps at 4 x 1 s), ``distill --teacher-bundle <out>/teacher_model.npz``
+    (an epoch), ``evaluate`` of the pretrained bundle card against CPU
+    (phase 22's tolerances).
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -235,6 +255,9 @@ SPKD_FRAMES = 5283
 # of a 3 s clip in the asteroid DCCRNet family (phase 23)
 EVAL_FRAMES = 1603
 DCCRNET_FRAMES = 471
+# (T, N, H) of the real-LSTM bottleneck (use_clstm=False) at the teacher's
+# width on 32 x 3 s: N = 32 rows (no real/imaginary stacking), H = rnn 256
+REAL_LSTM_SHAPE = (483, 32, 256)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 FLOP/s outside
 # the tensor cores.
@@ -303,6 +326,17 @@ DCCRNET_PRESETS = ("teacher.family=dccrnet", "teacher.name=dccrn-cl",
                    "student.name=dccrnet-cl-test", "student.stft.window=sqrthann")
 DCCRNET_CLI_OVERRIDES = ("data.synthetic=true", "data.synthetic_size=8", "data.segment=1.0",
                          "data.batch_size=4", "max_epochs=1", "keep_top_k=1")
+# phase 25: timed pretraining steps (float32, bf16; the complex-BN and
+# real-LSTM form), and the pretraining CLI's run: one epoch of 2 steps of
+# 4 x 1 s (validation 8 clips, two batches), the top-1 checkpoint
+PRETRAIN_STEPS, PRETRAIN_REAL_STEPS = 5, 3
+# its card-vs-CPU steps' rounding floors: the largest move of the CPU's
+# gradients over this many random roundings of the input.  In bf16 at
+# random init one rounding moved nearly every gradient by 0.15-0.2, and
+# one draw gave enc5_prelu.alpha a floor under half its card-vs-CPU error
+# of 0.214 (NVIDIA H100 80GB HBM3, 700 W)
+FLOOR_SEEDS = (7, 8, 9)
+PRETRAIN_CLI_OVERRIDES = DCCRNET_CLI_OVERRIDES
 
 
 # bf16 (phases 17-19): bench.py's headline form, teacher and student
@@ -526,13 +560,15 @@ def phase_kernel_vs_plain():
     # (T=5283) at batch 16 for both widths; offline evaluation of a 10 s
     # utterance at batch 1 (T=1603, phase 22); and the asteroid DCCRNet
     # family at 32 x 3 s (T=471: one frame less a layer of its 6 encoders,
-    # phase 23) for the teacher (H=128) and the student (H=32).
+    # phase 23) for the teacher (H=128) and the student (H=32); and the
+    # real-LSTM bottleneck of phase 25 (use_clstm=False) at the teacher's
+    # width, 32 x 3 s (N=32, H=256: 4H = MAX_GATES, the widest plan).
     shapes = [(483, 2, 32, False), (483, 64, 32, False), (483, 2, 128, False),
               (483, 64, 128, False), (118, 2, 32, False), (57, 3, 128, False),
               (20, 266, 32, False), (20, 201, 128, False), (118, 6, 32, True),
               (SPKD_FRAMES, 32, 32, False), (SPKD_FRAMES, 32, 128, False),
               (EVAL_FRAMES, 2, 32, False), (DCCRNET_FRAMES, 64, 128, False),
-              (DCCRNET_FRAMES, 64, 32, False)]
+              (DCCRNET_FRAMES, 64, 32, False), REAL_LSTM_SHAPE + (False,)]
     results = []
     for T, N, H, with_state in shapes:
         g = torch.Generator().manual_seed(1000 * H + N)
@@ -545,17 +581,20 @@ def phase_kernel_vs_plain():
             c0 = torch.randn(N, H, generator=g).to(dev)
         before = lstm_seq.launches
         y, c = lstm_seq(xw, w_hh, h0, c0)
-        if lstm_seq.launches != before + 1:
-            raise RuntimeError("lstm_seq did not count its launch")
+        again = lstm_seq(xw, w_hh, h0, c0)
+        if lstm_seq.launches != before + 2:
+            raise RuntimeError("lstm_seq did not count its launches")
         with float32_math():
             ry, rc = lstm_seq_reference(xw, w_hh, h0, c0)
         torch.cuda.synchronize()
         err_y = (y - ry).abs().max().item()
         err_c = (c - rc).abs().max().item() / max(1.0, rc.abs().max().item())
-        ok = err_y <= KERNEL_ATOL and err_c <= KERNEL_ATOL
+        repeat = bool(torch.equal(y, again[0]) and torch.equal(c, again[1]))
+        ok = err_y <= KERNEL_ATOL and err_c <= KERNEL_ATOL and repeat
+        del again
         rec = {"T": T, "N": N, "H": H, "initial_state": with_state,
                "plan": lstm_seq_fwd_plan(N, H), "max_abs_err_y": err_y,
-               "max_rel_err_c": err_c, "tol": KERNEL_ATOL}
+               "max_rel_err_c": err_c, "tol": KERNEL_ATOL, "bitwise_repeat": repeat}
         if not with_state:
             ms = _time_ms(lambda: lstm_seq(xw, w_hh), iters=20)
             plain_ms = _time_ms(lambda: lstm_seq_reference(xw, w_hh), iters=1 if T > 1000 else 3)
@@ -729,11 +768,13 @@ def phase_backward_vs_plain():
     # batch 32 -> N=64, H=32), batch 1, the teacher's width, ragged tiles of
     # 1, 2 and 4 rows, a call with an initial state, and the spkd step's
     # student LSTM on 33 s clips (T=5283) at batch 16 and at its card-vs-CPU
-    # batch 2, and the DCCRNet student's of phase 24 (T=471 at 3 s)
+    # batch 2, the DCCRNet student's of phase 24 (T=471 at 3 s), and the
+    # two LSTMs phase 25 trains: the teacher's complex LSTM (N=64, H=128,
+    # the pretraining path's) and its real-LSTM bottleneck (N=32, H=256)
     shapes = [(483, 64, 32, False), (483, 2, 32, False), (483, 64, 128, False),
               (20, 201, 128, False), (57, 3, 32, False), (118, 6, 32, True),
               (SPKD_FRAMES, 32, 32, False), (SPKD_FRAMES, 4, 32, False),
-              (DCCRNET_FRAMES, 64, 32, False)]
+              (DCCRNET_FRAMES, 64, 32, False), REAL_LSTM_SHAPE + (False,)]
     results = []
     for T, N, H, with_state in shapes:
         g = torch.Generator().manual_seed(2000 * H + N)
@@ -832,17 +873,17 @@ def _grad_errors(card, cpu, grad_norm):
     """Relative L2 error of every gradient tensor, card against CPU, by
     tensor name, and the worst of the exempt ones.  Two kinds are held
     otherwise (tests/test_torch_trainer.py says why): a conv bias in front of
-    a batch-statistics BN has a zero gradient in exact arithmetic (rounding
-    noise on both sides: held to ZERO_GRAD of the global norm), and an ABF
-    bn2 bias is a sum of cancelling terms (held against the same block's
-    bn2.scale gradient)."""
+    a batch-statistics BN (real or complex) has a zero gradient in exact
+    arithmetic (rounding noise on both sides: held to ZERO_GRAD of the
+    global norm), and an ABF bn2 bias is a sum of cancelling terms (held
+    against the same block's bn2.scale gradient)."""
     import re
 
     errors, exempt = {}, 0.0
     for name, want in cpu.items():
         got = card[name]
-        if re.fullmatch(r"student\.(enc|dec)\d+_conv\.b[ri]", name) and \
-                name.replace("_conv.br", "_bn.scale").replace("_conv.bi", "_bn.scale") in cpu:
+        m = re.fullmatch(r"(student|model)\.((enc|dec)\d+)_conv\.b[ri]", name)
+        if m and any(n.startswith(f"{m.group(1)}.{m.group(2)}_bn.") for n in cpu):
             exempt = max(exempt, got.abs().max().item() / grad_norm,
                          want.abs().max().item() / grad_norm)
             continue
@@ -893,24 +934,37 @@ def _counts(counters: dict) -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
 
 
+def seeded_trainer(cfg, device: str, seed: int, teacher_variables: dict = None,
+                   pretrain: bool = False):
+    """``Trainer(cfg)`` on ``device`` with seeded weights (the teacher's
+    ``teacher_variables`` where given), or with ``pretrain`` a
+    ``PretrainTrainer`` of ``cfg``'s teacher."""
+    if pretrain:
+        from speech_enhancement_clskd_tpu_torch.train.pretrain import PretrainTrainer
+
+        return PretrainTrainer(cfg, device=device).init_state(seed)
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
+
+    return Trainer(cfg, device=device).init_state(seed, teacher_variables=teacher_variables)
+
+
 def fitting_trainer(distill: dict, seconds: float, optim: dict = None,
                     batch: int = TEACHER_BATCH, models: dict = None,
-                    teacher_variables: dict = None):
+                    teacher_variables: dict = None, pretrain: bool = False):
     """A ``Trainer`` on the card at full width on clips of ``seconds``, after
     one warm-up step, at the largest batch from ``batch`` down, halving,
     that fits: ``(trainer, batch, cut, mix, clean)``, ``cut`` listing each
     halving.  ``models``: the teacher and student configs (``bf16_models``),
     the defaults' otherwise; ``teacher_variables``: the teacher's weights
-    (a flax-layout tree), seeded ones otherwise."""
+    (a flax-layout tree), seeded ones otherwise; ``pretrain``: a
+    ``PretrainTrainer`` of the teacher in its place."""
     import torch
-
-    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
 
     cut = []
     while True:
         mix, clean = train_batch(batch, seconds)
-        trainer = Trainer(train_config(batch, seconds, distill, optim, **(models or {})),
-                          device="cuda").init_state(0, teacher_variables=teacher_variables)
+        trainer = seeded_trainer(train_config(batch, seconds, distill, optim, **(models or {})),
+                                 "cuda", 0, teacher_variables, pretrain)
         try:
             trainer.train_step(mix, clean)  # warm-up
             torch.cuda.synchronize()
@@ -930,11 +984,12 @@ def _training(phase: str, config: str, distill: dict, steps: int, expected: dict
               check_seconds: float = CHECK_SECONDS, rounding_floor: bool = False,
               optim: dict = None, check=None, beside: dict = None,
               batch: int = TEACHER_BATCH, models: dict = None,
-              teacher_variables: dict = None, own_floor: bool = False) -> dict:
+              teacher_variables: dict = None, own_floor: bool = False,
+              pretrain: bool = False, floor_seeds: tuple = ()) -> dict:
     """One warm-up and ``steps`` timed steps at full width on ``batch`` clips
-    of ``seconds`` (batch halved while it does not fit; ``models`` and
-    ``teacher_variables`` as ``fitting_trainer`` takes them), launches per
-    step held to ``expected``
+    of ``seconds`` (batch halved while it does not fit; ``models``,
+    ``teacher_variables`` and ``pretrain`` as ``fitting_trainer`` takes
+    them), launches per step held to ``expected``
     (every other kernel: none), then the card-vs-CPU step on ``check_batch``
     clips of ``check_seconds`` (``card_vs_cpu_checks``; ``rounding_floor``:
     its gradients held against their rounding floor; ``own_floor`` as
@@ -946,7 +1001,7 @@ def _training(phase: str, config: str, distill: dict, steps: int, expected: dict
 
     counters = _kernel_counters()
     trainer, batch, cut, mix, clean = fitting_trainer(distill, seconds, optim, batch, models,
-                                                      teacher_variables)
+                                                      teacher_variables, pretrain)
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
     _zero_counts(counters)
@@ -974,8 +1029,8 @@ def _training(phase: str, config: str, distill: dict, steps: int, expected: dict
 
     if check is None:
         cfg = train_config(check_batch, check_seconds, distill, optim, **(models or {}))
-        rec["card_vs_cpu"] = card_vs_cpu_checks(cfg, "cuda", rounding_floor,
-                                                teacher_variables, own_floor)
+        rec["card_vs_cpu"] = card_vs_cpu_checks(cfg, "cuda", rounding_floor, teacher_variables,
+                                                own_floor, pretrain, floor_seeds)
     else:
         rec["card_vs_cpu"] = check()
     say(phase, **rec)
@@ -1824,11 +1879,26 @@ def _mirror(dst, src) -> None:
     dst.step, dst.epoch = src.step, src.epoch
 
 
+def neighbour_rounding(mix, seed: int, bf16: bool = False):
+    """``mix`` rounded once more in a way the model sees: each sample moved
+    up or down at random (by ``seed``) to a float32 neighbour, or under
+    bf16 compute by one bf16 spacing (times 1 +- 2^-8).  A uniform scaling
+    is taken out by the first BN and by the scale-invariant losses."""
+    import numpy as np
+
+    up = np.random.default_rng(seed).random(mix.shape) < 0.5
+    if bf16:
+        return (mix * np.where(up, 1 + 2.0 ** -8, 1 - 2.0 ** -8)).astype(np.float32)
+    return np.nextafter(mix, np.where(up, np.inf, -np.inf).astype(np.float32))
+
+
 def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
                  rounding_floor: bool = False, teacher_variables: dict = None,
-                 own_floor: bool = False) -> dict:
+                 own_floor: bool = False, pretrain: bool = False,
+                 floor_seeds: tuple = ()) -> dict:
     """``steps`` steps of ``Trainer(cfg)`` on ``device`` from seeded weights
-    (the teacher's ``teacher_variables`` where given),
+    (the teacher's ``teacher_variables`` where given; with ``pretrain`` a
+    ``PretrainTrainer`` of ``cfg``'s teacher, ``seeded_trainer``),
     each mirrored by a CPU trainer loaded with the device trainer's state
     just before it (weights, statistics, the optimizer's moments and step),
     so every step is compared at one point (cuDNN on deterministic
@@ -1839,7 +1909,10 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
     ``rounding_floor`` a third trainer, mirrored alike, takes the step on
     the input rounded once more (each sample times 1 + 2^-23; under bf16
     compute 1 + 2^-8, one bf16 spacing, which moves the bf16 spectrum by a
-    rounding), and the gradients are held to ``ROUNDING_FACTOR`` times the
+    rounding; with ``floor_seeds``, one more trainer a seed, each on
+    ``neighbour_rounding`` of the input, and each tensor's floor the
+    largest of their moves), and the gradients are held to
+    ``ROUNDING_FACTOR`` times the
     largest change that gives where that is above ``TRAIN_GRAD_REL_L2``
     (under bf16 at most ``BF16_GRAD_REL_L2``).  With ``own_floor`` as well,
     a tensor above that is held to ``ROUNDING_FACTOR`` times its own floor
@@ -1850,23 +1923,31 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
     import numpy as np
     import torch
 
-    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer, _global_norm
+    from speech_enhancement_clskd_tpu_torch.train.trainer import _global_norm
 
     counters = _kernel_counters()
     on_card = device == "cuda"
-    card = Trainer(cfg, device=device).init_state(1, teacher_variables=teacher_variables)
-    cpu = Trainer(cfg, device="cpu").init_state(1)
-    again = Trainer(cfg, device="cpu").init_state(1) if grads and rounding_floor else None
+    def make(dev):
+        return seeded_trainer(cfg, dev, 1, teacher_variables if dev == device else None,
+                              pretrain)
+
+    card = make(device)
+    cpu = make("cpu")
+    # the input's roundings of the floor: the uniform scaling, or one a seed
+    roundings = list(floor_seeds) or [None]
+    agains = [make("cpu") for _ in roundings] if grads and rounding_floor else []
+    again = agains[0] if agains else None
     clip = cfg.optim.grad_clip
-    bf16 = cfg.student.compute_dtype == "bfloat16"
+    # the trained model's dtype: the student's, or a pretrained model's
+    bf16 = getattr(card, "model_cfg", cfg.student).compute_dtype == "bfloat16"
     loss_rtol = BF16_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
     rounding = 2.0 ** -8 if bf16 else 2.0 ** -23
     recs, failures = [], []
     deterministic = torch.backends.cudnn.deterministic
     for k in range(steps):
         _mirror(cpu, card)
-        if again is not None:
-            _mirror(again, card)
+        for a in agains:
+            _mirror(a, card)
         _zero_counts(counters)
         torch.backends.cudnn.deterministic = True
         try:
@@ -1898,8 +1979,12 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
             worst = max(errors, key=errors.get)
             tol = TRAIN_GRAD_REL_L2
             if again is not None:
-                again.train_step((mix * np.float32(1 + rounding)).astype(np.float32), clean)
-                floors, _ = _grad_errors(_grads(again), cpu_grads, scale)
+                floors = {}
+                for a, seed in zip(agains, roundings):
+                    a.train_step((mix * np.float32(1 + rounding)).astype(np.float32)
+                                 if seed is None else neighbour_rounding(mix, seed, bf16), clean)
+                    moved, _ = _grad_errors(_grads(a), cpu_grads, scale)
+                    floors = {n: max(e, floors.get(n, 0.0)) for n, e in moved.items()}
                 floor_worst = max(floors, key=floors.get)
                 tol = max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * floors[floor_worst])
                 if bf16:
@@ -1923,10 +2008,12 @@ def synced_steps(cfg, mix, clean, device: str, steps: int, grads: bool = True,
 
 
 def card_vs_cpu_checks(cfg, device: str, rounding_floor: bool = False,
-                       teacher_variables: dict = None, own_floor: bool = False) -> dict:
+                       teacher_variables: dict = None, own_floor: bool = False,
+                       pretrain: bool = False, floor_seeds: tuple = ()) -> dict:
     """The training phases' check: one step of ``cfg`` on ``device`` against
     the CPU from the same seeded weights (``synced_steps``; the teacher's
-    ``teacher_variables`` where given; ``own_floor`` as there) on white noise
+    ``teacher_variables`` where given; ``own_floor``, ``pretrain`` and
+    ``floor_seeds`` as there) on white noise
     (the loss and the gradients held; ``rounding_floor`` as there) and on
     synthetic speech (the loss held: at random init on speech the
     log-magnitude loss's gradient is ill-conditioned), at ``cfg``'s batch
@@ -1934,9 +2021,11 @@ def card_vs_cpu_checks(cfg, device: str, rounding_floor: bool = False,
     batch, seconds = cfg.data.batch_size, cfg.data.segment
     rec = {"gaussian": synced_steps(cfg, *gaussian_batch(batch, seconds), device, 1,
                                     rounding_floor=rounding_floor,
-                                    teacher_variables=teacher_variables, own_floor=own_floor),
+                                    teacher_variables=teacher_variables, own_floor=own_floor,
+                                    pretrain=pretrain, floor_seeds=floor_seeds),
            "speech": synced_steps(cfg, *train_batch(batch, seconds, seed=3), device, 1,
-                                  grads=False, teacher_variables=teacher_variables)}
+                                  grads=False, teacher_variables=teacher_variables,
+                                  pretrain=pretrain)}
     rec["failures"] = [f"{name}: {f}" for name, r in rec.items() for f in r["failures"]]
     return rec
 
@@ -3583,6 +3672,149 @@ def phase_dccrnet_training(teacher_pth: str, directory: str, phase7: dict) -> di
     return recs
 
 
+# ------------------------------------------------------- pretraining
+
+
+def _pretraining(phase: str, config: str, teacher: dict, steps: int, expected: dict,
+                 plans: dict, beside: dict = None) -> dict:
+    """``_training`` of a ``PretrainTrainer`` of ``TrainConfig()``'s teacher
+    with ``teacher`` set, at 32 x 3 s, launches per step held to
+    ``expected``, with its card-vs-CPU step (4 x 1 s): the loss to 1e-5
+    (bf16 1e-3), the gradients against their rounding floor, a tensor above
+    the hold against twice its own floor (``own_floor``).  The floor is the
+    largest move over ``FLOOR_SEEDS`` random roundings of the input
+    (``neighbour_rounding``): the BN after the first conv and PMSQE's level
+    alignment take the uniform scaling of the other phases out, and one
+    draw of a floor is a noisy estimate of it.  ``plans``: the LSTM
+    kernels' plans at these shapes, added to the record."""
+    import dataclasses
+
+    from speech_enhancement_clskd_tpu_torch.config import TEACHER
+
+    rec = _training(phase, config, {}, steps, expected, rounding_floor=True, own_floor=True,
+                    beside=beside, models={"teacher": dataclasses.replace(TEACHER, **teacher)},
+                    pretrain=True, floor_seeds=FLOOR_SEEDS)
+    say(f"{phase}_lstm_plans", **plans)
+    rec["lstm_plans"] = plans
+    return rec
+
+
+def pretrain_cli_checks(directory: str, device: str, overrides=PRETRAIN_CLI_OVERRIDES,
+                        compute_pesq: bool = True) -> dict:
+    """The workflow that makes a teacher and distills from it, through the
+    CLI on ``device``: ``pretrain --model teacher`` (``overrides``: by
+    default an epoch of 2 steps on 4 x 1 s synthetic clips, 2 validation
+    batches), ``distill --strategy clskd --teacher-bundle
+    <out>/teacher_model.npz`` (an epoch), and ``evaluate`` of the
+    pretrained teacher's bundle on ``device`` and on the CPU (phase 22's
+    tolerances; PESQ unless ``compute_pesq`` is false).  The record, with
+    the kernels' launches of each stage and ``failures``."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from speech_enhancement_clskd_tpu_torch.cli import main as cli
+    from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
+
+    counters = _kernel_counters()
+    out = Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    log = io.StringIO()
+    launches, metrics, seconds = {}, {}, {}
+    with contextlib.redirect_stdout(log):
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        rcs = [cli(["pretrain", "--model", "teacher", "--out", str(out / "pretrain"),
+                    "--device", device, *overrides])]
+        seconds["pretrain"] = time.perf_counter() - t0
+        launches["pretrain"] = {k: v for k, v in _counts(counters).items() if v}
+        pretrained = json.loads(log.getvalue().strip().splitlines()[-1])
+        bundle = pretrained["bundle"]
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        rcs.append(cli(["distill", "--strategy", "clskd", "--teacher-bundle", bundle,
+                        "--out", str(out / "distill"), "--device", device, *overrides]))
+        seconds["distill"] = time.perf_counter() - t0
+        launches["distill"] = {k: v for k, v in _counts(counters).items() if v}
+        distilled = json.loads(log.getvalue().strip().splitlines()[-1])
+        for dev in (device, "cpu"):
+            _zero_counts(counters)
+            rcs.append(cli(["evaluate", "--bundle", bundle, "--device", dev,
+                            *([] if compute_pesq else ["--no-pesq"]),
+                            "--results", str(out / f"evaluate_{dev}.json"), *overrides]))
+            launches[f"evaluate_{dev}"] = {k: v for k, v in _counts(counters).items() if v}
+            metrics[dev] = json.loads((out / f"evaluate_{dev}.json").read_text())
+    cfg, _, meta = load_bundle(bundle)
+    failures = []
+    if rcs != [0] * 4:
+        failures.append(f"exit codes {rcs}")
+    if meta["model_name"] != "DCCRN" or set(meta["infos"]) < {"history", "loss_mode"}:
+        failures.append(f"bundle {meta['model_name']} with infos {sorted(meta['infos'])}")
+    for name, result in (("pretrain", pretrained), ("distill", distilled)):
+        if not all(np.isfinite(v) for v in result["final_metrics"].values()):
+            failures.append(f"{name} metrics {result['final_metrics']}")
+    err = _eval_errors(metrics[device], metrics["cpu"])
+    if not _eval_within(err):
+        failures.append(f"evaluate on {device} against the CPU {err}")
+    if device == "cuda":
+        # 2 steps and 2 validation batches each: the teacher's 4 LSTM layers
+        # a forward; the distill step also runs the student's 4
+        want = {"pretrain": {"lstm_seq_fwd": 4 * 2 + 4 * 2, "lstm_seq_bwd": 4 * 2},
+                "distill": {"lstm_seq_fwd": 8 * 2 + 4 * 2, "lstm_seq_bwd": 4 * 2}}
+        for stage, counts in want.items():
+            if launches[stage] != counts:
+                failures.append(f"{stage} launched {launches[stage]}, expected {counts}")
+    return dict(model=cfg.name, loss_mode=meta["infos"].get("loss_mode"), seconds=seconds,
+                pretrain_metrics=pretrained["final_metrics"],
+                distill_metrics=distilled["final_metrics"], evaluate=metrics[device],
+                evaluate_err=err, launches=launches,
+                lstm_launches=sum(r.get("lstm_seq_fwd", 0) for k, r in launches.items()
+                                  if k != "evaluate_cpu"),
+                lstm_bwd_launches=sum(r.get("lstm_seq_bwd", 0) for r in launches.values()),
+                failures=failures)
+
+
+def phase_pretraining(phase7: dict, directory: str) -> dict:
+    """Phase 25: pretraining the teacher on the card (``PretrainTrainer``,
+    ``TrainConfig()``'s ``dccrn-cl`` at full width, ``SDR+PMSQE``, plain
+    Adam): (a) float32 at 32 x 3 s (K1f 4, K1b 4 a step: the complex LSTM's
+    two layers of two LSTMs at N = 64, H = 128) beside phase 7's
+    distillation step, with its card-vs-CPU step; (b) the same in bf16
+    compute, held as phase 18 holds its step; (c) complex BN with the
+    real-LSTM bottleneck (``use_cbn=True, use_clstm=False``: K1f 2, K1b 2 a
+    step at N = 32, H = 256) and its card-vs-CPU step; (d) the CLI chain
+    ``pretrain`` -> ``distill --teacher-bundle`` -> ``evaluate``
+    (``pretrain_cli_checks``) in ``directory``."""
+    from speech_enhancement_clskd_tpu_torch.kernels.lstm import (
+        lstm_seq_bwd_plan,
+        lstm_seq_fwd_plan,
+    )
+
+    complex_plans = {"fwd": lstm_seq_fwd_plan(2 * TEACHER_BATCH, 128),
+                     "bwd": lstm_seq_bwd_plan(128)}
+    T, N, H = REAL_LSTM_SHAPE
+    real_plans = {"fwd": lstm_seq_fwd_plan(N, H), "bwd": lstm_seq_bwd_plan(H)}
+    lstm = {"lstm_seq_fwd": 4, "lstm_seq_bwd": 4}
+    recs = {"f32": _pretraining("pretraining", "pretrain TrainConfig().teacher (dccrn-cl), "
+                                "SDR+PMSQE, float32", {}, PRETRAIN_STEPS, lstm, complex_plans,
+                                beside=_beside("phase 7 (clskd distillation step)", phase7))}
+    recs["bf16"] = _pretraining("pretraining_bf16", "pretrain dccrn-cl, bf16 compute",
+                                {"compute_dtype": BF16}, PRETRAIN_STEPS, lstm, complex_plans,
+                                beside=_beside("pretraining (float32)", recs["f32"]))
+    recs["cbn_real_lstm"] = _pretraining(
+        "pretraining_cbn_real_lstm", "pretrain dccrn-cl with use_cbn=True, use_clstm=False",
+        {"use_cbn": True, "use_clstm": False}, PRETRAIN_REAL_STEPS,
+        {"lstm_seq_fwd": 2, "lstm_seq_bwd": 2}, real_plans,
+        beside=_beside("pretraining (float32)", recs["f32"]))
+    cli = pretrain_cli_checks(str(Path(directory) / "pretrain_cli"), "cuda")
+    say("pretrain_cli", **cli)
+    if cli["failures"]:
+        raise RuntimeError(f"the pretraining CLI checks failed: {cli['failures']}")
+    recs["cli"] = cli
+    return recs
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -3618,11 +3850,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as directory:
         asteroid = phase_asteroid(directory)
         dccrnet = phase_dccrnet_training(asteroid["teacher_pth"], directory, training)
+        pretraining = phase_pretraining(training, directory)
     bf16_paths = {f"training_bf16_{k}": bf16[k] for k in ("batch32", "batch64", "kernels")}
     bf16_paths.update({f"training_bf16_block_{k}": r for k, r in bf16_block.items()})
     # phase 24's steps, each kernel's launches by form
     dccrnet_paths = {f"dccrnet_training_{k}": dccrnet[k]
                      for k in ("default", "kernels", "block", "bf16")}
+    # phase 25's pretraining steps, each kernel's launches by form
+    pretrain_paths = {f"pretraining_{k}": pretraining[k] for k in ("f32", "bf16", "cbn_real_lstm")}
     fwd = next(r for r in fwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 128))
     bwd = next(r for r in bwd_shapes if (r["T"], r["N"], r["H"]) == (483, 64, 32))
     conv = next(r for r in conv_shapes if (r["B"], r["D"], r["T"], r["C"], r["O"]) == CONV_REF)
@@ -3632,6 +3867,7 @@ def main() -> None:
                + reviewkd_training["launches"][name] + option_training["launches"][name]
                + sum(r["launches"][name] for r in bf16_paths.values())
                + sum(r["launches"][name] for r in dccrnet_paths.values())
+               + sum(r["launches"][name] for r in pretrain_paths.values())
                for name in training["launches"]}
     src = "speech_enhancement_clskd_tpu_torch/kernels/csrc/"
     pallas = "speech_enhancement_clskd_tpu/ops/pallas/"
@@ -3642,7 +3878,8 @@ def main() -> None:
         "replaces": pallas + "lstm.py:36",
         "launches": (serving_launches + bf16_teacher["lstm_launches"] + trained["lstm_seq_fwd"]
                      + sum(r["lstm_launches"] for r in evaluation.values())
-                     + asteroid["lstm_launches"] + dccrnet["cli"]["lstm_launches"]),
+                     + asteroid["lstm_launches"] + dccrnet["cli"]["lstm_launches"]
+                     + pretraining["cli"]["lstm_launches"]),
         "max_abs_err": max(r["max_abs_err_y"] for r in fwd_shapes),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -3668,14 +3905,20 @@ def main() -> None:
                                 for k, r in bf16_paths.items()},
                              **{k: r["launches"]["lstm_seq_fwd"]
                                 for k, r in dccrnet_paths.items()},
-                             "dccrnet_cli": dccrnet["cli"]["lstm_launches"]},
+                             "dccrnet_cli": dccrnet["cli"]["lstm_launches"],
+                             **{k: r["launches"]["lstm_seq_fwd"]
+                                for k, r in pretrain_paths.items()},
+                             "pretrain_cli": pretraining["cli"]["lstm_launches"]},
+        "pretraining_shapes": [r for r in fwd_shapes if (r["T"], r["N"], r["H"]) in (
+            (483, 64, 128), REAL_LSTM_SHAPE)],
         "per_shape": fwd_shapes,
     }, {
         "name": "lstm_seq_bwd",
         "route": "cuda",
         "source": src + "lstm_seq_bwd.cu",
         "replaces": pallas + "lstm.py:60",
-        "launches": trained["lstm_seq_bwd"] + dccrnet["cli"]["lstm_bwd_launches"],
+        "launches": (trained["lstm_seq_bwd"] + dccrnet["cli"]["lstm_bwd_launches"]
+                     + pretraining["cli"]["lstm_bwd_launches"]),
         "max_abs_err": max(max(r["max_abs_err_dxw"], r["max_rel_err_dw_hh"])
                            for r in bwd_shapes),
         "ms": bwd["ms"],
@@ -3695,7 +3938,12 @@ def main() -> None:
                                 for k, r in bf16_paths.items()},
                              **{k: r["launches"]["lstm_seq_bwd"]
                                 for k, r in dccrnet_paths.items()},
-                             "dccrnet_cli": dccrnet["cli"]["lstm_bwd_launches"]},
+                             "dccrnet_cli": dccrnet["cli"]["lstm_bwd_launches"],
+                             **{k: r["launches"]["lstm_seq_bwd"]
+                                for k, r in pretrain_paths.items()},
+                             "pretrain_cli": pretraining["cli"]["lstm_bwd_launches"]},
+        "pretraining_shapes": [r for r in bwd_shapes if (r["T"], r["N"], r["H"]) in (
+            (483, 64, 128), REAL_LSTM_SHAPE)],
         "per_shape": bwd_shapes,
     }]
     conv_shape = dict(zip(("B", "D", "T", "C", "O"), CONV_REF))

@@ -10,12 +10,15 @@ data.synthetic=true``; only ``--config`` (a YAML file) needs ``yaml``.
 
 ``distill`` trains with ``Trainer.fit``, keeps the top-k checkpoints on
 ``cfg.monitor`` in ``--out``, restores the best one and writes
-``<out>/the_best_model.npz``.  ``evaluate`` runs ``eval.evaluate_bundle`` on
+``<out>/the_best_model.npz``.  ``pretrain --model teacher|student`` trains
+that model alone (``train.pretrain.PretrainTrainer.fit``, ``cfg.loss_mode``),
+keeps the top-k checkpoints on ``cfg.monitor`` in ``--out`` and writes the
+final weights to ``<out>/<model>_model.npz`` (the bundle ``distill
+--teacher-bundle`` takes).  ``evaluate`` runs ``eval.evaluate_bundle`` on
 an ``.npz`` bundle or an asteroid ``.pth`` over the configured test set
 (``data.synthetic=true`` for the synthetic one).  ``import-torch`` converts
-an asteroid ``.pth`` into an ``.npz`` bundle.  ``pretrain`` and ``bench``
-are in the parser and raise ``NotImplementedError`` naming their ROADMAP
-item.
+an asteroid ``.pth`` into an ``.npz`` bundle.  ``bench`` is in the parser and
+raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from typing import List, Optional
 
 # the subcommands not ported yet, and the ROADMAP queue 1 item of each
 _UNPORTED = {
-    "pretrain": "item 7 (pretraining)",
     "bench": "item 9 (the port benchmark)",
 }
 
@@ -55,6 +57,8 @@ def _parse(argv: Optional[List[str]] = None):
     t.add_argument("--config", default=None)
     t.add_argument("--model", default="teacher", choices=["teacher", "student"])
     t.add_argument("--out", default="checkpoints_pretrain")
+    t.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (the plain PyTorch path)")
     t.add_argument("overrides", nargs="*")
 
     e = sub.add_parser("evaluate", help="offline metric evaluation")
@@ -103,6 +107,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = load_config(args.config, overrides)
     if args.command == "evaluate":
         return _evaluate(cfg, args)
+    if args.command == "pretrain":
+        return _pretrain(cfg, args)
     return _distill(cfg, args)
 
 
@@ -151,6 +157,24 @@ def bundle_best(trainer, mgr, history, out: str, log_fn=print) -> str:
     save_bundle(bundle_path, v["params"], v["batch_stats"], cfg.student,
                 infos={"history": history, "strategy": cfg.distill.strategy})
     return bundle_path + ".npz"
+
+
+def _pretrain(cfg, args) -> int:
+    """Train the ``--model`` alone and bundle its final weights."""
+    from .train.pretrain import PretrainTrainer
+    from .utils.bridge import flax_from_torch_state
+    from .utils.serialization import CheckpointManager, save_bundle
+
+    model_cfg = cfg.teacher if args.model == "teacher" else cfg.student
+    trainer = PretrainTrainer(cfg, model_cfg=model_cfg, device=args.device)
+    mgr = CheckpointManager(args.out, monitor=cfg.monitor, keep_top_k=cfg.keep_top_k)
+    history = trainer.fit(checkpoint_manager=mgr)
+    bundle_path = os.path.join(args.out, f"{args.model}_model")
+    v = flax_from_torch_state(trainer.model.state_dict())
+    save_bundle(bundle_path, v["params"], v.get("batch_stats", {}), model_cfg,
+                infos={"history": history, "loss_mode": cfg.loss_mode})
+    print(json.dumps({"final_metrics": history, "bundle": bundle_path + ".npz"}))
+    return 0
 
 
 def _evaluate(cfg, args) -> int:

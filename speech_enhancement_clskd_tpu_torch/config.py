@@ -5,12 +5,13 @@ The port's own copy of the dataclasses of
 ``DCCRNConfig`` and the four named geometries) and training (``DataConfig``,
 ``DistillConfig``, ``OptimConfig``, ``TrainConfig``), and ``load_config``:
 defaults, then a YAML file, then dotted ``key.path=value`` overrides.
-``MeshConfig`` comes with data parallelism.
+``MeshConfig`` comes with data parallelism.  ``to_yaml`` writes a config
+back out.
 
-``yaml`` is imported only when a YAML file is given (the card's machine has
-none).  Override values are read by ``_parse_value`` without it, with the
-scalar rules of PyYAML's ``safe_load`` (YAML 1.1: ``yes``/``on`` are
-booleans, ``~``/``null`` are ``None``, ``0x1f`` and ``017`` are integers)
+``yaml`` is imported only when a YAML file is read or written (the card's
+machine has none).  Override values are read by ``_parse_value`` without it,
+with the scalar rules of PyYAML's ``safe_load`` (YAML 1.1: ``yes``/``on``
+are booleans, ``~``/``null`` are ``None``, ``0x1f`` and ``017`` are integers)
 and flow collections (``[512, 1024]``, ``{a: 1}``), then the JAX loader's
 fallback that reads a string such as ``1e-3`` (not a YAML 1.1 float) as a
 number.
@@ -58,6 +59,20 @@ class DCCRNConfig:
     use_cbn: bool = False  # complex batchnorm instead of real BN
     bidirectional: bool = False
     compute_dtype: str = "float32"
+
+    @property
+    def hidden_freq(self) -> int:
+        """Frequency bins left after the encoder stack."""
+        return self.stft.fft_len // (2 ** (len(self.kernel_num) + 1))
+
+    def scaled(self, div: int, name: Optional[str] = None) -> "DCCRNConfig":
+        """Student variant with channels and rnn units divided by ``div``."""
+        return dataclasses.replace(
+            self,
+            name=name or f"{self.name}-div{div}",
+            kernel_num=tuple(k // div for k in self.kernel_num),
+            rnn_units=self.rnn_units // div,
+        )
 
 
 TEACHER = DCCRNConfig(name="dccrn-cl")
@@ -378,3 +393,11 @@ def _deep_update(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
             _deep_update(dst[k], v)
         else:
             dst[k] = v
+
+
+def to_yaml(cfg) -> str:
+    """``cfg`` (any config dataclass) as YAML, fields in declaration order;
+    needs ``yaml``, imported here (the card's machine has none)."""
+    import yaml
+
+    return yaml.safe_dump(dataclasses.asdict(cfg), sort_keys=False)

@@ -56,8 +56,10 @@
 // H <= 64: (1, 64); H <= 256: (1, 0), where W_hh (256 KB at H = 128) fits
 // neither one block's registers nor its shared memory: the lanes read it
 // through L2 from a transposed copy (lstm_transpose_kernel), so a warp's
-// loads are four 32-byte sectors.  No main path trains at H > 64 (the
-// teacher is frozen).  KS > 1 splits each quarter's sum over KS lanes and a
+// loads are four 32-byte sectors.  Pretraining (train/pretrain.py,
+// chip_smoke.py phase 25) trains the teacher on this plan: its complex LSTM
+// at H = 128, N = 64, and with use_clstm=False its real-LSTM bottleneck at
+// H = 256, N = 32.  KS > 1 splits each quarter's sum over KS lanes and a
 // shuffle tree; scripts/lstm_cluster_sweep.py builds KS = 2 at H = 32 beside
 // the kernel's plan and measures both its time and chip_smoke.py phase 7's
 // card-vs-CPU check with it (PERF.md).

@@ -57,8 +57,11 @@
 //     two lanes runs within a few per cent of it, but moves the clskd step's
 //     card-vs-CPU gradients (the sweep's step phase, chip_smoke.py phase 7's
 //     check) past the 1e-4 that phase holds them to.
-// Each of the main paths' shapes ran fastest at one row a cluster.  ROWS is
-// the smallest of 1, 2, 4 that needs no more CTAs than the card has SMs.  If
+// Each of the main paths' shapes that fits one row a cluster ran fastest
+// that way.  ROWS is the smallest of 1, 2, 4 that needs no more CTAs than
+// the card has SMs: the real-LSTM bottleneck that pretraining trains at
+// H = 256, N = 32 takes 2 (32 clusters of 8 CTAs would need 256 SMs), 2.42
+// ms at T = 483 on the H100 against cuDNN's 8.91 (PERF.md).  If
 // the card cannot co-schedule the cluster (cudaOccupancyMaxActiveClusters
 // gives 0), the launch returns that error: there is no other plan to retry.
 //

@@ -6,6 +6,19 @@ STFT -> 6 causal complex convs, each with BN and PReLU -> 2 complex LSTM
 layers (the sequence kernels) -> 6 complex transpose convs with skip
 ``complex_cat`` -> mask (E, C or R) -> iSTFT.
 
+``use_cbn=True`` puts ``ops.complex_bn.ComplexBatchNorm`` where the real BN
+stands (each encoder block, each decoder block but the last), as the JAX
+model does; it follows ``training`` alone and ignores ``bn_batch_stats``
+(the JAX quirk: a frozen teacher with complex BN in a distillation step
+normalizes with its running statistics).  ``use_clstm=False`` takes the
+real-LSTM bottleneck: the full packed map flattened to ``[T, B, C*D]``,
+``rnn_layers`` flax-named ``LSTMCell_{i}`` layers on the same sequence
+kernels (``ops.complex_lstm.LSTMCell``), then ``lstm_proj`` back to C*D;
+both LSTM taps are that projected map.  The real LSTM computes in float32
+under bf16 compute (flax promotes its bf16 input to the float32
+parameters), so the decoder after it does too, as in the JAX model.
+``DCCRNConfig.bidirectional`` is ignored, as the JAX model ignores it.
+
 ``forward(wav)`` serves (BN on running statistics);
 ``forward(wav, training=True)`` trains (BN on batch statistics, running
 statistics updated, the LSTM backward kernel under autograd).
@@ -39,7 +52,8 @@ from ..ops.complex_layers import (
     PReLU,
     complex_cat,
 )
-from ..ops.complex_lstm import NaiveComplexLSTM
+from ..ops.complex_bn import ComplexBatchNorm
+from ..ops.complex_lstm import Dense, LSTMCell, NaiveComplexLSTM
 from ..utils.device import float32_math, resolve_device
 
 
@@ -70,12 +84,6 @@ def _check_supported(cfg: DCCRNConfig) -> None:
         raise ValueError(
             f"DCCRN is family 'dccrn', not {cfg.family!r} (make_model builds the "
             "asteroid DCCRNet for 'dccrnet')")
-    if cfg.use_cbn:
-        raise NotImplementedError(
-            "use_cbn: complex batchnorm (ops/complex_bn.py) is ROADMAP queue 1 item 7")
-    if not cfg.use_clstm:
-        raise NotImplementedError(
-            "use_clstm=False: the real-LSTM bottleneck is ROADMAP queue 1 item 7")
     if cfg.compute_dtype not in ("float32", "bfloat16"):
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r}: the port computes in float32 or bfloat16")
@@ -100,15 +108,21 @@ class DCCRN(nn.Module):
             self.add_module(f"enc{i}_conv", ComplexConv2d(
                 channels[i], channels[i + 1], kernel_size=(ks, 2), strides=(2, 1),
                 padding=(ks // 2, 1)))
-            self.add_module(f"enc{i}_bn", BatchNorm(channels[i + 1]))
+            self.add_module(f"enc{i}_bn", self._bn(channels[i + 1]))
             self.add_module(f"enc{i}_prelu", PReLU())
             D = (D + 2 * (ks // 2) - ks) // 2 + 1
         feat = channels[-1] // 2 * D  # per-part LSTM input width
         for li in range(cfg.rnn_layers):
-            last = li == cfg.rnn_layers - 1
-            self.add_module(f"clstm{li}", NaiveComplexLSTM(
-                feat if li == 0 else cfg.rnn_units // 2, cfg.rnn_units,
-                projection_dim=feat * 2 if last else None))
+            if cfg.use_clstm:
+                last = li == cfg.rnn_layers - 1
+                self.add_module(f"clstm{li}", NaiveComplexLSTM(
+                    feat if li == 0 else cfg.rnn_units // 2, cfg.rnn_units,
+                    projection_dim=feat * 2 if last else None))
+            else:  # the real LSTM over the full packed width
+                self.add_module(f"LSTMCell_{li}", LSTMCell(
+                    2 * feat if li == 0 else cfg.rnn_units, cfg.rnn_units))
+        if not cfg.use_clstm:
+            self.lstm_proj = Dense(cfg.rnn_units, 2 * feat)
         for i in range(n):
             j = n - 1 - i  # decoder mirrors encoder
             self.add_module(f"dec{i}_conv", ComplexConvTranspose2d(
@@ -117,12 +131,27 @@ class DCCRN(nn.Module):
                 # drop the first time step of each decoder layer
                 time_crop_left=1))
             if j != 0:
-                self.add_module(f"dec{i}_bn", BatchNorm(channels[j]))
+                self.add_module(f"dec{i}_bn", self._bn(channels[j]))
                 self.add_module(f"dec{i}_prelu", PReLU())
+
+    def _bn(self, channels: int) -> nn.Module:
+        """A block's BN over ``channels`` packed channels: real, or complex
+        over ``channels // 2`` complex ones with ``use_cbn``."""
+        return ComplexBatchNorm(channels // 2) if self.cfg.use_cbn else BatchNorm(channels)
+
+    def _norm(self, name: str, x: torch.Tensor, training: bool,
+              bn_batch_stats: Optional[bool]) -> torch.Tensor:
+        bn = getattr(self, name)
+        if self.cfg.use_cbn:
+            return bn(x, training=training)  # no bn_batch_stats, as in JAX
+        return bn(x, training=training, use_batch_stats=bn_batch_stats)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """normal(0.05) conv weights, uniform +-1/sqrt(H) LSTM weights, unit BN,
+        """normal(0.05) conv weights, uniform +-1/sqrt(H) complex-LSTM
+        weights (the real LSTM's and ``lstm_proj``'s as flax draws them:
+        lecun-normal input kernels, orthogonal recurrent kernels, zero
+        biases), unit BN (complex BN's ``Wri`` uniform in [-0.9, 0.9]),
         PReLU 0.25, all drawn from ``generator`` in module order."""
         for m in self.children():
             if hasattr(m, "reset_parameters"):
@@ -157,7 +186,6 @@ class DCCRN(nn.Module):
         k = self.stft_kernels
         n = len(cfg.kernel_num)
         Fq = cfg.stft.fft_len // 2 + 1
-        bn = dict(training=training, use_batch_stats=bn_batch_stats)
 
         spec = stft_ops.stft(wav, k)  # [B, 2F, T']
         re, im = spec[:, :Fq], spec[:, Fq:]
@@ -170,20 +198,29 @@ class DCCRN(nn.Module):
         enc_taps: List[torch.Tensor] = []
         for i in range(n):
             x = getattr(self, f"enc{i}_conv")(x)
-            x = getattr(self, f"enc{i}_bn")(x, **bn)
+            x = self._norm(f"enc{i}_bn", x, training, bn_batch_stats)
             x = getattr(self, f"enc{i}_prelu")(x)
             enc_taps.append(x)
 
         B, D, T, C = x.shape
         half = C // 2
-        # [B, D, T, C] -> [T, B, C/2*D] per part, channel-major flattening
-        hr = x[..., :half].permute(2, 0, 3, 1).reshape(T, B, half * D)
-        hi = x[..., half:].permute(2, 0, 3, 1).reshape(T, B, half * D)
-        for li in range(cfg.rnn_layers):
-            hr, hi = getattr(self, f"clstm{li}")(hr, hi)
-        lstm_r_tap, lstm_i_tap = hr, hi
-        x = torch.cat([h.reshape(T, B, half, D).permute(1, 3, 0, 2) for h in (hr, hi)],
-                      dim=-1)
+        if cfg.use_clstm:
+            # [B, D, T, C] -> [T, B, C/2*D] per part, channel-major flattening
+            hr = x[..., :half].permute(2, 0, 3, 1).reshape(T, B, half * D)
+            hi = x[..., half:].permute(2, 0, 3, 1).reshape(T, B, half * D)
+            for li in range(cfg.rnn_layers):
+                hr, hi = getattr(self, f"clstm{li}")(hr, hi)
+            lstm_r_tap, lstm_i_tap = hr, hi
+            x = torch.cat([h.reshape(T, B, half, D).permute(1, 3, 0, 2) for h in (hr, hi)],
+                          dim=-1)
+        else:
+            # the full packed map [B, D, T, C] -> [T, B, C*D], and back
+            h = x.permute(2, 0, 3, 1).reshape(T, B, C * D)
+            for li in range(cfg.rnn_layers):
+                h = getattr(self, f"LSTMCell_{li}")(h)
+            h = self.lstm_proj(h)
+            lstm_r_tap = lstm_i_tap = h
+            x = h.reshape(T, B, C, D).permute(1, 3, 0, 2)
 
         dec_taps: List[torch.Tensor] = []
         for i in range(n):
@@ -191,7 +228,7 @@ class DCCRN(nn.Module):
             x = complex_cat([x, enc_taps[j]], dim=-1)
             x = getattr(self, f"dec{i}_conv")(x)
             if j != 0:
-                x = getattr(self, f"dec{i}_bn")(x, **bn)
+                x = self._norm(f"dec{i}_bn", x, training, bn_batch_stats)
                 x = getattr(self, f"dec{i}_prelu")(x)
             dec_taps.append(x)
 

@@ -19,6 +19,13 @@ bf16 compute ``xw`` and the output projections are bf16 matmuls with the
 weights cast to bf16, and ``lstm_seq`` runs its recurrence in float32 on
 the upcast ``xw`` and W_hh and hands ``y`` back in bf16 (the JAX layer's
 casts around the Pallas kernel).
+
+``LSTMCell`` and ``Dense`` are the real-LSTM bottleneck of a DCCRN with
+``use_clstm=False`` (JAX ``models/dccrn.py:136-142``, flax's
+``nn.RNN(nn.LSTMCell)`` and ``nn.Dense``), their modules and leaves named as
+flax names them so ``utils.bridge`` maps the trees name for name.  A cell
+concatenates its eight flax denses into the ``xw`` and ``W_hh`` of the same
+``lstm_seq``, so its recurrence runs on the same kernels.
 """
 
 from __future__ import annotations
@@ -34,6 +41,16 @@ from ..kernels.lstm import lstm_seq
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]) -> None:
     t.uniform_(-bound, bound, generator=generator)
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations, scaled
+# so that the truncated one has variance 1 / fan_in
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def _lecun_normal_(t: torch.Tensor, generator: Optional[torch.Generator]) -> None:
+    std = (1.0 / t.shape[0]) ** 0.5 / _TRUNCATED_STD  # fan_in: the kernel's rows
+    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 class LSTM(nn.Module):
@@ -114,3 +131,65 @@ class NaiveComplexLSTM(nn.Module):
             out_r = out_r @ self.proj_wr.to(dt) + self.proj_br.to(dt)
             out_i = out_i @ self.proj_wi.to(dt) + self.proj_bi.to(dt)
         return out_r, out_i
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel + bias``, ``kernel [F, O]``;
+    lecun-normal kernel (orthogonal with ``orthogonal=True``), zero bias."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 orthogonal: bool = False):
+        super().__init__()
+        self.orthogonal = orthogonal
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.orthogonal:
+            nn.init.orthogonal_(self.kernel, generator=generator)
+        else:
+            _lecun_normal_(self.kernel, generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.kernel.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+# flax LSTMCell's gates, in the order lstm_seq takes them
+_GATES = ("i", "f", "g", "o")
+
+
+class LSTMCell(nn.Module):
+    """One real LSTM layer over ``[T, N, F] -> [T, N, H]`` with flax
+    ``nn.LSTMCell``'s parameters: input denses ``ii``, ``if``, ``ig``, ``io``
+    (``kernel [F, H]``, no bias, lecun-normal) and recurrent denses ``hi``,
+    ``hf``, ``hg``, ``ho`` (``kernel [H, H]``, orthogonal, and ``bias``,
+    zero).  The step is flax's, ``i = sigmoid(ii(x) + hi(h))`` and so on, the
+    carry starting at zeros; the layer runs it as ``lstm_seq(x @ [Wii Wif
+    Wig Wio] + [bhi bhf bhg bho], [Whi Whf Whg Who])``, float32 whatever the
+    input's dtype (flax promotes a bf16 input to its float32 parameters).
+    """
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__()
+        self.hidden = hidden
+        for gate in _GATES:
+            self.add_module(f"i{gate}", Dense(input_size, hidden, use_bias=False))
+        for gate in _GATES:
+            self.add_module(f"h{gate}", Dense(hidden, hidden, orthogonal=True))
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        for m in self.children():
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w_ih = torch.cat([getattr(self, f"i{gate}").kernel for gate in _GATES], dim=1)
+        w_hh = torch.cat([getattr(self, f"h{gate}").kernel for gate in _GATES], dim=1)
+        b = torch.cat([getattr(self, f"h{gate}").bias for gate in _GATES])
+        xw = torch.matmul(x.float(), w_ih) + b
+        y, _ = lstm_seq(xw, w_hh)
+        return y

@@ -23,12 +23,21 @@ and ``att_conv.bias``, and ``bn1``/``bn2`` as above, keep their flax layouts;
 the 3x3 ``conv2.kernel`` goes from HWIO ``[3, 3, I, O]`` to ``[O, I, 3, 3]``.
 Both directions only permute axes, so a round trip is exact.
 
+The complex BN of ``use_cbn`` (``ops.complex_bn``) keeps its flax names:
+parameters ``Wrr``, ``Wri``, ``Wii``, ``Br``, ``Bi`` and statistics ``RMr``,
+``RMi``, ``RVrr``, ``RVri``, ``RVii`` (buffers here, ``batch_stats``
+there); the real LSTM of ``use_clstm=False`` its flax tree,
+``LSTMCell_{i}.{ii,if,ig,io}.kernel [F, H]``, ``LSTMCell_{i}.{hi,hf,hg,ho}``
+``.kernel [H, H]`` and ``.bias``, and ``lstm_proj.kernel``/``.bias``.
+
 ``load_train_state`` carries a JAX ``TrainState`` (student, teacher and,
 for a strategy with fusion, both ABF chains, parameters and statistics) into
 a port ``train.trainer.Trainer``; ``train_state_arrays`` reads them back in
 flax layouts.  Both walk the parts the trainer has: a trainer without ABF
 chains (``spkd``, ``mse``, ``stft``) takes a state whose ``abf_*`` fields
-are ``None``.
+are ``None``.  ``load_pretrain_state`` and ``pretrain_state_arrays`` do the
+same for a ``train.pretrain.PretrainTrainer`` and the JAX pretraining state,
+a dict of ``step``, ``params``, ``batch_stats`` and ``opt_state``.
 """
 
 from __future__ import annotations
@@ -39,7 +48,8 @@ from typing import Any, Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-_STATS = ("mean", "var")
+# the BN running statistics: real BN's, and complex BN's
+_STATS = ("mean", "var", "RMr", "RMi", "RVrr", "RVri", "RVii")
 _CONV_WEIGHTS = ("wr", "wi")
 # the transposed convs: the DCCRN decoders, and the DCCRNet decoders and
 # mask output
@@ -52,8 +62,11 @@ TRAIN_STATE_PARTS = ("student", "teacher", "abf_enc", "abf_dec")
 
 
 def trainer_parts(trainer) -> Tuple[str, ...]:
-    """The parts of ``TRAIN_STATE_PARTS`` that ``trainer`` has."""
-    return tuple(p for p in TRAIN_STATE_PARTS if getattr(trainer, p) is not None)
+    """The modules of ``trainer`` that a checkpoint holds: those of its
+    ``STATE_PARTS`` (``TRAIN_STATE_PARTS`` for the distillation ``Trainer``,
+    ``("model",)`` for ``PretrainTrainer``) that it has."""
+    parts = getattr(trainer, "STATE_PARTS", TRAIN_STATE_PARTS)
+    return tuple(p for p in parts if getattr(trainer, p) is not None)
 
 
 def _perm(path: tuple) -> "tuple | None":
@@ -132,3 +145,25 @@ def train_state_arrays(trainer) -> Dict[str, Any]:
         out[f"{part}_params"] = variables["params"]
         out[f"{part}_stats"] = variables.get("batch_stats", {})
     return out
+
+
+def load_pretrain_state(trainer, state: Mapping[str, Any]) -> None:
+    """Load a JAX pretraining state's ``params`` and ``batch_stats``
+    (numpy-convertible leaves) into ``trainer.model``, strictly, set
+    ``trainer.step`` from its ``step`` and start Adam afresh (its
+    ``opt_state`` is not carried, as ``load_train_state`` does not carry
+    the moments).  ``trainer.init_state()`` must have run."""
+    if trainer.optimizer is None:
+        raise RuntimeError("call trainer.init_state() before loading a state")
+    variables = {"params": state["params"], "batch_stats": state.get("batch_stats") or {}}
+    trainer.model.load_state_dict(torch_state_from_flax(variables), strict=True)
+    trainer.optimizer.state.clear()
+    trainer.step = int(np.asarray(state["step"]))
+
+
+def pretrain_state_arrays(trainer) -> Dict[str, Any]:
+    """``step``, ``params`` and ``batch_stats`` of a ``PretrainTrainer`` as
+    numpy trees in flax layouts: the inverse of ``load_pretrain_state``."""
+    variables = flax_from_torch_state(trainer.model.state_dict())
+    return {"step": np.int32(trainer.step), "params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {})}

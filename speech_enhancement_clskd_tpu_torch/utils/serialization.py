@@ -12,8 +12,9 @@ Two artifact roles, as in ``speech_enhancement_clskd_tpu/utils/serialization.py`
    (``utils.bridge.flax_from_torch_state``), and
    ``utils.bridge.torch_state_from_flax`` carries a bundle's tree back.
 2. **Training checkpoints**: ``CheckpointManager`` keeps the JAX manager's
-   contract without orbax: ``torch.save`` of a trainer's modules, Adam
-   state, step and epoch counter into ``step_%08d/``, top-k retention on a
+   contract without orbax: ``torch.save`` of a trainer's modules (a
+   distillation ``Trainer``'s, or a ``PretrainTrainer``'s one ``model``),
+   Adam state, step and epoch counter into ``step_%08d/``, top-k retention on a
    monitored metric (the reference's ``ModelCheckpoint(save_top_k=3,
    monitor='stoi', mode='max')``), and restore.
 """
@@ -139,7 +140,8 @@ def student_from_state(trainer, cfg: DCCRNConfig) -> Dict[str, Any]:
 
 def trainer_state(trainer) -> Dict[str, Any]:
     """What a checkpoint holds: the step, the completed epochs, every
-    module's state_dict (student, teacher and, with fusion, both ABF chains)
+    module's state_dict (``utils.bridge.trainer_parts``: student, teacher
+    and, with fusion, both ABF chains; a ``PretrainTrainer``'s ``model``)
     and Adam's state.  The tensors are the trainer's own; ``torch.save``
     copies them."""
     if trainer.optimizer is None:

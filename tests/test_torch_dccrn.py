@@ -111,23 +111,26 @@ def test_seeded_init_is_deterministic():
     {"compute_dtype": "bfloat16"},
 ])
 def test_unported_options_raise(change):
-    """The options the port does not have raise naming their ROADMAP item;
-    bf16 compute, ported since, builds a model whose taps are bf16 and whose
-    waveform is float32; the asteroid family, ported since, builds a
-    ``DCCRNet`` (tests/test_torch_dccrnet.py holds it against JAX)."""
+    """Every one of these options is ported now, and none raises: bf16
+    compute builds a model whose taps are bf16 and whose waveform is
+    float32; the asteroid family builds a ``DCCRNet``
+    (tests/test_torch_dccrnet.py holds it against JAX); complex BN and the
+    real-LSTM bottleneck build a DCCRN with ``ComplexBatchNorm`` and with
+    flax's ``LSTMCell_{i}`` and ``lstm_proj`` (tests/test_torch_complex_bn.py
+    holds them against JAX)."""
     cfg = DCCRNConfig(name="tiny", kernel_num=(4, 8, 8), rnn_units=16, **change)
+    model = make_model(cfg, device="cpu")
+    out = model(torch.zeros(1, 1600))
+    assert out.wav.shape == (1, 1600) and out.wav.dtype == torch.float32
     if change.get("compute_dtype") == "bfloat16":
-        out = make_model(cfg, device="cpu")(torch.zeros(1, 1600))
-        assert out.wav.dtype == torch.float32
         assert {t.dtype for t in out.taps.encoder + out.taps.decoder} == {torch.bfloat16}
-        return
-    if change.get("family") == "dccrnet":
-        model = make_model(cfg, device="cpu")
+    elif change.get("family") == "dccrnet":
         assert type(model).__name__ == "DCCRNet"
-        assert model(torch.zeros(1, 1600)).wav.shape == (1, 1600)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_model(cfg, device="cpu")
+    elif change.get("use_cbn"):
+        assert type(model.enc0_bn).__name__ == "ComplexBatchNorm"
+    else:
+        assert hasattr(model, "LSTMCell_1") and not hasattr(model, "clstm0")
+        assert out.taps.lstm_real is out.taps.lstm_imag
 
 
 def test_forward_turns_tf32_off_and_restores_the_callers_flags():
