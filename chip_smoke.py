@@ -212,7 +212,20 @@ card, then drives both paths through their entry points:
     (``pretrain_cli_checks``): ``pretrain --model teacher`` (an epoch of 2
     steps at 4 x 1 s), ``distill --teacher-bundle <out>/teacher_model.npz``
     (an epoch), ``evaluate`` of the pretrained bundle card against CPU
-    (phase 22's tolerances).
+    (phase 22's tolerances);
+26. parallel (``phase_parallel``, ``parallel_checks``): (a) a process group
+    of one over NCCL in this process: the data-parallel ``clskd`` step
+    (default and block forms, ``spkd_gram_groups`` 1 and 2) and the
+    data-parallel pretraining step from phase 7's weights on phase 7's
+    batch against the one-process step, bit for bit where that repeats its
+    own bits, the ``_g1`` forms timed (5 steps) beside phase 7; (b) two
+    worker processes (``chip_smoke.py parallel-worker``) in a gloo group on
+    the one card, 16 rows each: after one step the loss within 1e-5 of
+    (a)'s and every gradient within 1e-4 or twice its rounding floor; (c)
+    ``sharded_utterance_forward`` over two gloo ranks on 2 x 64 s (the r4
+    student and the seeded teacher): each span against its window run
+    alone, the interior against the whole offline forward, wall ms beside
+    it.  The NCCL version, world sizes and backends are printed.
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -3815,6 +3828,508 @@ def phase_pretraining(phase7: dict, directory: str) -> dict:
     return recs
 
 
+# phase 26: data and sequence parallelism.  (a) world 1 over NCCL in this
+# process, (b) world 2 over gloo, two workers on the one card, each with
+# half of phase 7's batch, (c) sequence parallel over 2 gloo ranks on the
+# card, 2 x 64 s.  The forms of (a) and (b): (ABF flags, spkd_gram_groups).
+PARALLEL_FORMS = {"default_g1": ({}, 1), "default_g2": ({}, 2),
+                  "block_g1": (ABF_BLOCK_FLAGS, 1), "block_g2": (ABF_BLOCK_FLAGS, 2)}
+# the kernels' launches a step of each form, and of the pretraining step
+PARALLEL_LAUNCHES = {"default": {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4},
+                     "block": {"lstm_seq_fwd": 8, "lstm_seq_bwd": 4, "abf_block_fwd": 12,
+                               "abf_block_bwd": 12},
+                     "pretrain": {"lstm_seq_fwd": 4, "lstm_seq_bwd": 4}}
+PARALLEL_TIMED_STEPS = 5
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT = 300  # seconds a group of workers may take
+# the phase's sizes on the card: the device, (a)'s backend, phase 7's batch
+# and clips, the models (None: TrainConfig()'s; the CPU rehearsal shrinks
+# them), (c)'s utterances, the launches a sequence-parallel forward
+PARALLEL_SPEC = {"device": "cuda", "backend": "nccl", "batch": TEACHER_BATCH,
+                 "seconds": TRAIN_SECONDS, "teacher": None, "student": None,
+                 "sequence_seconds": 64.0, "sequence_lstm_launches": 4}
+# the interior's distance from the whole offline forward (the JAX test's
+# bound; the first and last 0.5 s left out) and a span's from its window
+# run alone
+SEQUENCE_INTERIOR = 0.02
+SEQUENCE_SPAN_ATOL = 1e-6
+
+
+def _launched(counters: dict) -> dict:
+    """The kernels launched since the counts were set to 0, and how often."""
+    return {k: v for k, v in _counts(counters).items() if v}
+
+
+def _sync(device) -> None:
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _state_copy(trainer) -> dict:
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import trainer_parts
+
+    return {part: {k: v.detach().clone() for k, v in getattr(trainer, part).state_dict().items()}
+            for part in trainer_parts(trainer)}
+
+
+def _restart(trainer, initial: dict) -> None:
+    """``trainer`` back to the weights and statistics ``initial`` (a
+    ``_state_copy``) with a fresh optimizer, at step 0."""
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import trainer_parts
+
+    for part in trainer_parts(trainer):
+        getattr(trainer, part).load_state_dict(initial[part])
+    trainer.optimizer.state.clear()
+    trainer.step = 0
+
+
+def _step_from(trainer, initial: dict, mix, clean) -> dict:
+    """One step of ``trainer`` from ``initial`` on cuDNN's deterministic
+    algorithms: the loss, the gradient norm, the gradients (on the host)
+    and the step's ms."""
+    import torch
+
+    _restart(trainer, initial)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _sync(trainer.device)
+        t0 = time.perf_counter()
+        logs = trainer.train_step(mix, clean)
+        _sync(trainer.device)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"loss": float(logs["train_loss"]), "grad_norm": float(logs["grad_norm"]),
+            "grads": _grads(trainer), "ms": ms}
+
+
+def _timed_steps(trainer, mix, clean) -> dict:
+    import numpy as np
+
+    ms = []
+    for _ in range(PARALLEL_TIMED_STEPS):
+        _sync(trainer.device)
+        t0 = time.perf_counter()
+        trainer.train_step(mix, clean)
+        _sync(trainer.device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"median": float(np.median(ms)), "all": ms}
+
+
+def _bits(got: dict, want: dict) -> dict:
+    """Whether ``got``'s loss and gradients equal ``want``'s bit for bit,
+    and the largest differences."""
+    diffs = {n: (got["grads"][n] - g).abs().max().item() for n, g in want["grads"].items()}
+    worst = max(diffs, key=diffs.get)
+    return {"bit_exact": got["loss"] == want["loss"] and not any(diffs.values()),
+            "loss_diff": abs(got["loss"] - want["loss"]),
+            "grad_max_abs_diff": diffs[worst], "grad_worst": worst}
+
+
+def _parallel_trainer(spec: dict, distill: dict, groups: int, mesh=None, pretrain: bool = False):
+    """A trainer of ``spec``'s models (``TrainConfig()``'s by default) at its
+    batch and clips, with the ABF flags ``distill`` and
+    ``spkd_gram_groups``, seeded with 0 (phase 7's weights), or the
+    teacher's ``PretrainTrainer``; on ``mesh`` (the process group's where
+    None)."""
+    from speech_enhancement_clskd_tpu_torch.config import DCCRNConfig
+    from speech_enhancement_clskd_tpu_torch.train.pretrain import PretrainTrainer
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
+
+    models = {k: DCCRNConfig(**spec[k]) for k in ("teacher", "student") if spec[k]}
+    cfg = train_config(spec["batch"], spec["seconds"], dict(distill, spkd_gram_groups=groups),
+                       **models)
+    make = PretrainTrainer if pretrain else Trainer
+    return make(cfg, device=spec["device"], mesh=mesh).init_state(0)
+
+
+def _world_one(spec: dict, form: str, distill: dict, groups: int, mix, clean, timed: bool,
+               pretrain: bool = False) -> dict:
+    """(a) for one form: the one-process step (twice, to see whether it
+    repeats its own bits), the data-parallel step in the group of one from
+    the same weights, and the one-process step on ``FLOOR_SEEDS`` roundings
+    of the input (the floors (b) is held to); with ``timed``, the median ms
+    of ``PARALLEL_TIMED_STEPS`` steps of each and the data-parallel steps'
+    launches.  The data-parallel step's loss and gradients must equal the
+    one-process step's bit for bit where that repeats its own, else lie
+    within ``TRAIN_LOSS_RTOL`` and ``TRAIN_GRAD_REL_L2`` or twice the
+    repeat's difference (``failures``).  ``reference``: the data-parallel
+    step's loss, gradients and floors, for (b)."""
+    from speech_enhancement_clskd_tpu_torch.parallel.mesh import Mesh
+
+    counters = _kernel_counters()
+    one = _parallel_trainer(spec, distill, groups, Mesh({"data": 1, "model": 1}), pretrain)
+    initial = _state_copy(one)
+    ref = _step_from(one, initial, mix, clean)
+    again = _step_from(one, initial, mix, clean)
+    floors = {}
+    for seed in FLOOR_SEEDS:
+        moved = _step_from(one, initial, neighbour_rounding(mix, seed), clean)
+        errs, _ = _grad_errors(moved["grads"], ref["grads"], ref["grad_norm"])
+        floors = {n: max(e, floors.get(n, 0.0)) for n, e in errs.items()}
+    rec = {"form": form, "groups": groups, "loss": ref["loss"], "one_process_ms": ref["ms"]}
+    if timed:
+        _restart(one, initial)
+        rec["one_process_step_ms"] = _timed_steps(one, mix, clean)
+    del one
+    _release(spec["device"])
+    dp = _parallel_trainer(spec, distill, groups, None, pretrain)
+    if dp.group is None or dp.mesh.shape["data"] != 1:
+        raise RuntimeError(f"the data-parallel trainer is not in the group of one: {dp.mesh}")
+    _zero_counts(counters)
+    got = _step_from(dp, initial, mix, clean)
+    rec["dp_step_launches"] = _launched(counters)
+    if timed:
+        _restart(dp, initial)
+        _zero_counts(counters)
+        rec["dp_step_ms"] = _timed_steps(dp, mix, clean)
+        rec["launches"] = _launched(counters)
+    del dp
+    _release(spec["device"])
+    rec.update(repeat=_bits(again, ref), dp=_bits(got, ref), dp_ms=got["ms"], failures=[],
+               why_not_bit_exact=None)
+    errors, zero = _grad_errors(got["grads"], ref["grads"], ref["grad_norm"])
+    if not rec["dp"]["bit_exact"]:
+        if rec["repeat"]["bit_exact"]:
+            rec["failures"].append(f"(a) {form}: the group of one changed bits the one-process "
+                                   f"step repeats: {rec['dp']}")
+        rec["why_not_bit_exact"] = (
+            "the one-process step does not repeat its own bits (largest gradient difference "
+            f"{rec['repeat']['grad_max_abs_diff']} in {rec['repeat']['grad_worst']})")
+        repeat, _ = _grad_errors(again["grads"], ref["grads"], ref["grad_norm"])
+        over = {n: e for n, e in errors.items()
+                if e > max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * repeat[n])}
+        loss_err = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        if over or loss_err > TRAIN_LOSS_RTOL or zero > ZERO_GRAD:
+            rec["failures"].append(f"(a) {form}: data parallel at world 1 against one "
+                                   f"process: loss {loss_err}, gradients {over}, zero {zero}")
+    rec.update(dp_grad_max_rel_l2=max(errors.values()), floor_max=max(floors.values()))
+    want = PARALLEL_LAUNCHES[form.split("_")[0]] if spec["device"] == "cuda" else {}
+    for key, steps in (("dp_step_launches", 1), ("launches", PARALLEL_TIMED_STEPS)):
+        if key in rec and rec[key] != {k: steps * v for k, v in want.items()}:
+            rec["failures"].append(f"(a) {form} {key} {rec[key]}, expected {want} a step")
+    rec["reference"] = {"loss": got["loss"], "grads": got["grads"], "floors": floors,
+                        "grad_norm": got["grad_norm"]}
+    return rec
+
+
+def _release(device) -> None:
+    import torch
+
+    if str(device).startswith("cuda"):
+        torch.cuda.empty_cache()
+
+
+def _workers(job: str, spec: dict, out: Path) -> list:
+    """``PARALLEL_WORLD`` ranks of ``chip_smoke.py parallel-worker`` in a
+    gloo group on ``spec``'s device, each within ``PARALLEL_TIMEOUT``; their
+    records (``OUT/JOB.rRANK.json``)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "parallel-worker",
+                               job, str(r), str(PARALLEL_WORLD), port, str(out), json.dumps(spec)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=ROOT) for r in range(PARALLEL_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=PARALLEL_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=60)
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"parallel worker {job} rank {r} exited {p.returncode}:\n"
+                               f"{text[-6000:]}")
+    return [json.loads((out / f"{job}.r{r}.json").read_text()) for r in range(PARALLEL_WORLD)]
+
+
+def parallel_worker(argv) -> None:
+    """A rank of phase 26 (b) or (c) (``chip_smoke.py parallel-worker JOB
+    RANK WORLD PORT OUT SPEC``): joins the gloo group (every rank on the
+    first card) and writes ``OUT/JOB.rRANK.json`` and its arrays."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.parallel import distributed
+
+    job, rank, world, port, out, spec = argv
+    rank, world, out, spec = int(rank), int(world), Path(out), json.loads(spec)
+    if spec["device"] == "cuda":
+        torch.cuda.set_device(0)
+        spec["device"] = "cuda:0"
+    else:
+        torch.set_num_threads(1)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                           device=spec["device"])
+    try:
+        if job == "dp":
+            rec = _dp_worker(spec, rank, out)
+        else:
+            rec = _sequence_worker(spec, rank, world, out)
+        rec["backend"] = torch.distributed.get_backend()
+        rec["world"] = torch.distributed.get_world_size()
+        distributed.barrier(torch.distributed.group.WORLD)
+    finally:
+        distributed.leave()
+    (out / f"{job}.r{rank}.json").write_text(json.dumps(rec))
+
+
+def _dp_worker(spec: dict, rank: int, out: Path) -> dict:
+    """(b): every form's data-parallel step from phase 7's weights on this
+    rank's half of phase 7's batch, then a second, timed step; rank 0
+    saves the first step's gradients (``OUT/FORM.pt``)."""
+    import torch
+
+    counters = _kernel_counters()
+    mix, clean = train_batch(spec["batch"], spec["seconds"])
+    recs = {}
+    for form, (distill, groups) in PARALLEL_FORMS.items():
+        trainer = _parallel_trainer(spec, distill, groups)
+        _zero_counts(counters)
+        first = _step_from(trainer, _state_copy(trainer), mix, clean)
+        _sync(trainer.device)
+        t0 = time.perf_counter()
+        trainer.train_step(mix, clean)
+        _sync(trainer.device)
+        recs[form] = {"loss": first["loss"], "grad_norm": first["grad_norm"],
+                      "step_ms": [first["ms"], (time.perf_counter() - t0) * 1e3],
+                      "launches": _launched(counters),
+                      "rows": mix.shape[0] // trainer.mesh.shape["data"]}
+        if trainer.device.type == "cuda":
+            recs[form]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        if rank == 0:
+            torch.save(first["grads"], out / f"{form}.pt")
+        del trainer
+        _release(spec["device"])
+    return recs
+
+
+def sequence_models(spec: dict) -> dict:
+    """(c)'s models on ``spec``'s device: the r4 bundle's student and the
+    seeded ``dccrn-cl`` teacher (``spec``'s teacher where it names one)."""
+    from speech_enhancement_clskd_tpu_torch.config import TEACHER, DCCRNConfig
+    from speech_enhancement_clskd_tpu_torch.models.dccrn import make_model
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import torch_state_from_flax
+    from speech_enhancement_clskd_tpu_torch.utils.serialization import load_bundle
+
+    cfg, variables, _ = load_bundle(str(BUNDLE))
+    student = make_model(cfg, spec["device"])
+    student.load_state_dict(torch_state_from_flax(variables))
+    teacher = DCCRNConfig(**spec["teacher"]) if spec["teacher"] else TEACHER
+    return {"r4_student": student, "dccrn_cl_teacher": make_model(teacher, spec["device"], seed=0)}
+
+
+def sequence_signal(seconds: float):
+    """2 synthetic mixtures of ``seconds`` (float32 numpy)."""
+    import numpy as np
+
+    from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
+
+    ds = SyntheticEnhancementDataset(size=2, segment=seconds, seed=5)
+    return np.stack([ds[i][0] for i in range(2)])
+
+
+def _sequence_worker(spec: dict, rank: int, world: int, out: Path) -> dict:
+    """(c): each model's ``sharded_utterance_forward`` of this rank's span
+    (twice, the second timed) against the offline forward of the rank's
+    window run alone; the span saved as ``OUT/MODEL.rRANK.npy``."""
+    import numpy as np
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.parallel.sequence import sharded_utterance_forward
+
+    counters = _kernel_counters()
+    wav = torch.from_numpy(sequence_signal(spec["sequence_seconds"])).to(spec["device"])
+    span = wav.shape[1] // world
+    lo, hi = rank * span, (rank + 1) * span
+    mine = wav[:, lo:hi].contiguous()
+    recs = {}
+    for name, model in sequence_models(spec).items():
+        _zero_counts(counters)
+        sharded_utterance_forward(model, mine)
+        launches = _launched(counters)
+        _sync(spec["device"])
+        t0 = time.perf_counter()
+        got = sharded_utterance_forward(model, mine)
+        _sync(spec["device"])
+        ms = (time.perf_counter() - t0) * 1e3
+        hop, guard = model.cfg.stft.hop, model.cfg.stft.win_len - model.cfg.stft.hop
+        ctx = CONTEXT_FRAMES * hop
+        left = wav[:, lo - ctx:lo] if rank else torch.zeros_like(wav[:, :ctx])
+        right = wav[:, hi:hi + guard] if rank < world - 1 else torch.zeros_like(wav[:, :guard])
+        with torch.no_grad():
+            alone = model(torch.cat([left, mine, right], dim=1), training=False).wav
+        np.save(out / f"{name}.r{rank}.npy", got.cpu().numpy())
+        recs[name] = {"ms": ms, "launches": launches,
+                      "span_vs_window_max_abs": (got - alone[:, ctx:ctx + span]).abs().max().item(),
+                      "span": span, "context_samples": ctx, "lookahead_samples": guard}
+    return recs
+
+
+def _parallel_launches(recs) -> dict:
+    """Each kernel's launches summed over the ``launches`` dicts ``recs``."""
+    total = {}
+    for launches in recs:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def parallel_checks(spec: dict, out: Path) -> dict:
+    """Phase 26's checks on ``spec``'s device (``PARALLEL_SPEC`` on the
+    card; the CPU rehearsal shrinks it), the workers' files in ``out``.
+
+    (a) World 1 over ``spec``'s backend in this process: the data-parallel
+    ``clskd`` step (``PARALLEL_FORMS``: the default and block forms,
+    ``spkd_gram_groups`` 1 and 2) and the pretraining step (phase 25's
+    form) from phase 7's weights on phase 7's batch, each against the
+    one-process step (``_world_one``), the ``_g1`` forms timed.
+    (b) World 2 over gloo, two workers on the one card with half the rows
+    each: after one step, the loss within ``TRAIN_LOSS_RTOL`` of (a)'s and
+    every gradient within ``TRAIN_GRAD_REL_L2`` or twice its rounding floor
+    (phase 7's rule, ``_grad_errors``' exemptions), launches per step as one
+    process's; the step ms reported (gloo stages through the host).
+    (c) ``sharded_utterance_forward`` over 2 gloo ranks, the r4 student and
+    the seeded teacher on 2 utterances of ``sequence_seconds``: each span
+    against its window run alone (``SEQUENCE_SPAN_ATOL``), the interior
+    against the whole offline forward (``SEQUENCE_INTERIOR``), wall ms
+    beside it.  A failed or late worker raises; the other failures are
+    listed in ``failures``."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    device = spec["device"]
+    mix, clean = train_batch(spec["batch"], spec["seconds"])
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    kw = {}
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        kw["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group(spec["backend"], init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0, **kw)
+    group = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+             "nccl": (".".join(str(v) for v in torch.cuda.nccl.version())
+                      if spec["backend"] == "nccl" else None)}
+    say("parallel_group", **group)
+    try:
+        one = {form: _world_one(spec, form, distill, groups, mix, clean, timed=groups == 1)
+               for form, (distill, groups) in PARALLEL_FORMS.items()}
+        one["pretrain"] = _world_one(spec, "pretrain", {}, 1, mix, clean, timed=False,
+                                     pretrain=True)
+    finally:
+        dist.destroy_process_group()
+    _release(device)
+    failures = [f for r in one.values() for f in r["failures"]]
+    rec_a = {form: {k: v for k, v in r.items() if k != "reference"} for form, r in one.items()}
+
+    t0 = time.perf_counter()
+    ranks = _workers("dp", spec, out)
+    rec_b = {"seconds": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+             "world": ranks[0]["world"]}
+    for form in PARALLEL_FORMS:
+        ref = one[form]["reference"]
+        grads = torch.load(out / f"{form}.pt")
+        errors, zero = _grad_errors(grads, ref["grads"], ref["grad_norm"])
+        tol = {n: max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * ref["floors"][n]) for n in errors}
+        over = {n: (e, tol[n]) for n, e in errors.items() if e > tol[n]}
+        loss = ranks[0][form]["loss"]
+        loss_err = abs(loss - ref["loss"]) / abs(ref["loss"])
+        worst = max(errors, key=errors.get)
+        rec_b[form] = {"loss": loss, "loss_world_one": ref["loss"], "loss_rel_err": loss_err,
+                       "grad_max_rel_l2": errors[worst], "grad_worst": worst,
+                       "grad_worst_floor": ref["floors"][worst], "zero_grad_max": zero,
+                       **{k: [x[form].get(k) for x in ranks]
+                          for k in ("step_ms", "peak_mem_bytes", "rows", "launches")}}
+        if loss_err > TRAIN_LOSS_RTOL or over or zero > ZERO_GRAD:
+            failures.append(f"(b) {form}: loss {loss_err}, gradients {over}, zero {zero}")
+        if any(x[form]["loss"] != loss for x in ranks):
+            failures.append(f"(b) {form}: the ranks log other losses")
+        want = ({k: 2 * v for k, v in PARALLEL_LAUNCHES[form.split("_")[0]].items()}
+                if device == "cuda" else {})
+        for x in ranks:
+            if x[form]["launches"] != want:
+                failures.append(f"(b) {form} launches {x[form]['launches']}, expected {want}")
+
+    t0 = time.perf_counter()
+    ranks = _workers("sequence", spec, out)
+    rec_c = {"seconds": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+             "world": ranks[0]["world"], "utterances": [2, spec["sequence_seconds"]]}
+    wav = torch.from_numpy(sequence_signal(spec["sequence_seconds"])).to(device)
+    edge = int(0.5 * 16000)
+    for name, model in sequence_models(spec).items():
+        with torch.no_grad():
+            model(wav, training=False)
+            _sync(device)
+            t0 = time.perf_counter()
+            offline = model(wav, training=False).wav
+            _sync(device)
+            offline_ms = (time.perf_counter() - t0) * 1e3
+        got = np.concatenate([np.load(out / f"{name}.r{r}.npy")
+                              for r in range(PARALLEL_WORLD)], axis=1)
+        a, b = offline.cpu().numpy()[:, edge:-edge], got[:, edge:-edge]
+        interior = float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(a ** 2)))
+        span_err = max(x[name]["span_vs_window_max_abs"] for x in ranks)
+        rec_c[name] = {"interior_rel_rms": interior, "span_vs_window_max_abs": span_err,
+                       "sharded_ms": [x[name]["ms"] for x in ranks], "offline_ms": offline_ms,
+                       "launches": [x[name]["launches"] for x in ranks],
+                       "shape": list(got.shape)}
+        if got.shape != tuple(wav.shape) or not np.isfinite(got).all():
+            failures.append(f"(c) {name}: spans {got.shape}, finite {np.isfinite(got).all()}")
+        if interior >= SEQUENCE_INTERIOR or span_err > SEQUENCE_SPAN_ATOL:
+            failures.append(f"(c) {name}: interior {interior}, span vs window {span_err}")
+        want = spec["sequence_lstm_launches"] if device == "cuda" else 0
+        if any(x[name]["launches"].get("lstm_seq_fwd", 0) != want for x in ranks):
+            failures.append(f"(c) {name}: K1f launches {rec_c[name]['launches']}, "
+                            f"expected {want} a rank")
+    _release(device)
+    launches = {
+        "parallel_world_one": _parallel_launches(
+            [r.get("launches", {}) for r in rec_a.values()]
+            + [r["dp_step_launches"] for r in rec_a.values()]),
+        "parallel_world_two": _parallel_launches(
+            [x for form in PARALLEL_FORMS for x in rec_b[form]["launches"]]),
+        "parallel_sequence": _parallel_launches(
+            [x for name in ("r4_student", "dccrn_cl_teacher") for x in rec_c[name]["launches"]]),
+    }
+    return {"group": group, "world_one": rec_a, "world_two": rec_b, "sequence": rec_c,
+            "launches": launches, "failures": failures}
+
+
+def phase_parallel(phase7: dict, pretraining: dict) -> dict:
+    """Phase 26: ``parallel_checks`` on the card at full width, the ``_g1``
+    forms of (a) beside phase 7's step and the pretraining step beside
+    phase 25's; any failure raises."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as directory:
+        rec = parallel_checks(PARALLEL_SPEC, Path(directory))
+    for form, r in rec["world_one"].items():
+        if form.endswith("_g1"):
+            r["beside_phase7_step_ms_median"] = phase7["step_ms_median"]
+    rec["world_one"]["pretrain"]["beside_phase25_step_ms_median"] = (
+        pretraining["f32"]["step_ms_median"])
+    for part in ("world_one", "world_two", "sequence"):
+        say(f"parallel_{part}", **rec[part])
+    say("parallel_launches", **rec["launches"])
+    if rec["failures"]:
+        raise RuntimeError(f"phase 26 (parallel) failed: {rec['failures']}")
+    return rec
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -3851,6 +4366,8 @@ def main() -> None:
         asteroid = phase_asteroid(directory)
         dccrnet = phase_dccrnet_training(asteroid["teacher_pth"], directory, training)
         pretraining = phase_pretraining(training, directory)
+    parallel = phase_parallel(training, pretraining)
+    parallel_launches = parallel["launches"]
     bf16_paths = {f"training_bf16_{k}": bf16[k] for k in ("batch32", "batch64", "kernels")}
     bf16_paths.update({f"training_bf16_block_{k}": r for k, r in bf16_block.items()})
     # phase 24's steps, each kernel's launches by form
@@ -3879,7 +4396,8 @@ def main() -> None:
         "launches": (serving_launches + bf16_teacher["lstm_launches"] + trained["lstm_seq_fwd"]
                      + sum(r["lstm_launches"] for r in evaluation.values())
                      + asteroid["lstm_launches"] + dccrnet["cli"]["lstm_launches"]
-                     + pretraining["cli"]["lstm_launches"]),
+                     + pretraining["cli"]["lstm_launches"]
+                     + sum(r.get("lstm_seq_fwd", 0) for r in parallel_launches.values())),
         "max_abs_err": max(r["max_abs_err_y"] for r in fwd_shapes),
         "ms": fwd["ms"],
         "plain_ms": fwd["plain_ms"],
@@ -3908,7 +4426,9 @@ def main() -> None:
                              "dccrnet_cli": dccrnet["cli"]["lstm_launches"],
                              **{k: r["launches"]["lstm_seq_fwd"]
                                 for k, r in pretrain_paths.items()},
-                             "pretrain_cli": pretraining["cli"]["lstm_launches"]},
+                             "pretrain_cli": pretraining["cli"]["lstm_launches"],
+                             **{k: r.get("lstm_seq_fwd", 0)
+                                for k, r in parallel_launches.items()}},
         "pretraining_shapes": [r for r in fwd_shapes if (r["T"], r["N"], r["H"]) in (
             (483, 64, 128), REAL_LSTM_SHAPE)],
         "per_shape": fwd_shapes,
@@ -3918,7 +4438,8 @@ def main() -> None:
         "source": src + "lstm_seq_bwd.cu",
         "replaces": pallas + "lstm.py:60",
         "launches": (trained["lstm_seq_bwd"] + dccrnet["cli"]["lstm_bwd_launches"]
-                     + pretraining["cli"]["lstm_bwd_launches"]),
+                     + pretraining["cli"]["lstm_bwd_launches"]
+                     + sum(r.get("lstm_seq_bwd", 0) for r in parallel_launches.values())),
         "max_abs_err": max(max(r["max_abs_err_dxw"], r["max_rel_err_dw_hh"])
                            for r in bwd_shapes),
         "ms": bwd["ms"],
@@ -3941,7 +4462,9 @@ def main() -> None:
                              "dccrnet_cli": dccrnet["cli"]["lstm_bwd_launches"],
                              **{k: r["launches"]["lstm_seq_bwd"]
                                 for k, r in pretrain_paths.items()},
-                             "pretrain_cli": pretraining["cli"]["lstm_bwd_launches"]},
+                             "pretrain_cli": pretraining["cli"]["lstm_bwd_launches"],
+                             **{k: r.get("lstm_seq_bwd", 0)
+                                for k, r in parallel_launches.items()}},
         "pretraining_shapes": [r for r in bwd_shapes if (r["T"], r["N"], r["H"]) in (
             (483, 64, 128), REAL_LSTM_SHAPE)],
         "per_shape": bwd_shapes,
@@ -3987,10 +4510,12 @@ def main() -> None:
             "source": src + source,
             "replaces": pallas + line,
             "launches": (block_training["launches"][name] + option_training["launches"][name]
-                         + dccrnet["block"]["launches"][name]),
+                         + dccrnet["block"]["launches"][name]
+                         + sum(r.get(name, 0) for r in parallel_launches.values())),
             "launches_by_path": {"training_block": block_training["launches"][name],
                                  "training_options": option_training["launches"][name],
-                                 "dccrnet_training_block": dccrnet["block"]["launches"][name]},
+                                 "dccrnet_training_block": dccrnet["block"]["launches"][name],
+                                 **{k: r.get(name, 0) for k, r in parallel_launches.items()}},
             "max_abs_err": max(r[err] for r in block_shapes),
             "ms": block[f"{key}_ms"],
             "plain_ms": block[f"{key}_plain_ms"],
@@ -4151,4 +4676,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["parallel-worker"]:
+        parallel_worker(sys.argv[2:])
+    else:
+        main()

@@ -19,6 +19,15 @@ an ``.npz`` bundle or an asteroid ``.pth`` over the configured test set
 (``data.synthetic=true`` for the synthetic one).  ``import-torch`` converts
 an asteroid ``.pth`` into an ``.npz`` bundle.  ``bench`` is in the parser and
 raises ``NotImplementedError`` naming its ROADMAP item.
+
+``distill`` and ``pretrain`` join the process group first
+(``parallel.distributed.initialize``), so
+
+    torchrun --nproc_per_node=N -m speech_enhancement_clskd_tpu_torch distill ...
+
+trains data parallel over N ranks (``mesh.data``, ``mesh.model``
+overridable; NCCL on ``cuda``, gloo on ``cpu``); rank 0 alone prints and
+writes the checkpoints, metrics and bundles.
 """
 
 from __future__ import annotations
@@ -107,17 +116,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = load_config(args.config, overrides)
     if args.command == "evaluate":
         return _evaluate(cfg, args)
-    if args.command == "pretrain":
-        return _pretrain(cfg, args)
-    return _distill(cfg, args)
+    from .parallel import distributed
+
+    joined = distributed.initialize(device=args.device)
+    try:
+        if args.command == "pretrain":
+            return _pretrain(cfg, args)
+        return _distill(cfg, args)
+    finally:
+        if joined:
+            distributed.leave()
 
 
 def _distill(cfg, args) -> int:
+    from .parallel import distributed
     from .train.trainer import Trainer
     from .utils.observability import MetricWriter
     from .utils.serialization import CheckpointManager, load_bundle
 
     trainer = Trainer(cfg, device=args.device)
+    main = trainer.mesh.is_main
     teacher_vars = None
     if args.teacher_bundle:
         tcfg, teacher_vars, _ = load_bundle(args.teacher_bundle)
@@ -127,15 +145,18 @@ def _distill(cfg, args) -> int:
                 f"{cfg.teacher.kernel_num}")
 
     mgr = CheckpointManager(args.out, monitor=cfg.monitor, keep_top_k=cfg.keep_top_k)
-    writer = MetricWriter(os.path.join(args.out, "metrics.jsonl"))
+    writer = MetricWriter(os.path.join(args.out, "metrics.jsonl")) if main else None
     trainer.init_state(teacher_variables=teacher_vars)
     if args.resume and mgr.best_step() is not None:
         mgr.restore(trainer)
-        print(f"resumed from step {trainer.step}")
+        if main:
+            print(f"resumed from step {trainer.step}")
     history = trainer.fit(checkpoint_manager=mgr, metric_writer=writer)
-    writer.close()
-    bundle_path = bundle_best(trainer, mgr, history, args.out)
-    print(json.dumps({"final_metrics": history, "bundle": bundle_path}))
+    if main:
+        writer.close()
+        bundle_path = bundle_best(trainer, mgr, history, args.out)
+        print(json.dumps({"final_metrics": history, "bundle": bundle_path}))
+    distributed.barrier(trainer.group)
     return 0
 
 
@@ -165,15 +186,19 @@ def _pretrain(cfg, args) -> int:
     from .utils.bridge import flax_from_torch_state
     from .utils.serialization import CheckpointManager, save_bundle
 
+    from .parallel import distributed
+
     model_cfg = cfg.teacher if args.model == "teacher" else cfg.student
     trainer = PretrainTrainer(cfg, model_cfg=model_cfg, device=args.device)
     mgr = CheckpointManager(args.out, monitor=cfg.monitor, keep_top_k=cfg.keep_top_k)
     history = trainer.fit(checkpoint_manager=mgr)
-    bundle_path = os.path.join(args.out, f"{args.model}_model")
-    v = flax_from_torch_state(trainer.model.state_dict())
-    save_bundle(bundle_path, v["params"], v.get("batch_stats", {}), model_cfg,
-                infos={"history": history, "loss_mode": cfg.loss_mode})
-    print(json.dumps({"final_metrics": history, "bundle": bundle_path + ".npz"}))
+    if trainer.mesh.is_main:
+        bundle_path = os.path.join(args.out, f"{args.model}_model")
+        v = flax_from_torch_state(trainer.model.state_dict())
+        save_bundle(bundle_path, v["params"], v.get("batch_stats", {}), model_cfg,
+                    infos={"history": history, "loss_mode": cfg.loss_mode})
+        print(json.dumps({"final_metrics": history, "bundle": bundle_path + ".npz"}))
+    distributed.barrier(trainer.group)
     return 0
 
 

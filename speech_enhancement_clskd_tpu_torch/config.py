@@ -3,10 +3,10 @@
 The port's own copy of the dataclasses of
 ``speech_enhancement_clskd_tpu/config.py``: the model (``STFTConfig``,
 ``DCCRNConfig`` and the four named geometries) and training (``DataConfig``,
-``DistillConfig``, ``OptimConfig``, ``TrainConfig``), and ``load_config``:
-defaults, then a YAML file, then dotted ``key.path=value`` overrides.
-``MeshConfig`` comes with data parallelism.  ``to_yaml`` writes a config
-back out.
+``DistillConfig``, ``OptimConfig``, ``MeshConfig``, ``TrainConfig``), and
+``load_config``: defaults, then a YAML file, then dotted ``key.path=value``
+overrides (``mesh.data=2`` among them).  ``to_yaml`` writes a config back
+out.
 
 ``yaml`` is imported only when a YAML file is read or written (the card's
 machine has none).  Override values are read by ``_parse_value`` without it,
@@ -161,12 +161,24 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The ranks' layout: ``data`` x ``model`` (the JAX ``MeshConfig``).
+    ``data=-1`` takes every rank the model axis leaves
+    (``parallel.mesh.make_mesh``); the trainers run data parallel over the
+    data axis and do not take ``model > 1`` yet."""
+
+    data: int = -1
+    model: int = 1
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     teacher: DCCRNConfig = field(default_factory=lambda: TEACHER)
     student: DCCRNConfig = field(default_factory=lambda: STUDENT)
     data: DataConfig = field(default_factory=DataConfig)
     distill: DistillConfig = field(default_factory=DistillConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     max_epochs: int = 20
     seed: int = 0
     log_every: int = 50

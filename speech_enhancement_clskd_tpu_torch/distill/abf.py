@@ -44,6 +44,13 @@ twice, where JAX's functional remat moves them once.  So a block's
 checkpointed part (``ABF.run``) normalizes on batch statistics without
 moving them and returns them, and the running statistics move outside the
 checkpoint (``ABF.update_running``), once a step.
+
+Under data parallelism (bn1's and bn2's ``process_group``, set by the
+trainer) bn1's tap moments and bn2's moments are those of the global batch:
+the ranks' raw sums are added by a differentiable all-reduce before the
+division, so the K5 kernel gets bn1 folded from the global moments.  Under
+``remat`` the recomputed forward repeats those all-reduces in the backward,
+in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from ..kernels.abf_block import abf_block, abf_block_dispatchable
 from ..kernels.attfuse import attention_fuse, attfuse_dispatchable
 from ..kernels.conv3x3 import conv3x3
 from ..ops.complex_layers import BatchNorm, batch_moments
+from ..parallel import distributed
 
 # flax's truncated_normal initializers divide the stddev by the stddev of a
 # unit normal truncated to [-2, 2]
@@ -103,18 +111,26 @@ def _resize_freq(x: torch.Tensor, d_out: int, t_out: Optional[int] = None) -> to
     return _nearest_axis(_nearest_axis(x, 1, d_out), 2, t_out)
 
 
-def _channel_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def _channel_moments(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """float32 per-channel first moment [C] and second-moment matrix [C, C]
-    of a [..., C] map, over all leading axes."""
+    of a [..., C] map, over all leading axes.  With a data-parallel
+    ``group`` the ranks' raw sums are added first (one differentiable
+    all-reduce) and ``n`` is the global count."""
     xf = x.float().reshape(-1, x.shape[-1])
-    n = xf.shape[0]
-    return xf.mean(dim=0), (xf.T @ xf) / n, n
+    c, n = xf.shape[1], xf.shape[0]
+    s1, s2 = xf.sum(dim=0), xf.T @ xf
+    if group is not None:
+        sums = distributed.all_reduce(torch.cat([s1, s2.reshape(-1)]), group)
+        s1, s2 = sums[:c], sums[c:].view(c, c)
+        n *= distributed.world_size(group)
+    return s1 / n, s2 / n, n
 
 
-def _bn1_moments_from_tap(tap: torch.Tensor, w1: torch.Tensor):
+def _bn1_moments_from_tap(tap: torch.Tensor, w1: torch.Tensor, group=None):
     """Batch-norm moments of ``x1 = tap @ w1`` without forming x1:
-    mean = m1 @ w1 and E[x1^2]_m = (w1^T E[tap tap^T] w1)_mm."""
-    m1, m2, n = _channel_moments(tap)
+    mean = m1 @ w1 and E[x1^2]_m = (w1^T E[tap tap^T] w1)_mm (over the
+    ranks of ``group``, ``_channel_moments``)."""
+    m1, m2, n = _channel_moments(tap, group)
     w1f = w1.float()
     mean = m1 @ w1f
     e2 = ((m2 @ w1f) * w1f).sum(dim=0)
@@ -265,7 +281,7 @@ class ABF(nn.Module):
         moments)``, ``moments`` bn1's and bn2's ``(mean, var, n)`` under
         ``training``, else None."""
         w1 = self.conv1.kernel[0, 0]
-        m1 = _bn1_moments_from_tap(x, w1) if training else None
+        m1 = _bn1_moments_from_tap(x, w1, self.bn1.process_group) if training else None
         aff = self.bn1(None, use_batch_stats=training, return_affine=True, moments=m1)
         fuse = self.att_conv is not None and residual is not None
         if self.block_pallas and abf_block_dispatchable(
@@ -279,7 +295,7 @@ class ABF(nn.Module):
                 a, b0 = aff
                 xf = torch.matmul(x, w1.to(x.dtype)) * a.to(x.dtype) + b0.to(x.dtype)
             raw = self.conv2(xf)
-        m2 = batch_moments(raw) if training else None
+        m2 = batch_moments(raw, self.bn2.process_group) if training else None
         if self.bn2_affine_out:
             out = (raw,) + self.bn2(None, use_batch_stats=training, return_affine=True,
                                     moments=m2)

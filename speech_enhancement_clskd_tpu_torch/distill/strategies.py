@@ -17,6 +17,9 @@ strategies:
 
 Every strategy adds the base loss, the single-resolution log-STFT-magnitude
 L1 of the student output against the clean target.
+
+Under data parallelism (``group``) the SPKD Grams are those of the global
+batch (``spkd_term``); every other term is a mean over the rows.
 """
 
 from __future__ import annotations
@@ -24,11 +27,13 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..config import DistillConfig
 from ..losses.kd import hcl, spkd_loss, spkd_loss_affine
 from ..losses.spectral import multi_resolution_stft_loss
 from ..models.dccrn import DCCRNOutput
+from ..parallel import distributed
 
 STRATEGIES = ("clskd", "reviewkd", "spkd", "mse", "stft")
 
@@ -55,11 +60,19 @@ def distill_loss(
     dcfg: DistillConfig,
     fused_encoder: Optional[list] = None,
     fused_decoder: Optional[list] = None,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss + per-term logs (``loss_keys(strategy)``) for one strategy.
     ``fused_encoder`` and ``fused_decoder`` are the ReviewKD outputs over the
     student's taps (``clskd`` and ``reviewkd``; the other strategies take
-    none)."""
+    none).
+
+    ``group``: the data-parallel group whose ranks' rows form the batch
+    (``None``: one process).  Each rank's loss is then its share of the
+    global loss times the group's size, as the trainer's gradient average
+    wants it: a term that is a mean over the rows (the base loss, ``mse``,
+    ``stft``, HCL) is the rank's own mean, and an SPKD term is computed
+    alike on every rank over the global batch (``spkd_term``)."""
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown distill strategy {strategy!r}")
     logs: Dict[str, torch.Tensor] = {}
@@ -67,19 +80,15 @@ def distill_loss(
     logs["base_loss"] = base
     gg = dcfg.spkd_gram_groups
 
-    def _sp(sf, tf):
-        if isinstance(sf, tuple):  # (raw conv2 map, a, b): bn2 folded into the Grams
-            return spkd_loss_affine(sf[0], sf[1], sf[2], tf, "batchmean", groups=gg)
-        return spkd_loss(sf, tf, "batchmean", groups=gg)
+    def _sp(sf, tf, batch_axis=0, groups=gg):
+        return spkd_term(sf, tf, groups, group, batch_axis)
 
     if strategy == "clskd":
         enc = sum(_sp(sf, tf) for sf, tf in zip(fused_encoder, t_out.taps.encoder))
         dec = sum(_sp(sf, tf) for sf, tf in zip(fused_decoder, t_out.taps.decoder))
         # LSTM taps are [T, B, F]: the Gram runs over batch axis 1
-        lr = spkd_loss(s_out.taps.lstm_real, t_out.taps.lstm_real, "batchmean",
-                       batch_axis=1, groups=gg)
-        li = spkd_loss(s_out.taps.lstm_imag, t_out.taps.lstm_imag, "batchmean",
-                       batch_axis=1, groups=gg)
+        lr = _sp(s_out.taps.lstm_real, t_out.taps.lstm_real, batch_axis=1)
+        li = _sp(s_out.taps.lstm_imag, t_out.taps.lstm_imag, batch_axis=1)
         logs.update(enc_loss=enc, dec_loss=dec, clstm_real_loss=lr, clstm_imag_loss=li)
         distill = enc + dec + lr + li
     elif strategy == "reviewkd":
@@ -95,14 +104,14 @@ def distill_loss(
             s_b, t_b = s_tap.transpose(0, 1), t_tap.transpose(0, 1)
             if s_b.shape == t_b.shape:
                 return hcl([s_b], [t_b])
-            return spkd_loss(s_b, t_b, "batchmean")
+            return _sp(s_b, t_b, groups=1)
 
         lr = lstm_term(s_out.taps.lstm_real, t_out.taps.lstm_real)
         li = lstm_term(s_out.taps.lstm_imag, t_out.taps.lstm_imag)
         logs.update(enc_loss=enc, dec_loss=dec, clstm_real_loss=lr, clstm_imag_loss=li)
         distill = enc + dec + lr + li
     elif strategy == "spkd":
-        distill = spkd_loss(s_out.wav, t_out.wav, "batchmean", groups=gg)
+        distill = _sp(s_out.wav, t_out.wav)
         logs["spkd_loss"] = distill
     elif strategy == "mse":
         distill = torch.mean((s_out.wav - t_out.wav) ** 2)
@@ -113,6 +122,37 @@ def distill_loss(
     total = base + dcfg.distill_weight * distill
     logs["train_loss"] = total
     return total, logs
+
+
+def spkd_term(student, teacher, groups: int, group: Optional[dist.ProcessGroup] = None,
+              batch_axis: int = 0) -> torch.Tensor:
+    """The ``batchmean`` SPKD loss of ``student`` (a map, or ``(raw conv2
+    map, a, b)`` with bn2's affine folded into the Grams) against
+    ``teacher`` in ``groups`` Gram groups along ``batch_axis``, over the
+    global batch of ``group``'s ranks.  Where ``groups`` is a multiple of
+    the group's size each rank's rows hold whole groups, and the rank takes
+    the Grams of its own ``groups / N`` (the mean over the ranks is the
+    global mean); otherwise both maps are gathered along their batch axis
+    first (``parallel.distributed.all_gather``) and every rank computes the
+    global loss alike, the Gram gate (``kernels.gram``) seeing the same
+    ``[B, D]`` as in one process."""
+    n = distributed.world_size(group)
+    if groups % n:
+        if isinstance(student, tuple):
+            student = (distributed.all_gather(student[0], batch_axis, group),) + student[1:]
+        else:
+            student = distributed.all_gather(student, batch_axis, group)
+        teacher = distributed.all_gather(teacher, batch_axis, group)
+        n = 1
+    if isinstance(student, tuple):  # (raw conv2 map, a, b): bn2 folded into the Grams
+        if groups > 1:  # as spkd_loss_affine takes groups > 1
+            raw, a, b = student
+            student = raw * a.to(raw.dtype) + b.to(raw.dtype)
+        else:
+            return spkd_loss_affine(student[0], student[1], student[2], teacher, "batchmean")
+    # the fused Gram pair only for one global group, as in one process
+    return spkd_loss(student, teacher, "batchmean", use_pallas=None if groups == 1 else False,
+                     batch_axis=batch_axis, groups=groups // n)
 
 
 def loss_keys(strategy: str) -> Tuple[str, ...]:

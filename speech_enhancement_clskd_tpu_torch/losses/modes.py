@@ -36,6 +36,14 @@ def _mel_term(labels, est_real, est_imag, k: stft_ops.STFTKernels) -> torch.Tens
     return array_mel_loss(clean_mags, est_mags, fft_size=k.fft_len)
 
 
+def mean_over_rows(loss_mode: str) -> bool:
+    """Whether every term of ``loss_mode`` is a mean over the batch's rows
+    (of per-utterance or per-element values), so that the mean of the
+    ranks' losses on equal shares of a batch is the batch's loss: all but
+    the modes with SI-SDR, a ratio of batch means."""
+    return "SI-SDR" not in loss_mode
+
+
 def dccrn_loss(
     inputs: torch.Tensor,
     labels: torch.Tensor,

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import distributed
 from .complex_layers import split_complex
 
 
@@ -39,6 +40,12 @@ class ComplexBatchNorm(nn.Module):
     statistics updated from the batch moments cast to float32, as the JAX
     module does.  ``Wri`` is drawn uniform in [-0.9, 0.9] from the
     generator of ``reset_parameters``.
+
+    ``process_group`` (``None``: one process) is the data-parallel group
+    whose ranks' rows form the batch: the batch means are then the global
+    ones, the ranks' raw sums added by a differentiable all-reduce (the
+    centred second moments taken about the global mean, as the JAX module
+    takes them over the whole batch: two all-reduces a layer).
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
@@ -48,6 +55,7 @@ class ComplexBatchNorm(nn.Module):
         self.eps = eps
         self.affine = affine
         self.track_running_stats = track_running_stats
+        self.process_group = None
         if affine:
             for name in ("Wrr", "Wri", "Wii", "Br", "Bi"):
                 self.register_parameter(name, nn.Parameter(torch.empty(features)))
@@ -69,22 +77,30 @@ class ComplexBatchNorm(nn.Module):
                                 ("RVii", 1.0)):
                 getattr(self, name).fill_(value)
 
+    def _batch_means(self, terms, axes, n: int):
+        """The batch means of ``terms`` over ``axes``: each one's float32
+        sum over the rows (over every rank's rows with a ``process_group``,
+        one differentiable all-reduce) over the global count ``n``, rounded
+        once to the terms' dtype, as ``torch.mean`` rounds."""
+        sums = [torch.sum(t, dim=axes, dtype=torch.float32) for t in terms]
+        if self.process_group is not None:
+            sums = distributed.all_reduce(torch.stack(sums), self.process_group).unbind(0)
+        return [(s / n).to(t.dtype) for s, t in zip(sums, terms)]
+
     def forward(self, x: torch.Tensor, training: bool = False) -> torch.Tensor:
         dt = x.dtype
         xr, xi = split_complex(x)
         axes = tuple(range(x.ndim - 1))
+        n = xr.numel() // xr.shape[-1] * distributed.world_size(self.process_group)
         use_batch = training or not self.track_running_stats
         if use_batch:
-            mr = torch.mean(xr, dim=axes)
-            mi = torch.mean(xi, dim=axes)
+            mr, mi = self._batch_means((xr, xi), axes, n)
         else:
             mr, mi = self.RMr.to(dt), self.RMi.to(dt)
         xr = xr - mr
         xi = xi - mi
         if use_batch:
-            vrr = torch.mean(xr * xr, dim=axes)
-            vri = torch.mean(xr * xi, dim=axes)
-            vii = torch.mean(xi * xi, dim=axes)
+            vrr, vri, vii = self._batch_means((xr * xr, xr * xi, xi * xi), axes, n)
         else:
             vrr, vri, vii = self.RVrr.to(dt), self.RVri.to(dt), self.RVii.to(dt)
         if training and self.track_running_stats:

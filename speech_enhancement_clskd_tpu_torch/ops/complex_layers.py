@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed
+
 
 def split_complex(x: torch.Tensor, dim: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
     c = x.shape[dim] // 2
@@ -251,6 +253,12 @@ class BatchNorm(nn.Module):
     alone, for a caller that normalizes with ``training=False,
     use_batch_stats=True`` and moves the statistics itself (the ABF blocks
     under recomputation, ``distill.abf``).
+
+    ``process_group`` (``None``: one process) is the data-parallel group
+    whose ranks' rows form the batch: the batch moments are then the
+    global ones (``batch_moments``), as ``SyncBatchNorm``'s are, and every
+    rank's running statistics move alike
+    (``parallel.distributed.sync_batch_stats`` sets it).
     """
 
     MOMENTUM = 0.1
@@ -258,6 +266,7 @@ class BatchNorm(nn.Module):
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.process_group = None
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -281,7 +290,8 @@ class BatchNorm(nn.Module):
         if use_batch_stats is None:
             use_batch_stats = training
         if use_batch_stats:
-            mean, var, n = moments if moments is not None else batch_moments(x)
+            mean, var, n = (moments if moments is not None
+                            else batch_moments(x, self.process_group))
             mean, var = mean.float(), var.float()
             if training:
                 self.update_running(mean, var, n)
@@ -305,10 +315,18 @@ class BatchNorm(nn.Module):
         self.var.copy_((1 - m) * self.var + m * unbiased.to(self.var.dtype))
 
 
-def batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
+def batch_moments(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """float32 per-channel batch mean and biased variance (E[x^2] - E[x]^2)
-    of a [..., C] map over all leading axes, and the element count a channel."""
+    of a [..., C] map over all leading axes, and the element count a channel.
+    With a data-parallel ``group`` the ranks' raw sums (sum x, sum x^2) are
+    added first (one differentiable all-reduce) and the count is the
+    global one, so every rank gets the moments of the global batch."""
     dims = tuple(range(x.ndim - 1))
     xf = x.float()
-    mean = xf.mean(dim=dims)
-    return mean, xf.square().mean(dim=dims) - mean.square(), x.numel() // x.shape[-1]
+    n = x.numel() // x.shape[-1]
+    sums = (xf.sum(dim=dims), xf.square().sum(dim=dims))
+    if group is not None:
+        sums = distributed.all_reduce(torch.stack(sums), group).unbind(0)
+        n *= distributed.world_size(group)
+    mean = sums[0] / n
+    return mean, sums[1] / n - mean.square(), n

@@ -25,6 +25,13 @@ loader, each shuffled by ``(cfg.seed, epoch)``, logs every ``log_every``
 steps, ``validate`` after each epoch, top-k checkpoints through
 ``utils.serialization.CheckpointManager``) and ``validate`` (SI-SDR and STOI
 of the model on running statistics, no PIT, on the device, read once).
+
+Data parallelism as in ``train.trainer.Trainer``: with a data group
+(``mesh``) each rank trains on its rows of the global batch, BN (real or
+complex) on the global batch's moments, the gradients averaged over the
+ranks; a loss mode whose terms are all means over the rows
+(``losses.modes.mean_over_rows``) is taken on the rank's rows, the others
+(``SI-SDR``, a ratio of batch means) on the gathered global batch.
 """
 
 from __future__ import annotations
@@ -39,11 +46,13 @@ from ..config import DCCRNConfig, TrainConfig
 from ..data.librimix import LibriMixDataset
 from ..data.loader import make_loader
 from ..data.synthetic import SyntheticEnhancementDataset
-from ..losses.modes import LOSS_MODES, dccrn_loss
+from ..losses.modes import LOSS_MODES, dccrn_loss, mean_over_rows
 from ..losses.signal import si_sdr
 from ..metrics.stoi import stoi_batch
 from ..models.dccrn import build_model
 from ..ops import stft as stft_ops
+from ..parallel import distributed
+from ..parallel.mesh import Mesh, trainer_mesh
 from ..utils.device import float32_math, resolve_device
 from .trainer import _global_norm
 
@@ -58,20 +67,26 @@ class PretrainTrainer:
     trains, validates and checkpoints epoch by epoch.  The one module is
     ``model`` (``STATE_PARTS``; ``utils.bridge.load_pretrain_state`` loads a
     JAX pretraining state into it); ``step`` counts optimizer steps and
-    ``epoch`` completed epochs.
+    ``epoch`` completed epochs.  ``mesh``: as ``Trainer`` takes it (data
+    parallel over its data group; ``mesh.model > 1`` raises).
     """
 
     STATE_PARTS = ("model",)
 
     def __init__(self, cfg: TrainConfig = TrainConfig(),
                  model_cfg: Optional[DCCRNConfig] = None,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh: Optional[Mesh] = None):
         if cfg.loss_mode not in LOSS_MODES:
             raise ValueError(f"unknown loss_mode {cfg.loss_mode!r}")
         self.cfg = cfg
         self.model_cfg = model_cfg or cfg.teacher
         self.device = resolve_device(device)
+        self.mesh = trainer_mesh(cfg.mesh, mesh, self.device.type)
+        self.group = self.mesh.data_group
+        if self.group is not None:
+            self.device = distributed.local_device(self.device)
         self.model = build_model(self.model_cfg)
+        distributed.sync_batch_stats(self.model, self.group)
         self.loss_mode = cfg.loss_mode
         # the mel terms' analysis bases, for the modes that read them (the
         # JAX trainer builds them for every mode, so a config whose window
@@ -87,11 +102,12 @@ class PretrainTrainer:
 
     def init_state(self, seed: Optional[int] = None) -> "PretrainTrainer":
         """Seeded weights (drawn on the CPU from one ``torch.Generator``,
-        then moved to the device), the model in training mode, and a fresh
-        Adam."""
+        then moved to the device; under data parallelism rank 0's), the
+        model in training mode, and a fresh Adam."""
         g = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
         self.model.cpu().reset_parameters(g)
         self.model.to(self.device).requires_grad_(True).train()
+        distributed.broadcast_tensors(list(self.model.state_dict().values()), 0, self.group)
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.cfg.optim.lr)
         self.step = 0
         self.epoch = 0
@@ -103,27 +119,38 @@ class PretrainTrainer:
         return {"model": self.model}
 
     def loss(self, mix: torch.Tensor, clean: torch.Tensor) -> torch.Tensor:
-        """The training forward and ``dccrn_loss`` of ``cfg.loss_mode``."""
+        """The training forward and ``dccrn_loss`` of ``cfg.loss_mode`` (of
+        this rank's rows ``mix``/``clean``: under data parallelism the
+        rank's share of the global loss times the group's size, as
+        ``average_gradients`` wants it)."""
         out = self.model(mix, training=True)
-        return dccrn_loss(out.wav, clean, out.est_real, out.est_imag,
+        wav, est_real, est_imag = out.wav, out.est_real, out.est_imag
+        if not mean_over_rows(self.loss_mode):
+            wav, clean, est_real, est_imag = (
+                None if t is None else distributed.all_gather(t, 0, self.group)
+                for t in (wav, clean, est_real, est_imag))
+        return dccrn_loss(wav, clean, est_real, est_imag,
                           loss_mode=self.loss_mode, stft_kernels=self.stft_kernels,
                           sample_rate=self.cfg.data.sample_rate)
 
     def train_step(self, mix, clean) -> Dict[str, torch.Tensor]:
         """One Adam step on ``mix``/``clean`` ([B, T] float32, numpy or
-        tensors).  Returns ``train_loss`` and ``grad_norm`` (the global
-        norm of the gradients) as 0-d tensors on the device."""
+        tensors; the global batch, of which a data-parallel rank takes its
+        rows).  Returns ``train_loss`` and ``grad_norm`` (the global norm
+        of the gradients) as 0-d tensors on the device."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before train_step()")
-        mix = torch.as_tensor(mix, dtype=torch.float32).to(self.device)
-        clean = torch.as_tensor(clean, dtype=torch.float32).to(self.device)
+        mix = distributed.local_rows(mix, 0, self.group, self.device)
+        clean = distributed.local_rows(clean, 0, self.group, self.device)
         with float32_math():
             loss = self.loss(mix, clean)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            distributed.average_gradients(list(self.model.parameters()), self.group)
             grad_norm = _global_norm(self.model.parameters())
             self.optimizer.step()
         self.step += 1
+        loss, = distributed.mean_over_ranks([loss], self.group)
         return {"train_loss": loss.detach(), "grad_norm": grad_norm.detach()}
 
     def make_datasets(self):
@@ -157,7 +184,8 @@ class PretrainTrainer:
         ``audio_s_per_s``).  A trainer whose ``init_state`` has not run is
         initialized first.  Epoch ``e`` shuffles with ``(cfg.seed, e)``;
         ``checkpoint_manager.save(self, metrics)`` runs after each
-        validation."""
+        validation (under data parallelism on rank 0, which alone logs,
+        the others waiting at a barrier)."""
         cfg = self.cfg
         if self.optimizer is None:
             self.init_state()
@@ -173,7 +201,7 @@ class PretrainTrainer:
             for mix, src in loader:
                 logs = self.train_step(mix, src[:, 0])
                 n += 1
-                if n % cfg.log_every == 0:
+                if n % cfg.log_every == 0 and self.mesh.is_main:
                     log_fn(f"epoch {epoch} step {n}: "
                            + " ".join(f"{k}={float(v):.4f}" for k, v in logs.items()))
             self._sync()
@@ -182,10 +210,13 @@ class PretrainTrainer:
             metrics = self.validate(val_ds)
             metrics["epoch_time_s"] = dt
             metrics["audio_s_per_s"] = n * cfg.data.batch_size * (cfg.data.segment or 3.0) / dt
-            log_fn(f"epoch {epoch} done: "
-                   + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+            if self.mesh.is_main:
+                log_fn(f"epoch {epoch} done: "
+                       + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
             if checkpoint_manager is not None:
-                checkpoint_manager.save(self, metrics)
+                if self.mesh.is_main:
+                    checkpoint_manager.save(self, metrics)
+                distributed.barrier(self.group)
             history = metrics
         return history
 
@@ -194,17 +225,22 @@ class PretrainTrainer:
         """Mean SI-SDR and STOI of the model on running statistics over
         ``val_ds`` in order, against the first source (no PIT), in batches
         of ``min(batch_size, len(val_ds))`` (the last partial batch
-        dropped, as in JAX); read to the host once, at the end."""
+        dropped, as in JAX); read to the host once, at the end.  Under data
+        parallelism each rank runs its rows: SI-SDR (a ratio of batch
+        means) on the gathered estimates, STOI averaged over the ranks."""
         sr = self.cfg.data.sample_rate
         loader = make_loader(val_ds, min(self.cfg.data.batch_size, len(val_ds)), shuffle=False)
         agg: Dict[str, List[torch.Tensor]] = {}
         for mix, src in loader:
-            mix = torch.as_tensor(mix, dtype=torch.float32).to(self.device)
+            mix = distributed.local_rows(mix, 0, self.group, self.device)
             clean = torch.as_tensor(src[:, 0], dtype=torch.float32).to(self.device)
+            local_clean = distributed.local_rows(clean, 0, self.group)
             with float32_math():
-                est = self.model(mix, training=False).wav
-                m = {"si_sdr": si_sdr(clean, est),
-                     "stoi": torch.mean(stoi_batch(clean, est, fs=sr))}
+                local_est = self.model(mix, training=False).wav
+                est = distributed.all_gather(local_est, 0, self.group)
+                stoi, = distributed.mean_over_ranks(
+                    [torch.mean(stoi_batch(local_clean, local_est, fs=sr))], self.group)
+                m = {"si_sdr": si_sdr(clean, est), "stoi": stoi}
             for k, v in m.items():
                 agg.setdefault(k, []).append(v)
         keys = list(agg)

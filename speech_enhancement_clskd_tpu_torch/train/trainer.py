@@ -71,6 +71,12 @@ checkpoints (``utils.serialization.CheckpointManager``) and JSONL metrics
 (``utils.observability.MetricWriter``).  The trainer counts its completed
 epochs (``epoch``), which a checkpoint keeps: a resumed ``fit`` starts at
 that epoch, with that epoch's shuffle.
+
+Data parallelism (``parallel.mesh``): the JAX trainer's step and fit loop
+run sharded over ``cfg.mesh``'s data axis under GSPMD; the port runs a
+process a device, each on its rows of the same global batch, with the
+collectives of ``parallel.distributed`` where the one-process step reduces
+over the batch (``Trainer``'s docstring).
 """
 
 from __future__ import annotations
@@ -101,6 +107,8 @@ from ..losses.signal import si_sdr
 from ..metrics.stoi import stoi_batch
 from ..models import dccrnet
 from ..models.dccrn import FeatureTaps, build_model
+from ..parallel import distributed
+from ..parallel.mesh import Mesh, trainer_mesh
 from ..utils.bridge import torch_state_from_flax
 from ..utils.device import float32_math, resolve_device
 
@@ -199,13 +207,30 @@ class Trainer:
     ``step`` counts optimizer steps and ``epoch`` completed epochs.  Under
     ``abf_reinit_each_step`` the chains hold the last step's drawn weights
     (``draw_abf``), which no optimizer moves.
+
+    Data parallelism: ``mesh`` (``parallel.mesh.make_mesh(cfg.mesh)`` by
+    default: the process group's ranks where one is up, else a world of 1)
+    gives the data group.  With one, every rank holds the same weights
+    (broadcast from rank 0 by ``init_state``), ``train_step`` and
+    ``eval_step`` take the global batch and run on the rank's rows
+    (``parallel.distributed.local_rows``), every batch norm takes the global
+    batch's moments, the SPKD Grams span the global batch
+    (``distill.strategies.spkd_term``), the gradients are averaged over the
+    ranks (one all-reduce of a flat buffer) and the logs, norms, clip and
+    validation metrics are the global ones, as the JAX step's are under
+    GSPMD.  Checkpoints are written by rank 0.  ``mesh.model > 1`` raises
+    ``NotImplementedError``.
     """
 
     def __init__(self, cfg: TrainConfig = TrainConfig(),
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", mesh: Optional[Mesh] = None):
         _check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = trainer_mesh(cfg.mesh, mesh, self.device.type)
+        self.group = self.mesh.data_group
+        if self.group is not None:
+            self.device = distributed.local_device(self.device)
         self.strategy = cfg.distill.strategy
         self.use_fusion = needs_fusion(self.strategy)
         self.reinit_abf = self.use_fusion and cfg.distill.abf_reinit_each_step
@@ -223,6 +248,9 @@ class Trainer:
                            remat=d.abf_remat)
             self.abf_enc = ReviewKD(s_enc, t_enc, d.abf_mid_channels, reverse=True, **kernels)
             self.abf_dec = ReviewKD(s_dec, t_dec, d.abf_mid_channels, reverse=False, **kernels)
+        for m in (self.student, self.teacher, self.abf_enc, self.abf_dec):
+            if m is not None:
+                distributed.sync_batch_stats(m, self.group)
         self.taps_dtype = _taps_dtype(cfg)
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
@@ -286,14 +314,18 @@ class Trainer:
         device), and a fresh optimizer over the trainable modules.
         ``teacher_variables``: a pretrained teacher's flax ``{params,
         batch_stats}`` tree (e.g. from ``utils.serialization.load_bundle``),
-        loaded over the seeded teacher."""
+        loaded over the seeded teacher.  Under data parallelism every
+        rank then takes rank 0's weights and statistics."""
         g = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
-        for m in (self.student, self.teacher, self.abf_enc, self.abf_dec):
-            if m is not None:
-                m.cpu().reset_parameters(g)
-                m.to(self.device)
+        modules = [m for m in (self.student, self.teacher, self.abf_enc, self.abf_dec)
+                   if m is not None]
+        for m in modules:
+            m.cpu().reset_parameters(g)
+            m.to(self.device)
         if teacher_variables is not None:
             self.teacher.load_state_dict(torch_state_from_flax(teacher_variables), strict=True)
+        distributed.broadcast_tensors(
+            [t for m in modules for t in m.state_dict().values()], 0, self.group)
         self.teacher.requires_grad_(False).eval()
         if self.reinit_abf:
             for m in (self.abf_enc, self.abf_dec):
@@ -310,12 +342,14 @@ class Trainer:
 
     def train_step(self, mix, clean) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``mix``/``clean`` ([B, T] float32, numpy or
-        tensors).  Returns the logs as 0-d tensors on the device, with the
-        keys of the JAX step (``log_keys(strategy)``)."""
+        tensors; the global batch, of which a data-parallel rank takes its
+        rows).  Returns the logs as 0-d tensors on the device, with the keys
+        of the JAX step (``log_keys(strategy)``), global under data
+        parallelism."""
         if self.optimizer is None:
             raise RuntimeError("call init_state() before train_step()")
-        mix = torch.as_tensor(mix, dtype=torch.float32).to(self.device)
-        clean = torch.as_tensor(clean, dtype=torch.float32).to(self.device)
+        mix = distributed.local_rows(mix, 0, self.group, self.device)
+        clean = distributed.local_rows(clean, 0, self.group, self.device)
         with float32_math():
             with torch.no_grad():
                 t_out = self.teacher(mix, bn_batch_stats=True)
@@ -334,9 +368,12 @@ class Trainer:
                 fused_enc = self.abf_enc(list(s_out.taps.encoder), training=True)
                 fused_dec = self.abf_dec(list(s_out.taps.decoder), training=True)
             loss, logs = distill_loss(self.strategy, s_out, t_out, clean, self.cfg.distill,
-                                      fused_enc, fused_dec)
+                                      fused_enc, fused_dec, group=self.group)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            distributed.average_gradients(
+                [p for m in self.trainable().values() for p in m.parameters()], self.group)
+            logs = dict(zip(logs, distributed.mean_over_ranks(list(logs.values()), self.group)))
             logs.update(self._grad_norms())
             if self.cfg.optim.grad_clip:
                 self._clip(logs["grad_norm"], self.cfg.optim.grad_clip)
@@ -381,12 +418,20 @@ class Trainer:
         estimate.  Estimates are PIT-reordered against the sources when the
         model has ``n_src`` outputs, as the reference's validation_step does
         (distill.py:164-174); a single-output model on a multi-source task is
-        scored against the first source (the offline eval's fallback)."""
+        scored against the first source (the offline eval's fallback).
+
+        Under data parallelism the batch is the global one: the rank runs
+        the student on its rows, the estimates are gathered, SI-SDR (a
+        ratio of batch means) is taken over the global batch on every rank
+        and STOI on the rank's rows, averaged over the ranks."""
         mix = torch.as_tensor(mix, dtype=torch.float32).to(self.device)
+        local_mix = distributed.local_rows(mix, 0, self.group)
         sources = torch.as_tensor(sources, dtype=torch.float32).to(self.device)
+        lo, hi = distributed.host_local_batch_slice(mix.shape[0], self.group)
         sr = self.cfg.data.sample_rate
         with float32_math():
-            est = self.student(mix, training=False).wav
+            est = distributed.all_gather(self.student(local_mix, training=False).wav, 0,
+                                         self.group)
             est_s = est if est.ndim == 3 else est[:, None, :]  # [B, n_est, T]
             n_src = sources.shape[1]
             if n_src > 1 and est_s.shape[1] == n_src:
@@ -398,12 +443,15 @@ class Trainer:
             est_f = est_s[:, :n_src].reshape(-1, T)
             src_f = sources.reshape(-1, T)
             mix_f = torch.repeat_interleave(mix, n_src, dim=0) if n_src > 1 else mix
+            rows = slice(lo * n_src, hi * n_src)  # this rank's rows, for STOI
             m = {
                 "si_sdr": si_sdr(src_f, est_f),
                 "input_si_sdr": si_sdr(src_f, mix_f),
-                "stoi": torch.mean(stoi_batch(src_f, est_f, fs=sr)),
-                "input_stoi": torch.mean(stoi_batch(src_f, mix_f, fs=sr)),
+                "stoi": torch.mean(stoi_batch(src_f[rows], est_f[rows], fs=sr)),
+                "input_stoi": torch.mean(stoi_batch(src_f[rows], mix_f[rows], fs=sr)),
             }
+            m["stoi"], m["input_stoi"] = distributed.mean_over_ranks(
+                [m["stoi"], m["input_stoi"]], self.group)
         m["si_sdr_imp"] = m["si_sdr"] - m["input_si_sdr"]
         m["stoi_imp"] = m["stoi"] - m["input_stoi"]
         return m, est
@@ -457,7 +505,10 @@ class Trainer:
         and the one left at the end of ``fit`` is dropped (a checkpoint does
         not hold it).  ``checkpoint_manager.save(self, metrics)`` runs after
         each validation and ``metric_writer`` takes the train logs (scope
-        ``train``) and each epoch's metrics (scope ``val``).
+        ``train``) and each epoch's metrics (scope ``val``).  Under data
+        parallelism every rank iterates the same seeded batches; rank 0
+        alone logs, writes metrics and saves, the others wait at a barrier
+        after each save.
         """
         cfg = self.cfg
         if self.optimizer is None:
@@ -482,7 +533,7 @@ class Trainer:
                     logs = self.train_step(mix_b, clean_b)
                     n += 1
                 pending = []
-                if n_before // cfg.log_every != n // cfg.log_every:
+                if n_before // cfg.log_every != n // cfg.log_every and self.mesh.is_main:
                     vals = {k: float(v) for k, v in logs.items()}
                     log_fn(f"epoch {epoch} step {n}: "
                            + " ".join(f"{k}={v:.4f}" for k, v in vals.items()))
@@ -495,14 +546,17 @@ class Trainer:
             metrics["epoch_time_s"] = dt
             seg = cfg.data.segment or 3.0
             metrics["audio_s_per_s"] = n * cfg.data.batch_size * seg / dt
-            log_fn(f"epoch {epoch} done: "
-                   + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-            if metric_writer is not None:
-                metric_writer.write(self.step, metrics, scope="val")
+            if self.mesh.is_main:
+                log_fn(f"epoch {epoch} done: "
+                       + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+                if metric_writer is not None:
+                    metric_writer.write(self.step, metrics, scope="val")
             if checkpoint_manager is not None:
                 # top-k retention on the monitored metric (reference
                 # ModelCheckpoint(monitor='stoi'), distill.py:252-258)
-                checkpoint_manager.save(self, metrics)
+                if self.mesh.is_main:
+                    checkpoint_manager.save(self, metrics)
+                distributed.barrier(self.group)
             history = metrics
         return history
 

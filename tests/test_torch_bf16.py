@@ -302,7 +302,7 @@ def dtype_spy(module, seen):
     that ``module.distill_loss`` sees and returns."""
     orig = module.distill_loss
 
-    def spy(strategy, s_out, t_out, clean, dcfg, fe=None, fd=None):
+    def spy(strategy, s_out, t_out, clean, dcfg, fe=None, fd=None, **kw):
         def taps(t):  # none where a strategy reads only the waveforms
             return [] if t is None else [_dtype(a) for a in list(t.encoder) + list(t.decoder)
                                          + [t.lstm_real, t.lstm_imag]]
@@ -310,7 +310,7 @@ def dtype_spy(module, seen):
         def fused(maps):  # a bn2-folded map comes as (raw map, a, b)
             return [_dtype(f[0] if isinstance(f, tuple) else f) for f in maps or ()]
 
-        loss, logs = orig(strategy, s_out, t_out, clean, dcfg, fe, fd)
+        loss, logs = orig(strategy, s_out, t_out, clean, dcfg, fe, fd, **kw)
         seen.update(student=taps(s_out.taps), teacher=taps(t_out.taps),
                     fused=fused(fe) + fused(fd), loss=_dtype(loss),
                     logs=sorted({_dtype(v) for v in logs.values()}))

@@ -120,7 +120,6 @@ OVERRIDES = {
 def test_load_config_overrides_match_jax(case):
     got = dataclasses.asdict(load_config(None, OVERRIDES[case]))
     want = dataclasses.asdict(jax_config.load_config(None, OVERRIDES[case]))
-    want.pop("mesh")
     assert repr(got) == repr(want)  # the same values of the same types
 
 
@@ -131,7 +130,6 @@ def test_load_config_yaml_matches_jax(tmp_path, monkeypatch):
     over = ["data.batch_size=4", "distill.strategy=mse"]
     got = dataclasses.asdict(load_config(str(path), over))
     want = dataclasses.asdict(jax_config.load_config(str(path), over))
-    want.pop("mesh")
     assert repr(got) == repr(want)
     # overrides need no yaml; a YAML file does
     monkeypatch.setitem(sys.modules, "yaml", None)

@@ -111,7 +111,6 @@ def test_config_to_yaml_and_geometry_helpers(tmp_path):
     text = config.to_yaml(cfg)
     ours = yaml.safe_load(text)
     theirs = yaml.safe_load(jax_config.to_yaml(jax_config.load_config(None, overrides)))
-    theirs.pop("mesh")  # the port's TrainConfig has no MeshConfig yet
     assert ours == theirs
     (tmp_path / "cfg.yaml").write_text(text)
     assert config.load_config(str(tmp_path / "cfg.yaml")) == cfg
