@@ -225,7 +225,21 @@ card, then drives both paths through their entry points:
     ``sharded_utterance_forward`` over two gloo ranks on 2 x 64 s (the r4
     student and the seeded teacher): each span against its window run
     alone, the interior against the whole offline forward, wall ms beside
-    it.  The NCCL version, world sizes and backends are printed.
+    it.  The NCCL version, world sizes and backends are printed;
+27. tensor parallelism (``phase_tensor_parallel``, ``tp_checks``): two
+    worker processes (``chip_smoke.py parallel-worker``) in a gloo group on
+    the one card at ``data=1, model=2``, each with all 16 rows x 3 s, the
+    student and teacher cut by the JAX rule (the complex convs and
+    products column-parallel, K1f/K1b on the gathered W_hh): the default
+    ``clskd`` step (3 steps) and the pretraining step (2 steps) from phase
+    7's weights against the one-process step on the same rows: every loss
+    within 1e-5, every gathered gradient of step 1 within 1e-4 or twice
+    its rounding floor, the whole leaves and statistics equal bit for bit
+    on the two ranks, half of every sharded leaf and of its Adam moments
+    on each rank (their bytes printed), launches a step as one process's;
+    the step ms and each rank's peak memory beside the one-process step's.
+    NCCL across cards is not measured (one card; NCCL refuses two ranks on
+    one device).
 
 Each phase prints one line.  The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``.  Any failure
@@ -4053,9 +4067,10 @@ def _workers(job: str, spec: dict, out: Path) -> list:
 
 
 def parallel_worker(argv) -> None:
-    """A rank of phase 26 (b) or (c) (``chip_smoke.py parallel-worker JOB
-    RANK WORLD PORT OUT SPEC``): joins the gloo group (every rank on the
-    first card) and writes ``OUT/JOB.rRANK.json`` and its arrays."""
+    """A rank of phase 26 (b) or (c) or of phase 27 (``chip_smoke.py
+    parallel-worker JOB RANK WORLD PORT OUT SPEC``): joins the gloo group
+    (every rank on the first card) and writes ``OUT/JOB.rRANK.json`` and its
+    arrays."""
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -4073,6 +4088,8 @@ def parallel_worker(argv) -> None:
     try:
         if job == "dp":
             rec = _dp_worker(spec, rank, out)
+        elif job == "tp":
+            rec = _tp_worker(spec, rank, out)
         else:
             rec = _sequence_worker(spec, rank, world, out)
         rec["backend"] = torch.distributed.get_backend()
@@ -4330,6 +4347,245 @@ def phase_parallel(phase7: dict, pretraining: dict) -> dict:
         raise RuntimeError(f"phase 26 (parallel) failed: {rec['failures']}")
     return rec
 
+# phase 27: tensor parallelism over mesh.model.  Two gloo ranks on the one
+# card at data=1, model=2, each with all of the phase's rows, against the
+# one-process step on the same rows.  The forms: (pretraining, steps).
+TP_FORMS = {"clskd": (False, 3), "pretrain": (True, 2)}
+TP_LAUNCHES = {"clskd": PARALLEL_LAUNCHES["default"], "pretrain": PARALLEL_LAUNCHES["pretrain"]}
+# the phase's sizes on the card (the CPU rehearsal shrinks them): the
+# device, the rows and clips, the models (None: TrainConfig()'s)
+TP_SPEC = {"device": "cuda", "batch": 16, "seconds": TRAIN_SECONDS, "teacher": None,
+           "student": None}
+TP_MODEL = 2
+
+
+def _tp_trainer(spec: dict, pretrain: bool, model: int):
+    """``TrainConfig()``'s models (``spec``'s where it names them) at
+    ``spec``'s rows and clips, seeded with 0: the default ``clskd``
+    ``Trainer`` or the teacher's ``PretrainTrainer``, at ``data=1,
+    model=model`` over the process group, or in one process (``model``
+    1)."""
+    import dataclasses
+
+    from speech_enhancement_clskd_tpu_torch.config import DCCRNConfig, MeshConfig
+    from speech_enhancement_clskd_tpu_torch.parallel.mesh import Mesh
+    from speech_enhancement_clskd_tpu_torch.train.pretrain import PretrainTrainer
+    from speech_enhancement_clskd_tpu_torch.train.trainer import Trainer
+
+    models = {k: DCCRNConfig(**spec[k]) for k in ("teacher", "student") if spec[k]}
+    cfg = dataclasses.replace(train_config(spec["batch"], spec["seconds"], {}, **models),
+                              mesh=MeshConfig(data=1, model=model))
+    mesh = Mesh({"data": 1, "model": 1}) if model == 1 else None
+    make = PretrainTrainer if pretrain else Trainer
+    return make(cfg, device=spec["device"], mesh=mesh).init_state(0)
+
+
+def _whole_grads(trainer) -> dict:
+    """Every trained gradient on the host, a sliced leaf's gathered whole
+    (a collective over the model ranks)."""
+    from speech_enhancement_clskd_tpu_torch.models.dccrn import full_tensors
+
+    return {f"{part}.{n}": g.detach().cpu() for part, m in trainer.trainable().items()
+            for n, g in full_tensors(m, {n: p.grad for n, p in m.named_parameters()}).items()}
+
+
+def _tp_steps(trainer, steps: int, mix, clean, counters: dict) -> dict:
+    """``steps`` steps of ``trainer`` on cuDNN's deterministic algorithms,
+    each timed to its end: the losses, the ms, the first step's gradient
+    norm and whole gradients, the launches and the peak memory."""
+    import numpy as np
+    import torch
+
+    cuda = trainer.device.type == "cuda"
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    _zero_counts(counters)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    rec = {"losses": [], "ms": []}
+    try:
+        for k in range(steps):
+            _sync(trainer.device)
+            t0 = time.perf_counter()
+            logs = trainer.train_step(mix, clean)
+            _sync(trainer.device)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["losses"].append(float(logs["train_loss"]))
+            if k == 0:
+                rec["grad_norm"] = float(logs["grad_norm"])
+                rec["grads"] = _whole_grads(trainer)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rec["launches"] = _launched(counters)
+    rec["step_ms_median"] = float(np.median(rec["ms"][1:] or rec["ms"]))
+    if cuda:
+        rec["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    return rec
+
+
+def _tp_worker(spec: dict, rank: int, out: Path) -> dict:
+    """Phase 27 on one model rank: each form's steps from the seeded weights
+    on all of the phase's rows; the bytes of the leaves this rank holds
+    sliced (and whole) and of their Adam moments; rank 0 saves the first
+    step's whole gradients (``OUT/tp_FORM.pt``), every rank its whole
+    leaves and statistics after the last step (``OUT/tp_FORM.rRANK.pt``)."""
+    import torch
+
+    from speech_enhancement_clskd_tpu_torch.models.dccrn import full_tensors, model_shards
+    from speech_enhancement_clskd_tpu_torch.utils.bridge import trainer_parts
+
+    counters = _kernel_counters()
+    mix, clean = train_batch(spec["batch"], spec["seconds"])
+    recs = {}
+    for form, (pretrain, steps) in TP_FORMS.items():
+        trainer = _tp_trainer(spec, pretrain, TP_MODEL)
+        rec = _tp_steps(trainer, steps, mix, clean, counters)
+        grads = rec.pop("grads")
+        if rank == 0:
+            torch.save(grads, out / f"tp_{form}.pt")
+        held, replicated = {}, {}
+        for part in trainer_parts(trainer):
+            m = getattr(trainer, part)
+            shards = model_shards(m)
+            params = dict(m.named_parameters())
+            whole = full_tensors(m, {n: params[n] for n in shards})
+            for n in shards:
+                st = trainer.optimizer.state.get(params[n], {})
+                held[f"{part}.{n}"] = {
+                    "bytes": params[n].numel() * params[n].element_size(),
+                    "whole_bytes": whole[n].numel() * whole[n].element_size(),
+                    "adam_bytes": sum(st[k].numel() * st[k].element_size()
+                                      for k in ("exp_avg", "exp_avg_sq") if k in st),
+                    "trained": part in trainer.trainable()}
+            replicated.update({f"{part}.{n}": v.detach().cpu()
+                               for n, v in m.state_dict().items() if n not in shards})
+        torch.save(replicated, out / f"tp_{form}.r{rank}.pt")
+        rec["held"] = held
+        rec["rows"] = mix.shape[0] // trainer.mesh.shape["data"]
+        rec["mesh"] = trainer.mesh.shape
+        recs[form] = rec
+        del trainer
+        _release(spec["device"])
+    return recs
+
+
+def tp_checks(spec: dict, out: Path) -> dict:
+    """Phase 27's checks on ``spec``'s device (``TP_SPEC`` on the card; the
+    CPU rehearsal shrinks it), the workers' files in ``out``.  For each form
+    (``TP_FORMS``: the default ``clskd`` step, 3 steps, and the pretraining
+    step, 2 steps) the one-process trainer takes the steps on the phase's
+    rows, and one step on each of ``FLOOR_SEEDS`` roundings of the input
+    (its gradients' floors); then two gloo ranks on the one card take the
+    same steps at ``data=1, model=2``.  Held: every loss within
+    ``TRAIN_LOSS_RTOL`` of the one process's; every gathered gradient of
+    step 1 within ``TRAIN_GRAD_REL_L2`` or twice its floor (phase 26 (b)'s
+    rule, ``_grad_errors``' exemptions); the whole leaves and statistics
+    equal bit for bit on the two ranks; each rank holding half of every
+    leaf the rule shards, and of its Adam moments where it trains;
+    something sharded; launches a step as one process's on every rank (on
+    the card).  A failed or late worker raises; the other failures are
+    listed in ``failures``."""
+    import torch
+
+    device = spec["device"]
+    counters = _kernel_counters()
+    mix, clean = train_batch(spec["batch"], spec["seconds"])
+    one = {}
+    for form, (pretrain, steps) in TP_FORMS.items():
+        trainer = _tp_trainer(spec, pretrain, 1)
+        initial = _state_copy(trainer)
+        rec = _tp_steps(trainer, steps, mix, clean, counters)
+        floors = {}
+        for seed in FLOOR_SEEDS:
+            _restart(trainer, initial)
+            trainer.train_step(neighbour_rounding(mix, seed), clean)
+            errs, _ = _grad_errors(_whole_grads(trainer), rec["grads"], rec["grad_norm"])
+            floors = {n: max(e, floors.get(n, 0.0)) for n, e in errs.items()}
+        rec["floors"] = floors
+        one[form] = rec
+        del trainer
+        _release(device)
+
+    t0 = time.perf_counter()
+    ranks = _workers("tp", spec, out)
+    rec = {"seconds": time.perf_counter() - t0, "backend": ranks[0]["backend"],
+           "world": ranks[0]["world"], "mesh": ranks[0]["clskd"]["mesh"],
+           "rows_a_rank": ranks[0]["clskd"]["rows"]}
+    failures = []
+    for form, (_, steps) in TP_FORMS.items():
+        ref = one[form]
+        got = [x[form] for x in ranks]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(got[0]["losses"], ref["losses"]))
+        grads = torch.load(out / f"tp_{form}.pt")
+        errors, zero = _grad_errors(grads, ref["grads"], ref["grad_norm"])
+        tol = {n: max(TRAIN_GRAD_REL_L2, ROUNDING_FACTOR * ref["floors"][n]) for n in errors}
+        over = {n: (e, tol[n]) for n, e in errors.items() if e > tol[n]}
+        worst = max(errors, key=errors.get)
+        states = [torch.load(out / f"tp_{form}.r{r}.pt") for r in range(PARALLEL_WORLD)]
+        unequal = sorted(k for k, v in states[0].items()
+                         if any(not torch.equal(s[k], v) for s in states[1:]))
+        held = got[0]["held"]
+        halves = {n: h for x in got for n, h in x["held"].items()
+                  if 2 * h["bytes"] != h["whole_bytes"]
+                  or h["adam_bytes"] != (2 * h["bytes"] if h["trained"] else 0)}
+        by_part = {}
+        for n, h in held.items():
+            b = by_part.setdefault(n.split(".")[0], {"leaves": 0, "bytes": 0, "whole_bytes": 0,
+                                                     "adam_bytes": 0})
+            b["leaves"] += 1
+            for k in ("bytes", "whole_bytes", "adam_bytes"):
+                b[k] += h[k]
+        rec[form] = {
+            "steps": steps, "losses": got[0]["losses"], "losses_one_process": ref["losses"],
+            "loss_max_rel_err": loss_err, "ranks_same_losses": all(
+                x["losses"] == got[0]["losses"] for x in got),
+            "grad_max_rel_l2": errors[worst], "grad_worst": worst,
+            "grad_worst_floor": ref["floors"][worst], "zero_grad_max": zero,
+            "step_ms": [x["ms"] for x in got], "step_ms_median": [x["step_ms_median"] for x in got],
+            "one_process_step_ms": ref["ms"], "one_process_step_ms_median": ref["step_ms_median"],
+            "peak_mem_bytes": [x.get("peak_mem_bytes") for x in got],
+            "one_process_peak_mem_bytes": ref.get("peak_mem_bytes"),
+            "sharded_bytes_a_rank": by_part, "replicated_leaves": len(states[0]),
+            "replicated_unequal": unequal, "launches": [x["launches"] for x in got],
+            "one_process_launches": ref["launches"]}
+        if loss_err > TRAIN_LOSS_RTOL or over or zero > ZERO_GRAD:
+            failures.append(f"{form}: loss {loss_err}, gradients {over}, zero {zero}")
+        if not rec[form]["ranks_same_losses"] or unequal:
+            failures.append(f"{form}: the ranks differ: losses {[x['losses'] for x in got]}, "
+                            f"whole leaves {unequal[:8]}")
+        if not held or halves:
+            failures.append(f"{form}: sharded {sorted(held)[:4]}, not halved {halves}")
+        want = ({k: steps * v for k, v in TP_LAUNCHES[form].items()}
+                if device == "cuda" else {})
+        for x in [ref] + got:
+            if x["launches"] != want:
+                failures.append(f"{form} launches {x['launches']}, expected {want}")
+    launches = {"tensor_parallel_one_process": _parallel_launches(
+                    [one[f]["launches"] for f in TP_FORMS]),
+                "tensor_parallel_ranks": _parallel_launches(
+                    [x[f]["launches"] for f in TP_FORMS for x in ranks])}
+    return {"tp": rec, "launches": launches, "failures": failures}
+
+
+def phase_tensor_parallel(phase26: dict) -> dict:
+    """Phase 27: ``tp_checks`` on the card at full width, beside phase 26
+    (b)'s data-parallel step over the same two gloo ranks; any failure
+    raises.  Two ranks on one card run over gloo, which stages each
+    collective through the host (NCCL refuses two ranks on one device), so
+    the step times say what the collectives cost here, not across cards."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as directory:
+        rec = tp_checks(TP_SPEC, Path(directory))
+    rec["tp"]["beside_phase26_world_two_default_g1_step_ms"] = (
+        phase26["world_two"]["default_g1"]["step_ms"])
+    say("tensor_parallel", **rec["tp"])
+    say("tensor_parallel_launches", **rec["launches"])
+    if rec["failures"]:
+        raise RuntimeError(f"phase 27 (tensor parallelism) failed: {rec['failures']}")
+    return rec
+
+
 def main() -> None:
     sys.path.insert(0, str(ROOT))
     import torch
@@ -4367,7 +4623,8 @@ def main() -> None:
         dccrnet = phase_dccrnet_training(asteroid["teacher_pth"], directory, training)
         pretraining = phase_pretraining(training, directory)
     parallel = phase_parallel(training, pretraining)
-    parallel_launches = parallel["launches"]
+    tensor = phase_tensor_parallel(parallel)
+    parallel_launches = {**parallel["launches"], **tensor["launches"]}
     bf16_paths = {f"training_bf16_{k}": bf16[k] for k in ("batch32", "batch64", "kernels")}
     bf16_paths.update({f"training_bf16_block_{k}": r for k, r in bf16_block.items()})
     # phase 24's steps, each kernel's launches by form

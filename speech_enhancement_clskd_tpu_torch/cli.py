@@ -25,9 +25,10 @@ raises ``NotImplementedError`` naming its ROADMAP item.
 
     torchrun --nproc_per_node=N -m speech_enhancement_clskd_tpu_torch distill ...
 
-trains data parallel over N ranks (``mesh.data``, ``mesh.model``
-overridable; NCCL on ``cuda``, gloo on ``cpu``); rank 0 alone prints and
-writes the checkpoints, metrics and bundles.
+trains over N ranks laid out as ``mesh.data`` x ``mesh.model`` (data
+parallel by default; ``mesh.model=2`` cuts the models' large weights over
+pairs of ranks; NCCL on ``cuda``, gloo on ``cpu``); rank 0 alone prints and
+writes the checkpoints, metrics and bundles, from whole tensors.
 """
 
 from __future__ import annotations
@@ -154,9 +155,10 @@ def _distill(cfg, args) -> int:
     history = trainer.fit(checkpoint_manager=mgr, metric_writer=writer)
     if main:
         writer.close()
-        bundle_path = bundle_best(trainer, mgr, history, args.out)
+    bundle_path = bundle_best(trainer, mgr, history, args.out)
+    if main:
         print(json.dumps({"final_metrics": history, "bundle": bundle_path}))
-    distributed.barrier(trainer.group)
+    distributed.barrier(trainer.mesh.world_group)
     return 0
 
 
@@ -165,40 +167,45 @@ def bundle_best(trainer, mgr, history, out: str, log_fn=print) -> str:
     by the monitored metric, restoring it into ``trainer`` first unless the
     trainer is at that step — the reference reloads the top checkpoint
     before serializing (distill.py:280-294), not the final epoch's weights.
-    Returns the bundle's path."""
+    Returns the bundle's path.  Under data or tensor parallelism every rank
+    calls it (a sharded student is gathered by all); the main rank alone
+    logs and writes."""
     from .utils.serialization import save_bundle, student_from_state
 
     cfg = trainer.cfg
+    main = trainer.mesh.is_main
     if mgr.best_step() is not None and trainer.step != mgr.best_step():
         mgr.restore(trainer)
-        log_fn(f"bundling best checkpoint (step {mgr.best_step()}, "
-               f"{cfg.monitor}={mgr.best_score():.4f})")
+        if main:
+            log_fn(f"bundling best checkpoint (step {mgr.best_step()}, "
+                   f"{cfg.monitor}={mgr.best_score():.4f})")
     bundle_path = os.path.join(out, "the_best_model")
     v = student_from_state(trainer, cfg.student)
-    save_bundle(bundle_path, v["params"], v["batch_stats"], cfg.student,
-                infos={"history": history, "strategy": cfg.distill.strategy})
+    if main:
+        save_bundle(bundle_path, v["params"], v["batch_stats"], cfg.student,
+                    infos={"history": history, "strategy": cfg.distill.strategy})
     return bundle_path + ".npz"
 
 
 def _pretrain(cfg, args) -> int:
     """Train the ``--model`` alone and bundle its final weights."""
+    from .models.dccrn import full_state_dict
+    from .parallel import distributed
     from .train.pretrain import PretrainTrainer
     from .utils.bridge import flax_from_torch_state
     from .utils.serialization import CheckpointManager, save_bundle
-
-    from .parallel import distributed
 
     model_cfg = cfg.teacher if args.model == "teacher" else cfg.student
     trainer = PretrainTrainer(cfg, model_cfg=model_cfg, device=args.device)
     mgr = CheckpointManager(args.out, monitor=cfg.monitor, keep_top_k=cfg.keep_top_k)
     history = trainer.fit(checkpoint_manager=mgr)
+    v = flax_from_torch_state(full_state_dict(trainer.model))  # every rank: a sharded model
     if trainer.mesh.is_main:
         bundle_path = os.path.join(args.out, f"{args.model}_model")
-        v = flax_from_torch_state(trainer.model.state_dict())
         save_bundle(bundle_path, v["params"], v.get("batch_stats", {}), model_cfg,
                     infos={"history": history, "loss_mode": cfg.loss_mode})
         print(json.dumps({"final_metrics": history, "bundle": bundle_path + ".npz"}))
-    distributed.barrier(trainer.group)
+    distributed.barrier(trainer.mesh.world_group)
     return 0
 
 

@@ -27,6 +27,11 @@ Feature taps are explicit outputs (``FeatureTaps``) in the JAX layouts:
 encoder/decoder taps channels-last packed complex ``[B, D, T, 2C]``, LSTM taps
 ``[T, B, F]``.
 
+Tensor parallelism: ``shard_model`` cuts a built model (either family) over
+the model ranks of a process group, ``full_state_dict``/``full_tensors``
+gather its leaves back whole, ``load_full_state_dict`` loads whole tensors
+into it, and ``gather_model`` undoes the cut (``parallel.mesh``).
+
 ``cfg.compute_dtype="bfloat16"`` follows the JAX model's dtype flow: the
 STFT runs in float32 and its packed spectrum is cast to bf16; the convs,
 BN (statistics in float32), PReLU and LSTM layers compute in bf16 with
@@ -37,7 +42,7 @@ safe forms), and the mask, the iSTFT and the waveform are float32.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +58,10 @@ from ..ops.complex_layers import (
     complex_cat,
 )
 from ..ops.complex_bn import ComplexBatchNorm
+from ..ops.complex_layers import TensorParallel
 from ..ops.complex_lstm import Dense, LSTMCell, NaiveComplexLSTM
+from ..parallel import distributed
+from ..parallel.mesh import torch_shard_dims
 from ..utils.device import float32_math, resolve_device
 
 
@@ -288,3 +296,106 @@ def make_model(cfg: DCCRNConfig, device: Union[str, torch.device] = "cuda",
     model = build_model(cfg)
     model.reset_parameters(torch.Generator().manual_seed(seed))
     return model.requires_grad_(False).eval().to(dev)
+
+
+# ----------------------------------------------------------------- tensor parallelism
+
+
+def shard_model(model: nn.Module, group) -> Dict[str, int]:
+    """Tensor parallelism over the model ranks of ``group``, in place, for
+    either family (DCCRN and the asteroid DCCRNet are built from the same
+    layers): every parameter the JAX rule shards
+    (``parallel.mesh.torch_shard_dims``) is replaced by a new
+    ``nn.Parameter`` holding this rank's slice along its torch dim (so an
+    optimizer is made after), and its layer is told the group and the dim
+    (``ops.complex_layers.TensorParallel``): it then runs column-parallel,
+    or gathers the leaf whole where a split would cut the LSTM recurrence.
+    Returns ``{name: dim}`` of the sliced leaves, kept as
+    ``model.tp_shards`` beside ``model.tp_group``.  A leaf the rule shards
+    in a layer that cannot run sharded raises; a leaf it leaves alone stays
+    whole on every rank."""
+    if getattr(model, "tp_shards", None):
+        raise ValueError("the model is sharded already")
+    n, r = distributed.world_size(group), distributed.rank(group)
+    shards: Dict[str, int] = {}
+    for name, dim in torch_shard_dims(model.named_parameters(), n).items():
+        if dim is None:
+            continue
+        owner, _, leaf = name.rpartition(".")
+        layer = model.get_submodule(owner)
+        if not isinstance(layer, TensorParallel):
+            raise NotImplementedError(
+                f"{name}: the rule shards it, and {type(layer).__name__} cannot run sharded")
+        p = getattr(layer, leaf)
+        size = p.shape[dim] // n
+        setattr(layer, leaf, nn.Parameter(p.detach().narrow(dim, r * size, size).clone(),
+                                          requires_grad=p.requires_grad))
+        layer.tp_group = group
+        layer.tp_dims = {**layer.tp_dims, leaf: dim}
+        shards[name] = dim
+    model.tp_group, model.tp_shards = group, shards
+    return shards
+
+
+def model_shards(model: nn.Module) -> Dict[str, int]:
+    """``{name: dim}`` of the leaves ``shard_model`` sliced (empty for a
+    whole model)."""
+    return getattr(model, "tp_shards", None) or {}
+
+
+@torch.no_grad()
+def full_tensors(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``tensors`` (by the model's parameter names: its state_dict, the
+    gradients, an optimizer's moments) with each sliced leaf gathered
+    whole over the model ranks, the others as they are.  A collective:
+    every model rank calls it with the same names in the same order."""
+    shards = model_shards(model)
+    return {k: distributed.gather_out(v.detach(), shards[k], model.tp_group) if k in shards
+            else v for k, v in tensors.items()}
+
+
+def local_tensors(model: nn.Module, tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Whole ``tensors`` (by parameter name) cut to this rank's slice of
+    each sliced leaf (views), the others as they are."""
+    shards = model_shards(model)
+    if not shards:
+        return dict(tensors)
+    n, r = distributed.world_size(model.tp_group), distributed.rank(model.tp_group)
+    out = {}
+    for k, v in tensors.items():
+        if k in shards:
+            size = v.shape[shards[k]] // n
+            v = v.narrow(shards[k], r * size, size)
+        out[k] = v
+    return out
+
+
+def full_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state_dict with every leaf whole (``full_tensors``; the
+    state_dict itself for a whole model)."""
+    return full_tensors(model, model.state_dict())
+
+
+def load_full_state_dict(model: nn.Module, state: Mapping[str, torch.Tensor],
+                         strict: bool = True) -> None:
+    """``load_state_dict`` of a whole state (a one-process model's, a
+    checkpoint's) into a model whole or sharded: each sliced leaf takes its
+    slice."""
+    model.load_state_dict(local_tensors(model, state), strict=strict)
+
+
+def gather_model(model: nn.Module) -> None:
+    """Undo ``shard_model`` in place: every sliced leaf gathered whole into
+    a new ``nn.Parameter`` and every layer's group forgotten (a collective,
+    as ``full_tensors``)."""
+    shards = model_shards(model)
+    if not shards:
+        return
+    whole = full_tensors(model, dict(model.named_parameters()))
+    for name in shards:
+        owner, _, leaf = name.rpartition(".")
+        layer = model.get_submodule(owner)
+        p = getattr(layer, leaf)
+        setattr(layer, leaf, nn.Parameter(whole[name], requires_grad=p.requires_grad))
+        layer.tp_group, layer.tp_dims = None, {}
+    model.tp_group, model.tp_shards = None, {}

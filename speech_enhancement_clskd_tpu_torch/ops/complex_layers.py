@@ -22,11 +22,18 @@ Weights are stored in ``torch.nn.functional`` layouts: ``[O, I, kh, kw]`` for
 ``ComplexConv2d``, ``[I, O, kh, kw]`` for ``ComplexConvTranspose2d``
 (``utils.bridge`` maps them from flax HWIO).  Every module draws its initial
 values from an explicit ``torch.Generator`` in ``reset_parameters``.
+
+Tensor parallelism (``TensorParallel``, set up by
+``models.dccrn.shard_model``): a conv, transpose conv or complex dense
+whose ``wr``/``wi`` hold this rank's output channels computes them from the
+replicated input (``parallel.distributed.copy_in``) and gathers them back
+into the packed ``[re | im]`` map (``gather_out``); its bias is sliced to
+the same channels.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,8 +65,32 @@ def _block_weight(wr: torch.Tensor, wi: torch.Tensor, transposed: bool) -> torch
     return torch.cat([torch.cat([wr, -wi], 1), torch.cat([wi, wr], 1)], 0)
 
 
-class _ComplexConvBase(nn.Module):
-    """``use_bias=False`` has no ``br``/``bi`` (the flax tree has none)."""
+class TensorParallel:
+    """A layer some of whose leaves may hold this rank's slice of the model
+    axis: ``tp_dims`` maps each such leaf to the torch dim it is cut along,
+    ``tp_group`` is the model ranks' process group (both set by
+    ``models.dccrn.shard_model``; nothing sliced by default)."""
+
+    tp_group = None
+    tp_dims: Dict[str, int] = {}
+
+    def tp(self, leaf: str):
+        """The model group where ``leaf`` is sliced, else ``None``."""
+        return self.tp_group if leaf in self.tp_dims else None
+
+    def full(self, leaf: str) -> torch.Tensor:
+        """``leaf`` whole: gathered over the model ranks where it is sliced
+        (its gradient each rank's slice), else the parameter itself."""
+        return distributed.gather_out(getattr(self, leaf), self.tp_dims.get(leaf, 0),
+                                      self.tp(leaf))
+
+
+class _ComplexConvBase(TensorParallel, nn.Module):
+    """``use_bias=False`` has no ``br``/``bi`` (the flax tree has none).
+    Under tensor parallelism ``wr``/``wi`` hold this rank's output channels
+    (``out_dim`` of the torch layout)."""
+
+    out_dim = 0
 
     def __init__(self, weight_shape: Tuple[int, ...], c_out: int, use_bias: bool = True):
         super().__init__()
@@ -80,7 +111,22 @@ class _ComplexConvBase(nn.Module):
             self.bi.zero_()
 
     def _bias(self, dtype: torch.dtype) -> Optional[torch.Tensor]:
-        return torch.cat([self.br, self.bi]).to(dtype) if self.use_bias else None
+        """``[br | bi]``; sliced to this rank's output channels where the
+        weights are (through ``copy_in``, so each rank's slice of the
+        gradient adds into the whole bias's)."""
+        if not self.use_bias:
+            return None
+        br, bi, group = self.br, self.bi, self.tp("wr")
+        if group is not None:
+            o = self.wr.shape[self.out_dim]
+            br, bi = (distributed.copy_in(b, group).narrow(0, distributed.rank(group) * o, o)
+                      for b in (br, bi))
+        return torch.cat([br, bi]).to(dtype)
+
+    def _gathered(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's output channels ``[re | im]`` of ``y`` [B, D, T, C]
+        joined with the other ranks' into the packed map."""
+        return distributed.gather_out(y, -1, self.tp("wr"), parts=2)
 
 
 class ComplexConv2d(_ComplexConvBase):
@@ -111,12 +157,12 @@ class ComplexConv2d(_ComplexConvBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pf, pt = self.padding
-        xn = x.permute(0, 3, 1, 2)  # [B, C, D, T]
+        xn = distributed.copy_in(x, self.tp("wr")).permute(0, 3, 1, 2)  # [B, C, D, T]
         if self.causal:
             xn, pt = F.pad(xn, (pt, 0)), 0  # causal time pad
         y = F.conv2d(xn, _block_weight(self.wr, self.wi, False).to(x.dtype),
                      self._bias(x.dtype), stride=self.strides, padding=(pf, pt))
-        return y.permute(0, 2, 3, 1)
+        return self._gathered(y.permute(0, 2, 3, 1))
 
 
 class ComplexConvTranspose2d(_ComplexConvBase):
@@ -128,6 +174,8 @@ class ComplexConvTranspose2d(_ComplexConvBase):
     ``conv_transpose2d`` computes the uncropped map and the crop is a slice
     (a view).  Exact only while the time stride is 1.
     """
+
+    out_dim = 1
 
     def __init__(
         self,
@@ -151,14 +199,14 @@ class ComplexConvTranspose2d(_ComplexConvBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv_transpose2d(
-            x.permute(0, 3, 1, 2),
+            distributed.copy_in(x, self.tp("wr")).permute(0, 3, 1, 2),
             _block_weight(self.wr, self.wi, True).to(x.dtype),
             self._bias(x.dtype),
             stride=self.strides,
             padding=self.padding,
             output_padding=self.output_padding,
         )
-        return y[..., self.time_crop_left:].permute(0, 2, 3, 1)
+        return self._gathered(y[..., self.time_crop_left:].permute(0, 2, 3, 1))
 
 
 class PReLU(nn.Module):
@@ -199,10 +247,12 @@ class CPReLU(nn.Module):
         return torch.cat([re, im], dim=-1)
 
 
-class ComplexDense(nn.Module):
+class ComplexDense(TensorParallel, nn.Module):
     """Complex linear on packed input [..., 2F] -> [..., 2 * features]:
     ``(Wr + i Wi)(xr + i xi)`` with ``wr``/``wi`` ``[F, features]`` (flax
-    layout), uniform +-1/sqrt(F) init as torch ``nn.Linear``."""
+    layout), uniform +-1/sqrt(F) init as torch ``nn.Linear``.  Column-
+    parallel where ``wr``/``wi`` hold this rank's columns: the products are
+    gathered into the packed map before the biases are added."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
@@ -219,11 +269,16 @@ class ComplexDense(nn.Module):
             p.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xr, xi = split_complex(x)
+        group = self.tp("wr")
+        xr, xi = split_complex(distributed.copy_in(x, group))
         wr, wi = self.wr.to(x.dtype), self.wi.to(x.dtype)
-        yr = xr @ wr - xi @ wi + self.br.to(x.dtype)
-        yi = xr @ wi + xi @ wr + self.bi.to(x.dtype)
-        return torch.cat([yr, yi], dim=-1)
+        yr = xr @ wr - xi @ wi
+        yi = xr @ wi + xi @ wr
+        if group is not None:
+            yr, yi = split_complex(distributed.gather_out(torch.cat([yr, yi], dim=-1), -1, group,
+                                                          parts=2))
+        return torch.cat([yr + self.full("br").to(x.dtype), yi + self.full("bi").to(x.dtype)],
+                         dim=-1)
 
 
 class BatchNorm(nn.Module):

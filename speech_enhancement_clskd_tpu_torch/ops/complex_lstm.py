@@ -26,6 +26,15 @@ casts around the Pallas kernel).
 flax names them so ``utils.bridge`` maps the trees name for name.  A cell
 concatenates its eight flax denses into the ``xw`` and ``W_hh`` of the same
 ``lstm_seq``, so its recurrence runs on the same kernels.
+
+Tensor parallelism (``ops.complex_layers.TensorParallel``, set up by
+``models.dccrn.shard_model``): ``x @ W_ih`` and the output projections are
+column-parallel, each rank's columns gathered to the full ``4H`` (``P``)
+before the biases are added; ``W_hh`` is gathered whole and the recurrence
+runs unsplit on every rank (``lstm_seq``: K1f forward, K1b backward), whose
+gradient of the gathered ``W_hh`` is the same on every rank, each keeping
+its slice.  Splitting the gate columns of the recurrence would need an
+exchange every frame.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ import torch
 from torch import nn
 
 from ..kernels.lstm import lstm_seq
+from ..parallel import distributed
+from .complex_layers import TensorParallel
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: Optional[torch.Generator]) -> None:
@@ -53,7 +64,7 @@ def _lecun_normal_(t: torch.Tensor, generator: Optional[torch.Generator]) -> Non
     nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-class LSTM(nn.Module):
+class LSTM(TensorParallel, nn.Module):
     """Single-layer unidirectional LSTM over [T, B, F] -> [T, B, H].
 
     Parameters keep the JAX layouts: ``w_ih [F, 4H]``, ``w_hh [H, 4H]``.
@@ -79,13 +90,16 @@ class LSTM(nn.Module):
         state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> torch.Tensor:
         dt = x.dtype
-        xw = torch.matmul(x, self.w_ih.to(dt)) + (self.b_ih + self.b_hh).to(dt)
+        group = self.tp("w_ih")
+        xw = distributed.gather_out(torch.matmul(distributed.copy_in(x, group), self.w_ih.to(dt)),
+                                    -1, group)
+        xw = xw + (self.full("b_ih") + self.full("b_hh")).to(dt)
         h0, c0 = (None, None) if state is None else state
-        y, _ = lstm_seq(xw, self.w_hh.to(dt), h0, c0)
+        y, _ = lstm_seq(xw, self.full("w_hh").to(dt), h0, c0)
         return y
 
 
-class NaiveComplexLSTM(nn.Module):
+class NaiveComplexLSTM(TensorParallel, nn.Module):
     """Packed-complex LSTM layer: ([T,B,F], [T,B,F]) -> ([T,B,*], [T,B,*]).
 
     ``hidden_size`` counts the full packed width (real+imag).
@@ -127,15 +141,23 @@ class NaiveComplexLSTM(nn.Module):
         out_r = r2r - i2i
         out_i = r2i + i2r
         if self.projection_dim is not None:
-            dt = out_r.dtype
-            out_r = out_r @ self.proj_wr.to(dt) + self.proj_br.to(dt)
-            out_i = out_i @ self.proj_wi.to(dt) + self.proj_bi.to(dt)
+            out_r = self._project(out_r, "r")
+            out_i = self._project(out_i, "i")
         return out_r, out_i
 
+    def _project(self, h: torch.Tensor, part: str) -> torch.Tensor:
+        """``h @ proj_w{part} + proj_b{part}``, column-parallel where the
+        weight holds this rank's columns."""
+        group = self.tp(f"proj_w{part}")
+        w = getattr(self, f"proj_w{part}").to(h.dtype)
+        y = distributed.gather_out(distributed.copy_in(h, group) @ w, -1, group)
+        return y + self.full(f"proj_b{part}").to(h.dtype)
 
-class Dense(nn.Module):
+
+class Dense(TensorParallel, nn.Module):
     """flax ``nn.Dense``: ``x @ kernel + bias``, ``kernel [F, O]``;
-    lecun-normal kernel (orthogonal with ``orthogonal=True``), zero bias."""
+    lecun-normal kernel (orthogonal with ``orthogonal=True``), zero bias;
+    column-parallel where ``kernel`` holds this rank's columns."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  orthogonal: bool = False):
@@ -154,8 +176,10 @@ class Dense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.kernel.to(x.dtype))
-        return y if self.bias is None else y + self.bias.to(x.dtype)
+        group = self.tp("kernel")
+        y = distributed.gather_out(
+            torch.matmul(distributed.copy_in(x, group), self.kernel.to(x.dtype)), -1, group)
+        return y if self.bias is None else y + self.full("bias").to(x.dtype)
 
 
 # flax LSTMCell's gates, in the order lstm_seq takes them
@@ -171,6 +195,10 @@ class LSTMCell(nn.Module):
     carry starting at zeros; the layer runs it as ``lstm_seq(x @ [Wii Wif
     Wig Wio] + [bhi bhf bhg bho], [Whi Whf Whg Who])``, float32 whatever the
     input's dtype (flax promotes a bf16 input to its float32 parameters).
+    The four input denses have one shape, and so do the four recurrent
+    ones, so the rule slices each four alike: sliced, each rank's
+    ``[i f g o]`` columns are gathered gate by gate (``gather_out`` with 4
+    parts).
     """
 
     def __init__(self, input_size: int, hidden: int):
@@ -187,9 +215,14 @@ class LSTMCell(nn.Module):
             m.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w_ih = torch.cat([getattr(self, f"i{gate}").kernel for gate in _GATES], dim=1)
-        w_hh = torch.cat([getattr(self, f"h{gate}").kernel for gate in _GATES], dim=1)
-        b = torch.cat([getattr(self, f"h{gate}").bias for gate in _GATES])
-        xw = torch.matmul(x.float(), w_ih) + b
-        y, _ = lstm_seq(xw, w_hh)
+        inputs = [getattr(self, f"i{gate}") for gate in _GATES]
+        recurrent = [getattr(self, f"h{gate}") for gate in _GATES]
+        w_ih = torch.cat([d.kernel for d in inputs], dim=1)
+        group = inputs[0].tp("kernel")
+        xw = distributed.gather_out(torch.matmul(distributed.copy_in(x.float(), group), w_ih),
+                                    -1, group, parts=len(_GATES))
+        b = torch.cat([d.full("bias") for d in recurrent])
+        w_hh = distributed.gather_out(torch.cat([d.kernel for d in recurrent], dim=1), 1,
+                                      recurrent[0].tp("kernel"), parts=len(_GATES))
+        y, _ = lstm_seq(xw + b, w_hh)
         return y

@@ -25,6 +25,14 @@ the backward of a gather is that sum's slice of this rank's rows.  A
 gathered tensor keeps the order of its axes in memory, so code that walks a
 map by its strides (``losses/kd.py::_grams``) sums it in the same order as
 the one-process map.
+
+Tensor parallelism over the model axis (``parallel.mesh``) adds Megatron's
+pair of collectives over the model group: ``copy_in`` (the identity, its
+backward a sum over the ranks) in front of a column-parallel product and
+``gather_out`` (an all-gather, its backward this rank's slice) behind it.
+Every collective here is an ``all_reduce``, ``all_gather`` or
+``broadcast``, which gloo has too, so the same code runs on the CPU and
+with several ranks on one card.
 """
 
 from __future__ import annotations
@@ -188,6 +196,65 @@ def all_gather(x: torch.Tensor, dim: int = 0, group: Group = None) -> torch.Tens
     ``x``'s memory order; differentiable: the gradient of each rank's part
     is its slice of the sum of the ranks' gradients."""
     return x if group is None else _AllGather.apply(x, dim, group)
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_in(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """``x`` itself, the input of a column-parallel product over the model
+    ranks of ``group`` (Megatron's ``f``): every rank holds the same ``x``
+    and contributes a part of its gradient, so the backward sums the ranks'
+    gradients.  The identity without a group."""
+    return x if group is None else _CopyIn.apply(x, group)
+
+
+def _parts_of(x: torch.Tensor, dim: int, parts: int) -> List[torch.Tensor]:
+    return list(x.chunk(parts, dim)) if parts > 1 else [x]
+
+
+class _GatherOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, parts):
+        ctx.dim, ctx.group, ctx.parts = dim, group, parts
+        pieces = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                  for _ in range(dist.get_world_size(group))]
+        dist.all_gather(pieces, x.contiguous(), group=group)
+        by_rank = [_parts_of(p, dim, parts) for p in pieces]
+        return torch.cat([ps[j] for j in range(parts) for ps in by_rank], dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        chunks = _parts_of(g, ctx.dim, ctx.parts * n)
+        mine = [chunks[j * n + r] for j in range(ctx.parts)]
+        return torch.cat(mine, dim=ctx.dim) if ctx.parts > 1 else mine[0], None, None, None
+
+
+def gather_out(x: torch.Tensor, dim: int, group: Group = None, parts: int = 1) -> torch.Tensor:
+    """The model ranks' slices ``x`` joined along ``dim`` (Megatron's ``g``):
+    the output of a column-parallel product, or a sharded weight gathered
+    whole.  ``x`` holds ``parts`` equal blocks along ``dim`` (2 for a packed
+    complex map ``[re | im]``, 4 for an LSTM cell's gates), and block ``j``
+    of the result is block ``j`` of every rank in rank order, so a packed
+    map stays ``[re of all | im of all]``.  What follows runs replicated,
+    so every rank holds the same gradient of the result, and the backward
+    takes this rank's slices of it without summing (``all_gather``'s
+    backward sums, which is right for data-parallel rows and multiplies
+    this gradient by the ranks).  ``x`` itself without a group."""
+    if group is None:
+        return x
+    return _GatherOut.apply(x, dim % x.ndim, group, parts)
 
 
 def mean_over_ranks(xs: Sequence[torch.Tensor], group: Group = None) -> List[torch.Tensor]:

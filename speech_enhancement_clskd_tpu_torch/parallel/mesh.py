@@ -11,21 +11,26 @@ slice (``distributed.local_rows``), the counterpart of the JAX batch
 shardings.
 
 ``spec_for`` is the JAX tensor-parallel rule (``_spec_for``) as a pure
-function of a shape; the trainers do not shard over ``model`` yet and raise
-for ``model > 1`` (``trainer_mesh``).
+function of a shape, and ``torch_shard_dims`` applies it to a module's
+parameters: a leaf of the JAX tree whose last axis the rule shards over
+``model`` is held by each model rank as its slice along the torch dim that
+carries that axis (``utils.bridge``'s layouts put a conv's output channels
+at dim 0, a transposed conv's at dim 1 and leave a dense ``[F, O]`` as it
+is).  ``models.dccrn.shard_model`` cuts a built model so; the trainers
+shard the student and the teacher (the pretraining model) and leave the
+ABF chains, the BN statistics and the optimizer's scalars replicated, as
+the JAX trainers place them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch.distributed as dist
 
 from ..config import MeshConfig
-
-# the ROADMAP item that ports tensor parallelism over the model axis
-TP_ITEM = "ROADMAP queue 1 item 8b (tensor parallelism over mesh.model)"
+from ..utils.bridge import torch_perm
 
 _TP_MIN_SIZE = 1 << 14  # tensors below this many elements stay replicated
 
@@ -35,11 +40,20 @@ class Mesh:
     """``shape``: ``{"data": d, "model": m}``; ``device_mesh``: the torch
     ``DeviceMesh`` over the ranks, ``None`` for a world of 1 without a
     process group; ``data_group``: the process group of this rank's data
-    axis (``None`` without a process group, so no collective runs)."""
+    axis (the ranks that hold the same slices of the model), ``model_group``
+    that of its model axis (the ranks that take the same rows); ``None``
+    without a process group, so no collective runs."""
 
     shape: Dict[str, int]
     device_mesh: Any = None
     data_group: Optional[dist.ProcessGroup] = None
+    model_group: Optional[dist.ProcessGroup] = None
+
+    @property
+    def world_group(self) -> Optional[dist.ProcessGroup]:
+        """Every rank of the mesh (``None`` for a mesh without a process
+        group)."""
+        return None if self.device_mesh is None else dist.group.WORLD
 
     @property
     def is_main(self) -> bool:
@@ -70,16 +84,23 @@ def make_mesh(mcfg: Optional[MeshConfig] = None, device_type: str = "cuda") -> M
 
     data, model = mesh_shape(mcfg, dist.get_world_size())
     dm = init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
-    return Mesh({"data": data, "model": model}, dm, dm.get_group("data"))
+    return Mesh({"data": data, "model": model}, dm, dm.get_group("data"), dm.get_group("model"))
 
 
 def trainer_mesh(mcfg: MeshConfig, mesh: Optional[Mesh], device_type: str) -> Mesh:
-    """The trainers' mesh: ``mesh``, else ``make_mesh(mcfg)``.  They run
-    data parallel only: ``model > 1`` raises ``NotImplementedError``."""
-    model = mesh.shape["model"] if mesh is not None else mcfg.model
-    if model > 1:
-        raise NotImplementedError(f"mesh.model={model}: not ported yet, {TP_ITEM}")
-    return mesh if mesh is not None else make_mesh(mcfg, device_type)
+    """The trainers' mesh: ``mesh``, else ``make_mesh(mcfg)``.  A mesh
+    with ``model > 1`` and no model group raises: its ranks would have no
+    collective to join their slices."""
+    mesh = mesh if mesh is not None else make_mesh(mcfg, device_type)
+    if mesh.shape["model"] > 1 and mesh.model_group is None:
+        raise ValueError(f"mesh {mesh.shape} has no model process group")
+    return mesh
+
+
+def model_axis_group(mesh: Mesh) -> Optional[dist.ProcessGroup]:
+    """The group the trainers shard over: ``mesh.model_group`` where the
+    model axis has more than one rank, else ``None`` (nothing sharded)."""
+    return mesh.model_group if mesh.shape["model"] > 1 else None
 
 
 def spec_for(shape: Tuple[int, ...], model_size: int) -> Tuple[Optional[str], ...]:
@@ -98,3 +119,22 @@ def spec_for(shape: Tuple[int, ...], model_size: int) -> Tuple[Optional[str], ..
     if last % model_size == 0 and last >= model_size:
         return (None,) * (len(shape) - 1) + ("model",)
     return ()
+
+
+def torch_shard_dims(named_parameters: Iterable[Tuple[str, Any]], model_size: int
+                     ) -> Dict[str, Optional[int]]:
+    """For each ``(name, tensor)`` of a module's parameters (names as the
+    state_dict has them, the JAX tree's paths joined with dots), the torch
+    dim that holds the JAX leaf's last axis where ``spec_for`` shards that
+    leaf over ``model_size`` ranks, else ``None``.  The rule reads the JAX
+    shape (``utils.bridge.torch_perm`` undone), not the torch tensor's."""
+    dims: Dict[str, Optional[int]] = {}
+    for name, tensor in named_parameters:
+        shape = tuple(tensor.shape)
+        perm = torch_perm(tuple(name.split(".")))
+        if perm is None:
+            perm = tuple(range(len(shape)))
+        jax_shape = tuple(shape[perm.index(axis)] for axis in range(len(shape)))
+        sharded = spec_for(jax_shape, model_size) != ()
+        dims[name] = perm.index(len(shape) - 1) if sharded else None
+    return dims

@@ -31,7 +31,13 @@ Data parallelism as in ``train.trainer.Trainer``: with a data group
 complex) on the global batch's moments, the gradients averaged over the
 ranks; a loss mode whose terms are all means over the rows
 (``losses.modes.mean_over_rows``) is taken on the rank's rows, the others
-(``SI-SDR``, a ratio of batch means) on the gathered global batch.
+(``SI-SDR``, a ratio of batch means) on the gathered global batch.  Tensor
+parallelism as there too: with ``mesh.model > 1`` the model is cut over the
+model group (``models.dccrn.shard_model``) after rank 0's weights are
+broadcast, so the K1b backward runs on the gathered ``W_hh`` and each rank
+keeps its slice of that gradient and of Adam's moments; ``grad_norm`` is the
+whole gradient's, and the whole leaves and the BN statistics stay
+bit-identical across the model ranks.
 """
 
 from __future__ import annotations
@@ -49,12 +55,12 @@ from ..data.synthetic import SyntheticEnhancementDataset
 from ..losses.modes import LOSS_MODES, dccrn_loss, mean_over_rows
 from ..losses.signal import si_sdr
 from ..metrics.stoi import stoi_batch
-from ..models.dccrn import build_model
+from ..models.dccrn import build_model, gather_model, shard_model
 from ..ops import stft as stft_ops
 from ..parallel import distributed
-from ..parallel.mesh import Mesh, trainer_mesh
+from ..parallel.mesh import Mesh, model_axis_group, trainer_mesh
 from ..utils.device import float32_math, resolve_device
-from .trainer import _global_norm
+from .trainer import broadcast_from_rank_0, global_norms, sharded_params
 
 
 class PretrainTrainer:
@@ -68,7 +74,7 @@ class PretrainTrainer:
     ``model`` (``STATE_PARTS``; ``utils.bridge.load_pretrain_state`` loads a
     JAX pretraining state into it); ``step`` counts optimizer steps and
     ``epoch`` completed epochs.  ``mesh``: as ``Trainer`` takes it (data
-    parallel over its data group; ``mesh.model > 1`` raises).
+    parallel over its data group, the model cut over its model group).
     """
 
     STATE_PARTS = ("model",)
@@ -83,7 +89,8 @@ class PretrainTrainer:
         self.device = resolve_device(device)
         self.mesh = trainer_mesh(cfg.mesh, mesh, self.device.type)
         self.group = self.mesh.data_group
-        if self.group is not None:
+        self.model_group = model_axis_group(self.mesh)
+        if self.group is not None or self.model_group is not None:
             self.device = distributed.local_device(self.device)
         self.model = build_model(self.model_cfg)
         distributed.sync_batch_stats(self.model, self.group)
@@ -102,12 +109,17 @@ class PretrainTrainer:
 
     def init_state(self, seed: Optional[int] = None) -> "PretrainTrainer":
         """Seeded weights (drawn on the CPU from one ``torch.Generator``,
-        then moved to the device; under data parallelism rank 0's), the
-        model in training mode, and a fresh Adam."""
+        then moved to the device; under data or tensor parallelism rank
+        0's, then cut over the model group), the model in training mode,
+        and a fresh Adam."""
         g = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
+        gather_model(self.model)  # a second init_state draws whole weights again
         self.model.cpu().reset_parameters(g)
-        self.model.to(self.device).requires_grad_(True).train()
-        distributed.broadcast_tensors(list(self.model.state_dict().values()), 0, self.group)
+        self.model.to(self.device)
+        broadcast_from_rank_0(list(self.model.state_dict().values()), self.mesh)
+        if self.model_group is not None:
+            shard_model(self.model, self.model_group)
+        self.model.requires_grad_(True).train()
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=self.cfg.optim.lr)
         self.step = 0
         self.epoch = 0
@@ -147,7 +159,8 @@ class PretrainTrainer:
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             distributed.average_gradients(list(self.model.parameters()), self.group)
-            grad_norm = _global_norm(self.model.parameters())
+            grad_norm, = global_norms({"grad_norm": list(self.model.parameters())},
+                                      sharded_params(self.model), self.model_group).values()
             self.optimizer.step()
         self.step += 1
         loss, = distributed.mean_over_ranks([loss], self.group)
@@ -184,8 +197,8 @@ class PretrainTrainer:
         ``audio_s_per_s``).  A trainer whose ``init_state`` has not run is
         initialized first.  Epoch ``e`` shuffles with ``(cfg.seed, e)``;
         ``checkpoint_manager.save(self, metrics)`` runs after each
-        validation (under data parallelism on rank 0, which alone logs,
-        the others waiting at a barrier)."""
+        validation on every rank (rank 0 alone logs and writes, every rank
+        waiting at a barrier after it)."""
         cfg = self.cfg
         if self.optimizer is None:
             self.init_state()
@@ -214,9 +227,8 @@ class PretrainTrainer:
                 log_fn(f"epoch {epoch} done: "
                        + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
             if checkpoint_manager is not None:
-                if self.mesh.is_main:
-                    checkpoint_manager.save(self, metrics)
-                distributed.barrier(self.group)
+                checkpoint_manager.save(self, metrics)  # every rank; rank 0 writes
+                distributed.barrier(self.mesh.world_group)
             history = metrics
         return history
 

@@ -72,11 +72,13 @@ checkpoints (``utils.serialization.CheckpointManager``) and JSONL metrics
 epochs (``epoch``), which a checkpoint keeps: a resumed ``fit`` starts at
 that epoch, with that epoch's shuffle.
 
-Data parallelism (``parallel.mesh``): the JAX trainer's step and fit loop
-run sharded over ``cfg.mesh``'s data axis under GSPMD; the port runs a
-process a device, each on its rows of the same global batch, with the
-collectives of ``parallel.distributed`` where the one-process step reduces
-over the batch (``Trainer``'s docstring).
+Data and tensor parallelism (``parallel.mesh``): the JAX trainer's step and
+fit loop run sharded over ``cfg.mesh``'s data axis and its large weights over
+the model axis under GSPMD; the port runs a process a device, each on its
+rows of the same global batch and its slice of the student's and the
+teacher's large weights, with the collectives of ``parallel.distributed``
+where the one-process step reduces over the batch or needs a whole weight
+(``Trainer``'s docstring).
 """
 
 from __future__ import annotations
@@ -106,9 +108,15 @@ from ..losses.pit import pit_reorder
 from ..losses.signal import si_sdr
 from ..metrics.stoi import stoi_batch
 from ..models import dccrnet
-from ..models.dccrn import FeatureTaps, build_model
+from ..models.dccrn import (
+    FeatureTaps,
+    build_model,
+    gather_model,
+    model_shards,
+    shard_model,
+)
 from ..parallel import distributed
-from ..parallel.mesh import Mesh, trainer_mesh
+from ..parallel.mesh import Mesh, model_axis_group, trainer_mesh
 from ..utils.bridge import torch_state_from_flax
 from ..utils.device import float32_math, resolve_device
 
@@ -121,6 +129,15 @@ def log_keys(strategy: str, abf_reinit_each_step: bool = False) -> Tuple[str, ..
     trained_abf = needs_fusion(strategy) and not abf_reinit_each_step
     return (loss_keys(strategy) + ("grad_norm", "gn_enc", "gn_lstm", "gn_dec")
             + (("gn_abf",) if trained_abf else ()))
+
+
+def broadcast_from_rank_0(tensors: List[torch.Tensor], mesh: Mesh) -> None:
+    """Every rank's ``tensors`` set to rank 0's: over the data group (each
+    model column takes its first row's), then over the model group (each
+    row takes its first column's, which now holds rank 0's)."""
+    distributed.broadcast_tensors(tensors, 0, mesh.data_group)
+    if mesh.shape["model"] > 1:
+        distributed.broadcast_tensors(tensors, 0, mesh.model_group)
 
 
 def _teacher_tap_channels(cfg: DCCRNConfig) -> Tuple[tuple, tuple]:
@@ -194,6 +211,35 @@ def _global_norm(params: Iterable[nn.Parameter]) -> torch.Tensor:
     return torch.sqrt(torch.stack(squares).sum())
 
 
+def sharded_params(*models: Optional[nn.Module]) -> set:
+    """The ids of the parameters that hold a model rank's slice
+    (``models.dccrn.shard_model``) in ``models``."""
+    return {id(p) for m in models if m is not None
+            for n, p in m.named_parameters() if n in model_shards(m)}
+
+
+def global_norms(params: Dict[str, List[nn.Parameter]], sharded: set,
+                 model_group=None) -> Dict[str, torch.Tensor]:
+    """``_global_norm`` of each list of ``params`` under tensor
+    parallelism: the squares of a sliced parameter (its id in ``sharded``)
+    summed over the model ranks, those of a whole one counted once, so
+    every rank gets the norm of the whole gradient (one all-reduce for
+    every list).  ``_global_norm`` itself without a model group."""
+    if model_group is None:
+        return {k: _global_norm(ps) for k, ps in params.items()}
+    sums = []
+    for ps in params.values():
+        for part in (True, False):
+            sq = [p.grad.float().square().sum() for p in ps
+                  if p.grad is not None and (id(p) in sharded) == part]
+            sums.append(torch.stack(sq).sum() if sq else torch.zeros((), device=ps[0].device))
+    sums = torch.stack(sums).view(-1, 2)
+    sliced = sums[:, 0].clone()
+    torch.distributed.all_reduce(sliced, group=model_group)
+    norms = torch.sqrt(sliced + sums[:, 1])
+    return dict(zip(params, norms.unbind(0)))
+
+
 class Trainer:
     """The distillation optimizer step on ``device`` (the card unless the
     caller asks for the CPU; ``device="cuda"`` with no GPU raises).
@@ -218,8 +264,22 @@ class Trainer:
     (``distill.strategies.spkd_term``), the gradients are averaged over the
     ranks (one all-reduce of a flat buffer) and the logs, norms, clip and
     validation metrics are the global ones, as the JAX step's are under
-    GSPMD.  Checkpoints are written by rank 0.  ``mesh.model > 1`` raises
-    ``NotImplementedError``.
+    GSPMD.  Checkpoints are written by rank 0.
+
+    Tensor parallelism: with ``mesh.model > 1`` the model group's ranks
+    take the same rows (the data group's), and ``init_state`` cuts the
+    student and the teacher over it (``models.dccrn.shard_model``: the
+    leaves of at least 2^14 elements whose last JAX axis divides), so each
+    rank holds its slice of each such leaf and, Adam being elementwise, of
+    its moments.  The layers run column-parallel, gathering the outputs
+    (and the LSTM's ``W_hh`` whole, for the K1f/K1b recurrence on every
+    rank).  Every collective of data parallelism runs over the data group;
+    ``grad_norm``, the ``gn_*`` logs and ``grad_clip`` sum a sliced leaf's
+    squares over the model ranks and count a whole leaf once.  The whole
+    leaves, the BN statistics and the ABF chains are computed alike on the
+    model ranks from the same inputs, and stay bit-identical across them.
+    Checkpoints, bundles and ``utils.bridge``'s states hold whole tensors
+    at any ``mesh.model``.
     """
 
     def __init__(self, cfg: TrainConfig = TrainConfig(),
@@ -229,7 +289,8 @@ class Trainer:
         self.device = resolve_device(device)
         self.mesh = trainer_mesh(cfg.mesh, mesh, self.device.type)
         self.group = self.mesh.data_group
-        if self.group is not None:
+        self.model_group = model_axis_group(self.mesh)
+        if self.group is not None or self.model_group is not None:
             self.device = distributed.local_device(self.device)
         self.strategy = cfg.distill.strategy
         self.use_fusion = needs_fusion(self.strategy)
@@ -314,18 +375,23 @@ class Trainer:
         device), and a fresh optimizer over the trainable modules.
         ``teacher_variables``: a pretrained teacher's flax ``{params,
         batch_stats}`` tree (e.g. from ``utils.serialization.load_bundle``),
-        loaded over the seeded teacher.  Under data parallelism every
-        rank then takes rank 0's weights and statistics."""
+        loaded over the seeded teacher.  Under data or tensor parallelism
+        every rank then takes rank 0's weights and statistics, and with a
+        model group the student and the teacher are cut over it."""
         g = torch.Generator().manual_seed(self.cfg.seed if seed is None else seed)
         modules = [m for m in (self.student, self.teacher, self.abf_enc, self.abf_dec)
                    if m is not None]
+        for m in (self.student, self.teacher):
+            gather_model(m)  # a second init_state draws whole weights again
         for m in modules:
             m.cpu().reset_parameters(g)
             m.to(self.device)
         if teacher_variables is not None:
             self.teacher.load_state_dict(torch_state_from_flax(teacher_variables), strict=True)
-        distributed.broadcast_tensors(
-            [t for m in modules for t in m.state_dict().values()], 0, self.group)
+        broadcast_from_rank_0([t for m in modules for t in m.state_dict().values()], self.mesh)
+        if self.model_group is not None:
+            shard_model(self.student, self.model_group)
+            shard_model(self.teacher, self.model_group)
         self.teacher.requires_grad_(False).eval()
         if self.reinit_abf:
             for m in (self.abf_enc, self.abf_dec):
@@ -387,16 +453,15 @@ class Trainer:
         student = list(self.student.named_parameters())
         abf = [p for name, m in self.trainable().items() if name != "student"
                for p in m.parameters()]
-        norms = {
-            "grad_norm": _global_norm([p for _, p in student] + abf),
-            "gn_enc": _global_norm(p for n, p in student if n.startswith("enc")),
-            "gn_lstm": _global_norm(p for n, p in student
-                                    if n.startswith(("clstm", "rnn", "lstm"))),
-            "gn_dec": _global_norm(p for n, p in student if n.startswith("dec")),
+        params = {
+            "grad_norm": [p for _, p in student] + abf,
+            "gn_enc": [p for n, p in student if n.startswith("enc")],
+            "gn_lstm": [p for n, p in student if n.startswith(("clstm", "rnn", "lstm"))],
+            "gn_dec": [p for n, p in student if n.startswith("dec")],
         }
         if abf:
-            norms["gn_abf"] = _global_norm(abf)
-        return norms
+            params["gn_abf"] = abf
+        return global_norms(params, sharded_params(self.student), self.model_group)
 
     def _clip(self, norm: torch.Tensor, max_norm: float) -> None:
         """optax ``clip_by_global_norm``: every gradient times ``max_norm /
@@ -505,10 +570,11 @@ class Trainer:
         and the one left at the end of ``fit`` is dropped (a checkpoint does
         not hold it).  ``checkpoint_manager.save(self, metrics)`` runs after
         each validation and ``metric_writer`` takes the train logs (scope
-        ``train``) and each epoch's metrics (scope ``val``).  Under data
-        parallelism every rank iterates the same seeded batches; rank 0
-        alone logs, writes metrics and saves, the others wait at a barrier
-        after each save.
+        ``train``) and each epoch's metrics (scope ``val``).  Under data or
+        tensor parallelism every rank iterates the same seeded batches and
+        calls ``save`` (the same top-k decision on every rank; a sharded
+        state is gathered by all); rank 0 alone logs, writes metrics and
+        the checkpoint, and every rank waits at a barrier after each save.
         """
         cfg = self.cfg
         if self.optimizer is None:
@@ -553,10 +619,11 @@ class Trainer:
                     metric_writer.write(self.step, metrics, scope="val")
             if checkpoint_manager is not None:
                 # top-k retention on the monitored metric (reference
-                # ModelCheckpoint(monitor='stoi'), distill.py:252-258)
-                if self.mesh.is_main:
-                    checkpoint_manager.save(self, metrics)
-                distributed.barrier(self.group)
+                # ModelCheckpoint(monitor='stoi'), distill.py:252-258); every
+                # rank takes the decision and gathers a sharded state, rank 0
+                # writes
+                checkpoint_manager.save(self, metrics)
+                distributed.barrier(self.mesh.world_group)
             history = metrics
         return history
 

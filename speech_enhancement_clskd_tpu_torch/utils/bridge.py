@@ -37,7 +37,10 @@ flax layouts.  Both walk the parts the trainer has: a trainer without ABF
 chains (``spkd``, ``mse``, ``stft``) takes a state whose ``abf_*`` fields
 are ``None``.  ``load_pretrain_state`` and ``pretrain_state_arrays`` do the
 same for a ``train.pretrain.PretrainTrainer`` and the JAX pretraining state,
-a dict of ``step``, ``params``, ``batch_stats`` and ``opt_state``.
+a dict of ``step``, ``params``, ``batch_stats`` and ``opt_state``.  All four
+take and give whole arrays at any ``mesh.model``: a sharded model takes its
+slices (``models.dccrn.load_full_state_dict``) and gives its leaves gathered
+(``full_state_dict``, a collective every model rank calls).
 """
 
 from __future__ import annotations
@@ -69,7 +72,10 @@ def trainer_parts(trainer) -> Tuple[str, ...]:
     return tuple(p for p in parts if getattr(trainer, p) is not None)
 
 
-def _perm(path: tuple) -> "tuple | None":
+def torch_perm(path: tuple) -> "tuple | None":
+    """The axes of the flax leaf at ``path`` in the order the torch tensor
+    holds them (``torch = flax.transpose(perm)``), or ``None`` where the
+    two layouts are one."""
     if path[-1] in _CONV_WEIGHTS and len(path) >= 2 and path[-2].endswith("_conv"):
         return _TO_TORCH[bool(_TRANSPOSED.fullmatch(path[-2]))]
     if path[-2:] == ("conv2", "kernel"):  # ABF 3x3 conv, for F.conv2d
@@ -91,7 +97,7 @@ def torch_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tenso
     for coll in ("params", "batch_stats"):
         for path, leaf in _walk(variables.get(coll, {})):
             arr = np.asarray(leaf)
-            perm = _perm(path)
+            perm = torch_perm(path)
             if perm is not None:
                 arr = arr.transpose(perm)
             state[".".join(path)] = torch.from_numpy(np.array(arr, order="C"))
@@ -104,7 +110,7 @@ def flax_from_torch_state(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     for key, tensor in state.items():
         path = tuple(key.split("."))
         arr = tensor.detach().cpu().numpy()
-        perm = _perm(path)
+        perm = torch_perm(path)
         if perm is not None:
             arr = arr.transpose(np.argsort(perm))
         coll = "batch_stats" if path[-1] in _STATS else "params"
@@ -128,10 +134,12 @@ def load_train_state(trainer, state) -> None:
     in_state = tuple(p for p in TRAIN_STATE_PARTS if getattr(state, f"{p}_params") is not None)
     if in_state != parts:
         raise ValueError(f"the state holds {in_state}, the trainer {parts}")
+    from ..models.dccrn import load_full_state_dict
+
     for part in parts:
         variables = {"params": getattr(state, f"{part}_params"),
                      "batch_stats": getattr(state, f"{part}_stats") or {}}
-        getattr(trainer, part).load_state_dict(torch_state_from_flax(variables), strict=True)
+        load_full_state_dict(getattr(trainer, part), torch_state_from_flax(variables))
     trainer.optimizer.state.clear()
     trainer.step = int(np.asarray(state.step))
 
@@ -139,9 +147,11 @@ def load_train_state(trainer, state) -> None:
 def train_state_arrays(trainer) -> Dict[str, Any]:
     """``{part}_params`` and ``{part}_stats`` of ``trainer``'s modules as
     numpy trees in flax layouts: the inverse of ``load_train_state``."""
+    from ..models.dccrn import full_state_dict
+
     out: Dict[str, Any] = {}
     for part in trainer_parts(trainer):
-        variables = flax_from_torch_state(getattr(trainer, part).state_dict())
+        variables = flax_from_torch_state(full_state_dict(getattr(trainer, part)))
         out[f"{part}_params"] = variables["params"]
         out[f"{part}_stats"] = variables.get("batch_stats", {})
     return out
@@ -155,8 +165,10 @@ def load_pretrain_state(trainer, state: Mapping[str, Any]) -> None:
     the moments).  ``trainer.init_state()`` must have run."""
     if trainer.optimizer is None:
         raise RuntimeError("call trainer.init_state() before loading a state")
+    from ..models.dccrn import load_full_state_dict
+
     variables = {"params": state["params"], "batch_stats": state.get("batch_stats") or {}}
-    trainer.model.load_state_dict(torch_state_from_flax(variables), strict=True)
+    load_full_state_dict(trainer.model, torch_state_from_flax(variables))
     trainer.optimizer.state.clear()
     trainer.step = int(np.asarray(state["step"]))
 
@@ -164,6 +176,8 @@ def load_pretrain_state(trainer, state: Mapping[str, Any]) -> None:
 def pretrain_state_arrays(trainer) -> Dict[str, Any]:
     """``step``, ``params`` and ``batch_stats`` of a ``PretrainTrainer`` as
     numpy trees in flax layouts: the inverse of ``load_pretrain_state``."""
-    variables = flax_from_torch_state(trainer.model.state_dict())
+    from ..models.dccrn import full_state_dict
+
+    variables = flax_from_torch_state(full_state_dict(trainer.model))
     return {"step": np.int32(trainer.step), "params": variables["params"],
             "batch_stats": variables.get("batch_stats", {})}

@@ -17,6 +17,14 @@ Two artifact roles, as in ``speech_enhancement_clskd_tpu/utils/serialization.py`
    Adam state, step and epoch counter into ``step_%08d/``, top-k retention on a
    monitored metric (the reference's ``ModelCheckpoint(save_top_k=3,
    monitor='stoi', mode='max')``), and restore.
+
+Under tensor parallelism (``models.dccrn.shard_model``) both hold whole
+tensors: the leaves and Adam's moments of a sharded model are gathered over
+its model ranks (a collective, so every rank calls ``trainer_state``,
+``student_from_state`` and ``CheckpointManager.save``; rank 0 writes), and
+``restore`` gives each rank its slice.  A checkpoint written at
+``mesh.model=2`` has the keys, shapes and values of one written at
+``mesh.model=1`` from the same state, and restores at either.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from ..config import DCCRNConfig, STFTConfig
+from ..models.dccrn import full_state_dict, full_tensors, load_full_state_dict, local_tensors
 from .bridge import flax_from_torch_state, trainer_parts
 
 _SEP = "|"
@@ -133,23 +142,75 @@ def student_from_state(trainer, cfg: DCCRNConfig) -> Dict[str, Any]:
     """The student's inference variables ``{params, batch_stats}`` of a
     ``Trainer`` as numpy trees in flax layouts (the reference's 'strip the
     student. prefix' step, distill.py:280-290).  ``cfg`` is the student's
-    config, as the JAX function takes it."""
-    variables = flax_from_torch_state(trainer.student.state_dict())
+    config, as the JAX function takes it.  A sharded student is gathered
+    whole (every model rank calls it)."""
+    variables = flax_from_torch_state(full_state_dict(trainer.student))
     return {"params": variables["params"], "batch_stats": variables.get("batch_stats", {})}
+
+
+def _optimizer_leaves(trainer):
+    """``(module, name)`` of each parameter the optimizer holds, in its
+    order (the trainable modules' ``named_parameters``, as the trainers
+    make the optimizer)."""
+    leaves = [(m, n) for m in trainer.trainable().values() for n, _ in m.named_parameters()]
+    if len(leaves) != sum(len(g["params"]) for g in trainer.optimizer.param_groups):
+        raise RuntimeError("the optimizer does not hold the trainable modules' parameters")
+    return leaves
+
+
+def _leaf_state(module, name: str, st: Dict[str, Any], whole: bool) -> Dict[str, Any]:
+    """One parameter's optimizer state with its tensors of the parameter's
+    shape (Adam's moments; not its 0-d step) gathered whole (``whole``, a
+    collective) or cut to this rank's slice (a copy: ``Optimizer.load_state_dict``
+    keeps the tensors it is given, and a view would keep the whole moment)."""
+    def convert(v):
+        if whole:
+            return full_tensors(module, {name: v})[name]
+        return local_tensors(module, {name: v})[name].clone(memory_format=torch.contiguous_format)
+
+    return {k: convert(v) if torch.is_tensor(v) and v.ndim > 0 else v for k, v in st.items()}
+
+
+def _optimizer_state(trainer, state: Dict[Any, Any], whole: bool) -> Dict[Any, Any]:
+    """An optimizer state_dict's ``state`` with every sliced leaf's
+    tensors whole or cut (``_leaf_state``)."""
+    state = dict(state)
+    for i, (module, name) in enumerate(_optimizer_leaves(trainer)):
+        if i in state:
+            state[i] = _leaf_state(module, name, state[i], whole)
+    return state
 
 
 def trainer_state(trainer) -> Dict[str, Any]:
     """What a checkpoint holds: the step, the completed epochs, every
     module's state_dict (``utils.bridge.trainer_parts``: student, teacher
     and, with fusion, both ABF chains; a ``PretrainTrainer``'s ``model``)
-    and Adam's state.  The tensors are the trainer's own; ``torch.save``
-    copies them."""
+    and Adam's state, every tensor whole.  The tensors of a whole model are
+    the trainer's own (``torch.save`` copies them); a sharded model's are
+    gathered (a collective: every model rank calls it)."""
     if trainer.optimizer is None:
         raise RuntimeError("call trainer.init_state() before saving or restoring")
+    opt = trainer.optimizer.state_dict()
     return {"step": trainer.step, "epoch": trainer.epoch,
-            "modules": {part: getattr(trainer, part).state_dict()
+            "modules": {part: full_state_dict(getattr(trainer, part))
                         for part in trainer_parts(trainer)},
-            "optimizer": trainer.optimizer.state_dict()}
+            "optimizer": {**opt, "state": _optimizer_state(trainer, opt["state"], whole=True)}}
+
+
+def load_trainer_state(trainer, ckpt: Dict[str, Any]) -> None:
+    """``trainer_state``'s inverse: every module strictly (a sharded one
+    takes its slices), the optimizer's state cut alike, the step and the
+    epoch counter."""
+    parts = trainer_parts(trainer)
+    if tuple(ckpt["modules"]) != parts:
+        raise ValueError(f"the checkpoint holds {tuple(ckpt['modules'])}, the trainer {parts}")
+    for part in parts:
+        load_full_state_dict(getattr(trainer, part), ckpt["modules"][part])
+    opt = ckpt["optimizer"]
+    trainer.optimizer.load_state_dict(
+        {**opt, "state": _optimizer_state(trainer, opt["state"], whole=False)})
+    trainer.step = int(ckpt["step"])
+    trainer.epoch = int(ckpt["epoch"])
 
 
 class CheckpointManager:
@@ -192,20 +253,29 @@ class CheckpointManager:
 
     def save(self, trainer, metrics: Dict[str, float]) -> bool:
         """Save ``trainer`` (``trainer_state``) if the metric makes top-k;
-        prune the worst.  Returns whether it was kept."""
+        prune the worst.  Returns whether it was kept.  Under data or
+        tensor parallelism every rank calls it with the same (global)
+        metrics and takes the same decision, a sharded state is gathered
+        by all, and only the trainer's main rank (``trainer.mesh.is_main``)
+        writes and deletes files."""
         step = int(trainer.step)
         score = float(metrics.get(self.monitor, float("-inf")))
         key = score if self.mode == "max" else -score
+        mesh = getattr(trainer, "mesh", None)
+        writes = mesh is None or mesh.is_main
         if len(self._scores) >= self.keep_top_k:
             worst = min(self._scores, key=self._scores.get)
             if key <= self._scores[worst]:
                 return False
-            shutil.rmtree(self._step_dir(worst), ignore_errors=True)
+            if writes:
+                shutil.rmtree(self._step_dir(worst), ignore_errors=True)
             del self._scores[worst]
-        os.makedirs(self._step_dir(step), exist_ok=True)
-        torch.save(trainer_state(trainer), os.path.join(self._step_dir(step), self._FILE))
+        state = trainer_state(trainer)
         self._scores[step] = key
-        self._save_index()
+        if writes:
+            os.makedirs(self._step_dir(step), exist_ok=True)
+            torch.save(state, os.path.join(self._step_dir(step), self._FILE))
+            self._save_index()
         return True
 
     def best_step(self) -> Optional[int]:
@@ -220,7 +290,9 @@ class CheckpointManager:
     def restore(self, trainer, step: Optional[int] = None):
         """Load checkpoint ``step`` (the best by default) into ``trainer``,
         whose ``init_state()`` has run: every module strictly, Adam's state,
-        the step and the epoch counter.  Returns the trainer."""
+        the step and the epoch counter (``load_trainer_state``; a sharded
+        trainer takes its slices, whatever ``mesh.model`` wrote the
+        checkpoint).  Returns the trainer."""
         step = step if step is not None else self.best_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -228,12 +300,5 @@ class CheckpointManager:
             raise RuntimeError("call trainer.init_state() before restoring")
         ckpt = torch.load(os.path.join(self._step_dir(step), self._FILE),
                           map_location=trainer.device, weights_only=True)
-        parts = trainer_parts(trainer)
-        if tuple(ckpt["modules"]) != parts:
-            raise ValueError(f"the checkpoint holds {tuple(ckpt['modules'])}, the trainer {parts}")
-        for part in parts:
-            getattr(trainer, part).load_state_dict(ckpt["modules"][part], strict=True)
-        trainer.optimizer.load_state_dict(ckpt["optimizer"])
-        trainer.step = int(ckpt["step"])
-        trainer.epoch = int(ckpt["epoch"])
+        load_trainer_state(trainer, ckpt)
         return trainer

@@ -1,11 +1,12 @@
 """The port's parallel layer in one process on the CPU: ``MeshConfig`` and
 its overrides, ``make_mesh``'s layouts, the tensor-parallel rule and the
-batch-slice arithmetic against the JAX package's, torchrun's variables
-reaching ``initialize``, the trainers' refusal of ``mesh.model > 1``, a
-data-parallel step in a group of one against the one-process step (bit for
-bit, the CPU counterpart of ``chip_smoke.py`` phase 26 (a)), and
-``sharded_utterance_forward`` in a world of one.  The groups of several
-processes are ``tests/test_torch_distributed.py``'s."""
+batch-slice arithmetic against the JAX package's, the rule's torch dims
+against ``_spec_for`` on the JAX trees of both families, torchrun's
+variables reaching ``initialize``, the trainers' refusal of a model axis
+without a process group, a data-parallel step in a group of one against
+the one-process step (bit for bit, the CPU counterpart of ``chip_smoke.py``
+phase 26 (a)), and ``sharded_utterance_forward`` in a world of one.  The
+groups of several processes are ``tests/test_torch_distributed.py``'s."""
 
 import dataclasses
 import socket
@@ -14,22 +15,35 @@ import numpy as np
 import pytest
 
 import jax
+import jax.numpy as jnp
 import torch
 import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
 
+from speech_enhancement_clskd_tpu.config import DCCRNConfig as JaxDCCRNConfig
 from speech_enhancement_clskd_tpu.config import MeshConfig as JaxMeshConfig
+from speech_enhancement_clskd_tpu.config import STFTConfig as JaxSTFTConfig
+from speech_enhancement_clskd_tpu.models import make_model as jax_make_model
 from speech_enhancement_clskd_tpu.parallel import distributed as jax_distributed
 from speech_enhancement_clskd_tpu.parallel.mesh import _spec_for, make_mesh as jax_make_mesh
-from speech_enhancement_clskd_tpu_torch.config import MeshConfig, TrainConfig, load_config, to_yaml
+from speech_enhancement_clskd_tpu_torch.config import (
+    DCCRNConfig,
+    MeshConfig,
+    STFTConfig,
+    TrainConfig,
+    load_config,
+    to_yaml,
+)
 from speech_enhancement_clskd_tpu_torch.distill.strategies import spkd_term
 from speech_enhancement_clskd_tpu_torch.losses.kd import spkd_loss, spkd_loss_affine
 from speech_enhancement_clskd_tpu_torch.parallel import distributed
+from speech_enhancement_clskd_tpu_torch.models.dccrn import build_model
 from speech_enhancement_clskd_tpu_torch.parallel.mesh import (
-    TP_ITEM,
+    Mesh,
     make_mesh,
     mesh_shape,
     spec_for,
+    torch_shard_dims,
 )
 from speech_enhancement_clskd_tpu_torch.parallel.sequence import sharded_utterance_forward
 from speech_enhancement_clskd_tpu_torch.train.pretrain import PretrainTrainer
@@ -152,14 +166,64 @@ def test_initialize_needs_a_coordinator(monkeypatch):
 
 
 @pytest.mark.parametrize("make", [
-    lambda cfg: Trainer(cfg, device="cpu"),
-    lambda cfg: PretrainTrainer(cfg, device="cpu"),
+    lambda cfg, mesh: Trainer(cfg, device="cpu", mesh=mesh),
+    lambda cfg, mesh: PretrainTrainer(cfg, device="cpu", mesh=mesh),
 ], ids=["Trainer", "PretrainTrainer"])
-def test_tensor_parallel_raises(make):
+def test_model_axis_needs_a_process_group(make):
+    """``mesh.model=2`` in one process cannot cover the world, and a mesh
+    with a model axis but no model group raises: nothing runs replicated
+    in its place."""
     cfg = load_config(None, ["mesh.model=2", "mesh.data=1"])
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        make(cfg)
-    assert "item 8b" in TP_ITEM
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        make(cfg, None)
+    with pytest.raises(ValueError, match="no model process group"):
+        make(cfg, Mesh({"data": 1, "model": 2}))
+
+
+# full width: the defaults' teacher and student, the asteroid pair, the
+# real-LSTM bottleneck with complex BN, and the tensor-parallel tests' geometry
+TP_MODELS = {
+    "teacher": dict(name="dccrn-cl", kernel_num=(32, 64, 128, 256, 256, 256), rnn_units=256),
+    "student": dict(name="dccrn-cl-test", kernel_num=(16, 32, 64, 128, 128, 128), rnn_units=64),
+    "dccrnet_teacher": dict(name="dccrn-cl", family="dccrnet",
+                            kernel_num=(32, 64, 128, 256, 256, 256), rnn_units=256),
+    "dccrnet_student": dict(name="dccrn-cl-test", family="dccrnet",
+                            kernel_num=(8, 16, 32, 64, 64, 64), rnn_units=64),
+    "real_lstm": dict(name="dccrn-cl", kernel_num=(32, 64, 128, 256, 256, 256), rnn_units=256,
+                      use_clstm=False, use_cbn=True),
+    "tp_teacher": dict(name="t", kernel_num=(8, 16, 32), rnn_units=64),
+}
+
+
+def _jax_leaves(fields):
+    """The JAX model's parameter shapes by dotted path (``eval_shape`` of
+    its init: no compile)."""
+    stft = dict(stft=JaxSTFTConfig(window="sqrthann")) if fields.get("family") == "dccrnet" else {}
+    model = jax_make_model(JaxDCCRNConfig(**fields, **stft))
+    shapes = jax.eval_shape(lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, 16000)),
+                                               training=True))
+    flat = jax.tree_util.tree_flatten_with_path(shapes["params"])[0]
+    return {".".join(k.key for k in path): tuple(leaf.shape) for path, leaf in flat}
+
+
+@pytest.mark.parametrize("model_size", [2, 4])
+@pytest.mark.parametrize("which", sorted(TP_MODELS))
+def test_torch_shard_dims_match_the_jax_rule(which, model_size):
+    """For every leaf, ``torch_shard_dims`` cuts the port's tensor exactly
+    where ``_spec_for`` shards the JAX leaf, along the torch dim that holds
+    the JAX leaf's last axis (the same length); something is cut."""
+    fields = TP_MODELS[which]
+    jax_shapes = _jax_leaves(fields)
+    stft = dict(stft=STFTConfig(window="sqrthann")) if fields.get("family") == "dccrnet" else {}
+    params = dict(build_model(DCCRNConfig(**fields, **stft)).named_parameters())
+    assert set(params) == set(jax_shapes)
+    dims = torch_shard_dims(params.items(), model_size)
+    for name, shape in jax_shapes.items():
+        sharded = "model" in tuple(_spec_for(name, shape, model_size))
+        assert (dims[name] is not None) == sharded, (name, shape, dims[name])
+        if sharded:
+            assert params[name].shape[dims[name]] == shape[-1], (name, shape)
+    assert any(d is not None for d in dims.values())
 
 
 def test_collectives_without_a_group_are_the_identity():

@@ -2,12 +2,16 @@
 ``tests/test_utils.py``): the statistics and index pickers
 (``utils/stats.py``), the plots (``utils/plotting.py``, matplotlib imported
 inside them), the progress bar (``utils/progress.py``), the ``.npy`` pair
-dataset and the synthetic set's ``hard`` profile; and the config's
-``to_yaml``, ``DCCRNConfig.hidden_freq`` and ``DCCRNConfig.scaled``.
+dataset and the synthetic set's ``hard`` profile; the config's
+``to_yaml``, ``DCCRNConfig.hidden_freq`` and ``DCCRNConfig.scaled``; and
+``utils/observability.py``'s ``StepTimer`` (its summary on the same
+recorded times) and ``trace`` (a Chrome trace file).
 """
 
 import dataclasses
 import io
+import json
+import time
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import pytest
 from speech_enhancement_clskd_tpu import config as jax_config
 from speech_enhancement_clskd_tpu.utils import plotting as jax_plotting
 from speech_enhancement_clskd_tpu.utils import stats as jax_stats
+from speech_enhancement_clskd_tpu.utils.observability import StepTimer as JaxStepTimer
 from speech_enhancement_clskd_tpu_torch import config
 from speech_enhancement_clskd_tpu_torch.data.npy_dataset import WaveDataset
 from speech_enhancement_clskd_tpu_torch.data.synthetic import SyntheticEnhancementDataset
@@ -23,6 +28,7 @@ from speech_enhancement_clskd_tpu_torch.utils.plotting import (
     plot_mask_to_numpy,
     plot_spectrogram_to_numpy,
 )
+from speech_enhancement_clskd_tpu_torch.utils.observability import StepTimer, trace
 from speech_enhancement_clskd_tpu_torch.utils.progress import Bar
 from speech_enhancement_clskd_tpu_torch.utils.stats import (
     get_mu_sig,
@@ -119,3 +125,43 @@ def test_config_to_yaml_and_geometry_helpers(tmp_path):
         s, js = t.scaled(4), jt.scaled(4)
         assert dataclasses.asdict(s) == dataclasses.asdict(js)
         assert s.name == f"{t.name}-div4" and t.scaled(2, name="half").name == "half"
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 100])
+def test_step_timer_summary_matches_jax(monkeypatch, n):
+    """The same recorded step times (a clock that moves by given amounts
+    between ``start`` and ``stop``) give the JAX class's summary, key for
+    key; ``step()`` times the block; nothing is recorded before a start."""
+    rng = np.random.default_rng(n)
+    durations = rng.exponential(0.05, n)
+    # the clock at each start and stop: a gap, then the step's duration
+    ticks = np.cumsum(np.stack([rng.random(n), durations], 1).ravel())
+    timers = (StepTimer(), JaxStepTimer())
+    for t in timers:
+        t.stop()  # no start: nothing recorded
+    for t in timers:
+        it = iter(ticks)
+        monkeypatch.setattr(time, "perf_counter", lambda: next(it))
+        for _ in range(n):
+            with t.step():
+                pass
+    got, want = (t.summary() for t in timers)
+    assert got == want
+    if n:
+        assert set(got) == {"steps", "mean_s", "p50_s", "p90_s", "p99_s"}
+        assert got["steps"] == n
+        np.testing.assert_allclose(got["mean_s"], durations.mean(), rtol=1e-9)
+    else:
+        assert got == {}
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    import torch
+
+    with trace(str(tmp_path / "prof")) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    files = list((tmp_path / "prof").glob("trace-*.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)
+    assert prof.key_averages()
